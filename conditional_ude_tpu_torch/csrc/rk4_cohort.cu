@@ -20,95 +20,24 @@
 // Reading one shared weight vector from shared memory and a warp-level
 // layout of the MLP are later work.
 //
-// Numerics: accurate tanhf/expf/log1pf (no fast math), and the file is built
-// with -fmad=false so that no multiply-add is contracted: the operations and
-// their order are those of the plain PyTorch version in
+// Numerics (cude_mlp.cuh): accurate tanhf/expf/log1pf, no contracted
+// multiply-adds; the operations and their order are those of the plain
+// PyTorch version in
 // conditional_ude_tpu_torch/ops/rk4_cohort.py::cohort_sse_reference.
 //
 // C interface (loaded with ctypes): rk4_cohort_sse returns cudaGetLastError()
 // after the launch.  It allocates nothing and launches on the given stream.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "cude_mlp.cuh"
 
 namespace {
 
-constexpr int kIn = 2;
-constexpr int kWidth = 4;
-constexpr int kParams = kIn * kWidth + kWidth + kWidth * kWidth + kWidth + kWidth + 1;
-static_assert(kParams == 37, "canonical chain(4, 2) on 2 inputs has 37 weights");
-constexpr int kMaxTimepoints = 16;
+using cude::Grid;
+using cude::kMaxTimepoints;
+using cude::Mlp;
+using cude::Segment;
+
 constexpr int kBlock = 128;
-
-struct Segment {
-  float t0;        // segment start time
-  float dt;        // RK4 step
-  float half_dt;   // 0.5 * dt
-  float sixth_dt;  // dt / 6
-  float inv_span;  // 1 / (t1 - t0)
-};
-
-struct Grid {
-  int n_seg;
-  int substeps;
-  int j0;               // glucose knot left of t = 0
-  float one_minus_w0;   // blend weights of glucose(0)
-  float w0;
-  Segment seg[kMaxTimepoints - 1];
-};
-
-__device__ __forceinline__ float softplus(float x) {
-  // max(x, 0) + log1p(exp(-|x|)); a NaN passes through as in torch.clamp_min
-  const float pos = x < 0.0f ? 0.0f : x;
-  return pos + log1pf(expf(-fabsf(x)));
-}
-
-struct Mlp {
-  float w1[kWidth][kIn], b1[kWidth];
-  float w2[kWidth][kWidth], b2[kWidth];
-  float w3[kWidth], b3;
-
-  __device__ __forceinline__ void load(const float* __restrict__ p) {
-    int i = 0;
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o)
-#pragma unroll
-      for (int k = 0; k < kIn; ++k) w1[o][k] = __ldg(p + i++);
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o) b1[o] = __ldg(p + i++);
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o)
-#pragma unroll
-      for (int k = 0; k < kWidth; ++k) w2[o][k] = __ldg(p + i++);
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o) b2[o] = __ldg(p + i++);
-#pragma unroll
-    for (int k = 0; k < kWidth; ++k) w3[k] = __ldg(p + i++);
-    b3 = __ldg(p + i);
-  }
-
-  // sum_k W[o][k] * h[k], left to right, then + b[o]
-  __device__ __forceinline__ float operator()(float x0, float x1) const {
-    float h1[kWidth], h2[kWidth];
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o) {
-      float acc = w1[o][0] * x0;
-      acc = acc + w1[o][1] * x1;
-      h1[o] = tanhf(acc + b1[o]);
-    }
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o) {
-      float acc = w2[o][0] * h1[0];
-#pragma unroll
-      for (int k = 1; k < kWidth; ++k) acc = acc + w2[o][k] * h1[k];
-      h2[o] = tanhf(acc + b2[o]);
-    }
-    float acc = w3[0] * h2[0];
-#pragma unroll
-    for (int k = 1; k < kWidth; ++k) acc = acc + w3[k] * h2[k];
-    return softplus(acc + b3);
-  }
-};
 
 __global__ void __launch_bounds__(kBlock)
 rk4_cohort_sse_kernel(const float* __restrict__ nn, long long nn_lane_stride,

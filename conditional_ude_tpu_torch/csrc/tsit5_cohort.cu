@@ -1,0 +1,254 @@
+// Adaptive Tsit5 solve + SSE per (restart, individual) lane (the final
+// re-rank of joint cUDE training), for Hopper (sm_90a).
+//
+// Replaces the TPU kernel conditional_ude_tpu/ops/pallas_tsit5.py::_build_kernel
+// (reached through cohort_sse_tsit5_pallas / screen_population_tsit5_pallas).
+// Every lane integrates its 2-state c-peptide ODE with the Tsitouras 5(4)
+// pair: FSAL, a PI step-size controller, Hairer's initial step, rtol/atol
+// scaled error norm, at most max_steps steps.  Each accepted step that
+// crosses a save time adds that residual to the lane's SSE through the free
+// interpolant.  A non-finite state or a step below 1e-10 of the span fails
+// the lane: ok = false and SSE = +inf.
+//
+// Design: one thread per lane; each lane has its own step sequence, which
+// suits SIMT threads better than the TPU's lockstep vector rows.  The JAX
+// kernel carries masked lanes through all max_steps iterations; here a lane
+// leaves its loop once it is done or failed, which is exact because a
+// masked step changes nothing.  The tableau and every constant are float32
+// values rounded once on the host from the JAX kernel's Python floats, so
+// dtc * A[s][j] * k[j] rounds as JAX's weak-typed constants do.
+//
+// Bound: latency.  The re-rank is 25 x 57 = 1,425 lanes (23 blocks of 64
+// threads on 132 SMs) of a few dozen steps of 6 network evaluations each,
+// in a dependent chain per thread; the work and the bytes are tiny.
+//
+// Numerics (cude_mlp.cuh): accurate tanhf/expf/log1pf/powf/sqrtf, no
+// contracted multiply-adds; maximum/minimum/clip propagate NaN as
+// jnp.maximum and torch.maximum do.  The operations and their order are
+// those of conditional_ude_tpu_torch/ops/tsit5_cohort.py::cohort_sse_tsit5_reference.
+// Accept/reject decisions sit on err <= 1, so a one-ulp difference can
+// change a lane's step sequence; the comparisons hold at Tsit5 tolerance.
+//
+// C interface (loaded with ctypes): tsit5_cohort_sse returns
+// cudaGetLastError() after the launch.  It allocates nothing and launches
+// on the given stream.
+
+#include <string.h>
+
+#include "cude_mlp.cuh"
+
+namespace {
+
+using cude::kMaxTimepoints;
+using cude::kParams;
+using cude::Mlp;
+
+constexpr int kBlock = 64;
+
+// the host array of tsit5_cohort.py::constants, field by field
+struct Tsit5Consts {
+  float c[7];
+  float a[7][6];
+  float btilde[7];
+  float interp[22];
+  float knot[kMaxTimepoints];
+  float span[kMaxTimepoints];
+  float one_minus_w0, w0, t0, t1, t_span, rtol, atol, tenth_span,
+      dt_fallback, dt_min, dt_floor, end_tol, save_slack, safety, neg_beta1,
+      beta2, neg_inv_order, h1_exp, fmin, fmax;
+};
+static_assert(sizeof(Tsit5Consts) == 130 * sizeof(float), "layout of constants()");
+
+// NaN-propagating maximum / minimum / clip, as jnp.maximum and torch.maximum
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a > b || isnan(a)) ? a : b;
+}
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a < b || isnan(a)) ? a : b;
+}
+__device__ __forceinline__ float jclip(float x, float lo, float hi) {
+  return jmin(jmax(x, lo), hi);
+}
+
+__device__ __forceinline__ void interp_coeffs(const float* c, float t, float b[7]) {
+  const float t2 = t * t;
+  b[0] = c[0] * t * (t - c[1]) * (t2 - c[2] * t + c[3]);
+  b[1] = c[4] * t2 * (t2 - c[5] * t + c[6]);
+  b[2] = c[7] * t2 * (t2 - c[8] * t + c[9]);
+  b[3] = c[10] * (t - c[11]) * (t - c[12]) * t2;
+  b[4] = c[13] * (t - c[14]) * (t - c[15]) * t2;
+  b[5] = c[16] * (t - c[17]) * (t - c[18]) * t2;
+  b[6] = c[19] * (t - c[20]) * (t - c[21]) * t2;
+}
+
+__device__ __forceinline__ float rms2(float a1, float a2, float s1, float s2) {
+  const float x1 = a1 / s1, x2 = a2 / s2;
+  return sqrtf(0.5f * (x1 * x1 + x2 * x2) + 1e-30f);
+}
+
+__global__ void __launch_bounds__(kBlock)
+tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, 37]
+                        const float* __restrict__ eb,       // [R * N] e^beta
+                        const float* __restrict__ glucose,  // [N, K]
+                        const float* __restrict__ data,     // [N, K]
+                        const float* __restrict__ kinetics, // [N, 4]
+                        float* __restrict__ sse_out,        // [R * N]
+                        bool* __restrict__ ok_out,          // [R * N]
+                        long long lanes, int n_ind, int n_save, int j0,
+                        int max_steps, const Tsit5Consts k) {
+  const long long lane = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (lane >= lanes) return;
+  const long long r = lane / n_ind;
+  const int n = static_cast<int>(lane - r * n_ind);
+
+  Mlp mlp;
+  mlp.load(nn + r * kParams);
+  const float e_beta = eb[lane];
+  float g[kMaxTimepoints], d[kMaxTimepoints];
+  for (int j = 0; j < n_save; ++j) {
+    g[j] = glucose[n * n_save + j];
+    d[j] = data[n * n_save + j];
+  }
+  const float k0 = kinetics[4 * n + 0];
+  const float k1 = kinetics[4 * n + 1];
+  const float k2 = kinetics[4 * n + 2];
+  const float c0 = kinetics[4 * n + 3];
+  const float base = mlp(0.0f, e_beta);
+  const float g_at0 = k.one_minus_w0 * g[j0] + k.w0 * g[j0 + 1];
+
+  // glucose at a lane's own time: a chain of where(t >= lo, segment, value)
+  auto g_at = [&](float t) -> float {
+    float val = g[0];
+    for (int j = 0; j < n_save - 1; ++j) {
+      const float w = jclip((t - k.knot[j]) / k.span[j], 0.0f, 1.0f);
+      const float seg = (1.0f - w) * g[j] + w * g[j + 1];
+      val = t >= k.knot[j] ? seg : val;
+    }
+    return val;
+  };
+  auto rhs = [&](float t, float v1, float v2, float& d1, float& d2) {
+    const float prod = mlp(g_at(t) - g_at0, e_beta) - base;
+    d1 = -(k0 + k2) * v1 + k1 * v2 + k0 * c0 + prod;
+    d2 = -k1 * v2 + k2 * v1;
+  };
+
+  // Hairer's initial step
+  float u1 = c0;
+  float u2 = (k2 / k1) * c0;
+  float t = k.t0;
+  float ka[7], kb[7];
+  rhs(t, u1, u2, ka[0], kb[0]);
+  const float s1 = k.atol + k.rtol * fabsf(u1);
+  const float s2 = k.atol + k.rtol * fabsf(u2);
+  const float d0 = rms2(u1, u2, s1, s2);
+  const float dn1 = rms2(ka[0], kb[0], s1, s2);
+  const bool small = (d0 < 1e-5f) || (dn1 < 1e-5f);
+  float h0 = small ? 1e-6f : 0.01f * d0 / (dn1 == 0.0f ? 1.0f : dn1);
+  h0 = jmin(h0, k.tenth_span);
+  float f2a, f2b;
+  rhs(t + h0, u1 + h0 * ka[0], u2 + h0 * kb[0], f2a, f2b);
+  const float dn2 = rms2(f2a - ka[0], f2b - kb[0], s1, s2) / h0;
+  const float dmax = jmax(dn1, dn2);
+  const float h1 = dmax <= 1e-15f ? jmax(1e-6f, h0 * 1e-3f)
+                                  : powf(0.01f / dmax, k.h1_exp);
+  float dt = jmin(100.0f * h0, jmin(h1, k.t_span));
+  dt = (isfinite(dt) && dt > 0.0f) ? dt : k.dt_fallback;
+
+  const float r0 = u1 - d[0];
+  float sse = r0 * r0;
+  float err_prev = 1.0f;
+  bool done = false, failed = false;
+
+  for (int step = 0; step < max_steps && !done && !failed; ++step) {
+    const float dtc = jmax(jmin(dt, k.t1 - t), k.dt_floor);
+    for (int s = 1; s < 6; ++s) {
+      float va = u1, vb = u2;
+      for (int j = 0; j < s; ++j) {
+        va = va + dtc * k.a[s][j] * ka[j];
+        vb = vb + dtc * k.a[s][j] * kb[j];
+      }
+      rhs(t + k.c[s] * dtc, va, vb, ka[s], kb[s]);
+    }
+    float ya = u1, yb = u2;
+    for (int j = 0; j < 6; ++j) {
+      ya = ya + dtc * k.a[6][j] * ka[j];
+      yb = yb + dtc * k.a[6][j] * kb[j];
+    }
+    rhs(t + dtc, ya, yb, ka[6], kb[6]);
+
+    float ea = k.btilde[0] * ka[0];
+    float ebb = k.btilde[0] * kb[0];
+    for (int j = 1; j < 7; ++j) {
+      ea = ea + k.btilde[j] * ka[j];
+      ebb = ebb + k.btilde[j] * kb[j];
+    }
+    ea = dtc * ea;
+    ebb = dtc * ebb;
+    const float sc1 = k.atol + k.rtol * jmax(fabsf(u1), fabsf(ya));
+    const float sc2 = k.atol + k.rtol * jmax(fabsf(u2), fabsf(yb));
+    const float err = rms2(ea, ebb, sc1, sc2);
+
+    const bool finite = isfinite(ya) && isfinite(yb) && isfinite(err);
+    const bool accept = finite && err <= 1.0f;
+    const float err_c = jmax(err, 1e-10f);
+    const float fac_acc = jclip(k.safety * powf(err_c, k.neg_beta1) * powf(err_prev, k.beta2),
+                                k.fmin, k.fmax);
+    const float fac_rej = jclip(k.safety * powf(err_c, k.neg_inv_order), k.fmin, 1.0f);
+    const float factor = accept ? fac_acc : (finite ? fac_rej : 0.5f);
+    const float dt_next = dtc * factor;
+
+    const float t_new = t + dtc;
+    const bool reached_end = t_new >= k.end_tol;
+    if (accept) {
+      for (int si = 1; si < n_save; ++si) {
+        const float t_s = k.knot[si];
+        const bool hit = t_s > t && (t_s <= t_new || (reached_end && t_s <= t_new + k.save_slack));
+        if (!hit) continue;
+        const float theta = jclip((t_s - t) / dtc, 0.0f, 1.0f);
+        float b[7];
+        interp_coeffs(k.interp, theta, b);
+        float yi = u1;
+        for (int j = 0; j < 7; ++j) yi = yi + dtc * b[j] * ka[j];
+        const float res = yi - d[si];
+        sse = sse + res * res;
+      }
+      t = t_new;
+      u1 = ya;
+      u2 = yb;
+      ka[0] = ka[6];
+      kb[0] = kb[6];
+      err_prev = err_c;
+      done = reached_end;
+    } else {
+      failed = dt_next < k.dt_min;
+    }
+    dt = dt_next;
+  }
+
+  const bool ok = done && !failed;
+  sse_out[lane] = (ok && isfinite(sse)) ? sse : INFINITY;
+  ok_out[lane] = ok;
+}
+
+}  // namespace
+
+extern "C" int tsit5_cohort_sse(const float* nn, const float* eb,
+                                const float* glucose, const float* data,
+                                const float* kinetics, float* sse, bool* ok,
+                                long long lanes, int n_ind,
+                                const float* consts,  // host, 130 floats
+                                int n_save, int j0, int max_steps,
+                                void* stream) {
+  if (n_save < 2 || n_save > kMaxTimepoints || j0 < 0 || j0 > n_save - 2 ||
+      n_ind < 1 || max_steps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes <= 0) return 0;
+  Tsit5Consts k;
+  memcpy(&k, consts, sizeof(k));
+  const long long blocks = (lanes + kBlock - 1) / kBlock;
+  tsit5_cohort_sse_kernel<<<static_cast<unsigned int>(blocks), kBlock, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      nn, eb, glucose, data, kinetics, sse, ok, lanes, n_ind, n_save, j0,
+      max_steps, k);
+  return static_cast<int>(cudaGetLastError());
+}

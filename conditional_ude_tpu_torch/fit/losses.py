@@ -1,7 +1,9 @@
 """Loss functions (counterpart of ``conditional_ude_tpu/fit/losses.py``).
 
 Batched over every lane: ``betas[..., N]`` gives losses ``[..., N]``.  A
-failed (non-finite) solve gives ``inf``.
+failed (non-finite) solve gives ``inf``.  ``solver`` is ``"rk4"`` (fixed
+steps, ``substeps`` per save segment) or ``"tsit5"`` (adaptive, at most
+``max_steps`` steps); both are plain tensor code, differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ from conditional_ude_tpu_torch.models.cpeptide import (
 
 
 def sse(model: CPeptideModel, nn_params: torch.Tensor, betas: torch.Tensor,
-        cohort: Cohort, substeps: int = 16) -> torch.Tensor:
+        cohort: Cohort, substeps: int = 16, solver: str = "rk4",
+        max_steps: int = 256) -> torch.Tensor:
     """Sum of squared errors on the plasma compartment; ``inf`` on failure."""
-    res = simulate_cohort(model, nn_params, betas, cohort, substeps=substeps)
+    res = simulate_cohort(model, nn_params, betas, cohort, substeps=substeps,
+                          solver=solver, max_steps=max_steps)
     err = torch.square(res.ys[..., 0] - cohort.cpeptide).sum(-1)
     return torch.where(res.success, err, torch.inf)
 
@@ -41,7 +45,9 @@ def conditional_sse(model: CPeptideModel, betas: torch.Tensor,
 
 def population_sse(model: CPeptideModel, nn_params: torch.Tensor,
                    betas: torch.Tensor, cohort: Cohort,
-                   substeps: int = 16) -> torch.Tensor:
+                   substeps: int = 16, solver: str = "rk4",
+                   max_steps: int = 256) -> torch.Tensor:
     """Mean over individuals of the per-individual SSE: ``[...]`` for
     ``betas[..., N]``; one diverged individual makes it ``inf``."""
-    return sse(model, nn_params, betas, cohort, substeps=substeps).mean(-1)
+    return sse(model, nn_params, betas, cohort, substeps=substeps,
+               solver=solver, max_steps=max_steps).mean(-1)

@@ -1,0 +1,94 @@
+"""Adam over a leading restart axis (counterpart of
+``conditional_ude_tpu/fit/optim.py``).
+
+The JAX package runs ``optax.adam`` under ``vmap`` over restarts; Adam is
+elementwise, so the batched form here is the same update on every row.  It
+follows ``optax.adam`` operation by operation: first and second moments
+``(1 − b)·g^k + b·m``, bias corrections ``1 − b^count`` in float32 from an
+integer step count, ``m̂ / (sqrt(v̂) + eps)`` scaled by ``−lr``.  Non-finite
+gradient entries (diverged solves) are zeroed before the update.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from conditional_ude_tpu_torch.ops.tsit5 import f32
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+class AdamState(NamedTuple):
+    count: int                      # steps taken
+    mu: tuple[torch.Tensor, ...]    # first moments, like x
+    nu: tuple[torch.Tensor, ...]    # second moments
+
+
+class AdamResult(NamedTuple):
+    x: tuple[torch.Tensor, ...]
+    fval: torch.Tensor              # [R] fun at the final x
+    loss_trace: torch.Tensor        # [R, iters] fun before each step
+    opt_state: AdamState
+
+
+def adam_init(x: Sequence[torch.Tensor]) -> AdamState:
+    return AdamState(0, tuple(torch.zeros_like(a) for a in x),
+                     tuple(torch.zeros_like(a) for a in x))
+
+
+def _autograd_vg(fun):
+    def vg(x):
+        with torch.enable_grad():
+            xs = [a.detach().requires_grad_(True) for a in x]
+            f = fun(tuple(xs))
+            grads = torch.autograd.grad(f.sum(), xs)
+        return f.detach(), grads
+    return vg
+
+
+def adam_minimize(
+    fun: Callable[[tuple[torch.Tensor, ...]], torch.Tensor] | None,
+    x0: Sequence[torch.Tensor],
+    iters: int = 1000,
+    lr: float = 1e-2,
+    opt_state: AdamState | None = None,
+    fun_and_grad: Callable | None = None,
+) -> AdamResult:
+    """Run ``iters`` Adam steps from ``x0``, a tuple of tensors whose
+    leading axis is the restart axis.
+
+    ``fun(x) -> f[R]`` is differentiated by autograd unless ``fun_and_grad``
+    (``x -> (f[R], grads like x)``) is given; ``fval`` is ``fun(x)`` at the
+    end (or the value of ``fun_and_grad`` when there is no ``fun``).
+    """
+    vg = fun_and_grad if fun_and_grad is not None else _autograd_vg(fun)
+    x = tuple(a.detach() for a in x0)
+    state = adam_init(x) if opt_state is None else opt_state
+    c1, c2 = f32(1.0 - B1), f32(1.0 - B2)
+    b1, b2, eps, neg_lr = f32(B1), f32(B2), f32(EPS), f32(-lr)
+    count, mu, nu = state
+    trace = []
+    for _ in range(iters):
+        f, grads = vg(x)
+        trace.append(f)
+        grads = [torch.where(torch.isfinite(g), g, 0.0) for g in grads]
+        mu = tuple(c1 * g + b1 * m for g, m in zip(grads, mu))
+        nu = tuple(c2 * (g * g) + b2 * v for g, v in zip(grads, nu))
+        count += 1
+        # as 0-d tensors: PyTorch on the card multiplies by the reciprocal
+        # of a Python-number divisor, optax divides
+        bc1, bc2 = (torch.tensor(np.float32(1.0) - np.float32(b)
+                                 ** np.float32(count), device=x[0].device)
+                    for b in (B1, B2))
+        x = tuple(a + ((m / bc1) / (torch.sqrt(v / bc2 + 0.0) + eps)) * neg_lr
+                  for a, m, v in zip(x, mu, nu))
+    with torch.no_grad():
+        fval = fun(x) if fun is not None else vg(x)[0]
+    dev = x[0].device
+    loss_trace = (torch.stack(trace, dim=-1) if trace
+                  else torch.zeros(x[0].shape[0], 0, device=dev))
+    return AdamResult(x=x, fval=fval, loss_trace=loss_trace,
+                      opt_state=AdamState(count, mu, nu))

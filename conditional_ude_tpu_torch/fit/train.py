@@ -1,21 +1,230 @@
-"""Frozen-network fits (counterpart of ``conditional_ude_tpu/fit/train.py:656-782``).
+"""Joint training and frozen-network fits (counterpart of
+``conditional_ude_tpu/fit/train.py``).
 
-With the network fixed, each individual's β (and σ) is re-estimated by the
-batched L-BFGS, every individual a row.  Gradients go through torch
-autograd on the plain batched RK4, as the JAX package takes them through
-XLA autodiff.  Joint training (``train_conditional``) comes with the next
-slice.
+* ``train_conditional``: joint multi-start training of the shared network
+  and one β per individual.  Screen every initial design with K1
+  (``ops/rk4_population.py``), keep the best, refine them with Adam then
+  L-BFGS on the value and exact gradient of K2 (``ops/lane_grad.py``), and
+  re-rank with adaptive Tsit5, K3 (``ops/tsit5_cohort.py``).  CUDA tensors
+  launch the kernels; CPU tensors run their plain versions.
+* ``fit_betas``, ``fit_betas_sigma``, ``evaluate_model``: with the network
+  fixed, each individual's β (and σ) is re-estimated by the batched L-BFGS,
+  every individual a row.  Gradients go through torch autograd on the plain
+  batched RK4, as the JAX package takes them through XLA autodiff.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import sys
+import time
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from conditional_ude_tpu_torch.fit.losses import sse, sse_sigma
-from conditional_ude_tpu_torch.models.cpeptide import Cohort, CPeptideModel
+from conditional_ude_tpu_torch.fit.optim import adam_minimize
+from conditional_ude_tpu_torch.models.cpeptide import (
+    Cohort,
+    CPeptideModel,
+    production_orientation,
+)
+from conditional_ude_tpu_torch.nn import MLP
+from conditional_ude_tpu_torch.ops import rk4_population, tsit5_cohort
+from conditional_ude_tpu_torch.ops.lane_grad import PopulationSSE
 from conditional_ude_tpu_torch.ops.lbfgs import lbfgs_minimize
+from conditional_ude_tpu_torch.ops.rk4_cohort import check_net_canonical
+from conditional_ude_tpu_torch.utils.stats import latin_hypercube
 
 _BIG = 1e30   # the "unbounded" box edge of the JAX package
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Hyper-parameters of joint training, with the JAX package's defaults
+    (the reference's ``src/parameter-estimation.jl:340-348``)."""
+
+    initial_guesses: int = 25_000
+    selected_initials: int = 25
+    lhs_lower: float = -2.0
+    lhs_upper: float = 0.0
+    n_conditional: int = 1
+    adam_iters: int = 1000
+    lbfgs_iters: int = 1000
+    adam_lr: float = 1e-2
+    # training runs fixed-step RK4 with `substeps` per observation segment;
+    # the final objectives are re-evaluated with adaptive Tsit5
+    solver: str = "rk4"
+    substeps: int = 8
+    max_steps: int = 256
+    # designs per screening evaluation of the plain version (bounds its
+    # memory on the CPU); the CUDA kernel screens all designs in one launch
+    screen_chunk: int = 4096
+    final_eval_tsit5: bool = True
+    # stage timers on stderr
+    log_timings: bool = False
+
+
+class TrainResult(NamedTuple):
+    """Per-restart trained parameters, best first."""
+
+    nn_params: torch.Tensor      # [R, P]
+    betas: torch.Tensor          # [R, N, c]
+    objectives: torch.Tensor     # [R]
+    screen_losses: torch.Tensor  # [G] losses of all initial designs
+    loss_traces: torch.Tensor    # [R, adam_iters]
+    # canonical ±1 β gauge per restart (models.cpeptide.production_orientation)
+    orientations: torch.Tensor | None = None
+    # {"screen"/"adam"/"lbfgs"/"final_eval": seconds,
+    #  "screen_path"/"refine_path": the route that ran}
+    timings: dict | None = None
+
+
+def initial_designs(net: MLP, n: int, generator: torch.Generator,
+                    cfg: TrainConfig, seed: int | None = None):
+    """Joint initial designs ``(nn_inits[G, P], betas_init[G, N, c])``:
+    Glorot-uniform networks from ``generator`` and a Latin hypercube of β in
+    [lhs_lower, lhs_upper], every (individual, conditional) pair its own
+    dimension.  The LHS is drawn with numpy from ``seed`` (or from a seed
+    the generator draws), so with the same seed it equals the JAX
+    package's design bit for bit; the networks cannot, as torch and
+    ``jax.random`` draw different numbers."""
+    g = cfg.initial_guesses
+    nn_inits = net.init_batch(g, generator)
+    if seed is None:
+        seed = int(torch.randint(2**62, (1,), generator=generator,
+                                 device=generator.device))
+    beta_flat = latin_hypercube(np.random.default_rng(seed), g,
+                                n * cfg.n_conditional, cfg.lhs_lower,
+                                cfg.lhs_upper)
+    betas_init = torch.as_tensor(beta_flat.reshape(g, n, cfg.n_conditional),
+                                 dtype=torch.float32, device=nn_inits.device)
+    return nn_inits, betas_init
+
+
+def _check_trainable(model: CPeptideModel, cfg: TrainConfig) -> None:
+    """The kernels take the canonical cUDE only: one conditional parameter,
+    chain(4, 2) on [ΔG, e^β], training with fixed-step RK4."""
+    if cfg.n_conditional != 1:
+        raise NotImplementedError(
+            f"train_conditional takes n_conditional=1 only, got "
+            f"{cfg.n_conditional}")
+    if cfg.solver != "rk4":
+        raise NotImplementedError(
+            f"train_conditional trains with solver='rk4' only, got "
+            f"{cfg.solver!r}")
+    try:
+        check_net_canonical(model.net, 2)
+    except ValueError as err:
+        raise NotImplementedError(str(err)) from None
+
+
+def train_conditional(model: CPeptideModel, cohort: Cohort,
+                      config: TrainConfig = TrainConfig(),
+                      generator: torch.Generator | None = None,
+                      seed: int | None = None,
+                      designs=None) -> TrainResult:
+    """Joint training of the shared network and every individual's β
+    (``src/parameter-estimation.jl:340-386``), on ``cohort.device``.
+
+    The designs come from ``generator`` (a ``torch.Generator`` on the
+    cohort's device; a fresh one seeded with ``seed`` when absent) and the
+    LHS from ``seed``, or are given as ``designs=(nn_inits[G, P],
+    betas_init[G, N, 1])``, e.g. the JAX package's, for parity.
+    """
+    cfg = config
+    _check_trainable(model, cfg)
+    net = model.net
+    dev = cohort.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    if designs is None:
+        if generator is None:
+            generator = torch.Generator(device=dev)
+            if seed is None:
+                generator.seed()
+            else:
+                generator.manual_seed(seed)
+        nn_inits, betas_init = initial_designs(net, cohort.n, generator, cfg,
+                                               seed)
+    else:
+        nn_inits, betas_init = (torch.as_tensor(np.array(a), dtype=torch.float32)
+                                for a in designs)
+    nn_inits, betas_init = nn_inits.to(dev), betas_init.to(dev)
+    cohort_args = (cohort.glucose, cohort.cpeptide, cohort.kinetics(),
+                   tuple(float(t) for t in cohort.timepoints))
+
+    # -- screen every design (K1) --------------------------------------------
+    b_screen = betas_init[:, :, 0].contiguous()
+    chunk = nn_inits.shape[0] if cuda else max(1, cfg.screen_chunk)
+    screen = torch.cat([
+        rk4_population.population_sse(net, nn_inits[i:i + chunk],
+                                      b_screen[i:i + chunk], *cohort_args,
+                                      cfg.substeps)
+        for i in range(0, nn_inits.shape[0], chunk)])
+    sync()
+    t1 = time.perf_counter()
+
+    # -- top-k, a stable sort as jnp.argsort's -------------------------------
+    top = torch.argsort(torch.where(torch.isfinite(screen), screen, torch.inf),
+                        stable=True)[:cfg.selected_initials]
+    nn0, b0 = nn_inits[top], betas_init[top, :, 0]
+
+    # -- Adam, then L-BFGS on the flat [nn, β] rows (K2 value + gradient) ----
+    def loss(nn, b):
+        return PopulationSSE.apply(nn, b, net, *cohort_args, cfg.substeps)
+
+    adam = adam_minimize(lambda x: loss(*x), (nn0, b0), iters=cfg.adam_iters,
+                         lr=cfg.adam_lr)
+    nn1, b1 = adam.x
+    sync()
+    t2 = time.perf_counter()
+
+    p = nn1.shape[1]
+    if cfg.lbfgs_iters > 0:
+        res = lbfgs_minimize(lambda x: loss(x[:, :p], x[:, p:]),
+                             torch.cat([nn1, b1], dim=1),
+                             max_iters=cfg.lbfgs_iters)
+        nn2, b2, objs = res.x[:, :p], res.x[:, p:], res.fval
+    else:
+        nn2, b2 = nn1, b1
+        objs = rk4_population.population_sse(net, nn2.contiguous(),
+                                             b2.contiguous(), *cohort_args,
+                                             cfg.substeps)
+    sync()
+    t3 = time.perf_counter()
+
+    # -- re-rank with adaptive Tsit5 (K3) -------------------------------------
+    if cfg.final_eval_tsit5:
+        objs = tsit5_cohort.screen_population_tsit5(
+            net, nn2, b2, *cohort_args, max_steps=cfg.max_steps)
+    sync()
+    t4 = time.perf_counter()
+    timings = {"screen": t1 - t0, "adam": t2 - t1, "lbfgs": t3 - t2,
+               "final_eval": t4 - t3,
+               "screen_path": "cuda_k1" if cuda else "plain",
+               "refine_path": "cuda_k2" if cuda else "plain"}
+    if cfg.log_timings:
+        print(f"[train_conditional] screen={timings['screen']:.1f}s "
+              f"adam={timings['adam']:.1f}s lbfgs={timings['lbfgs']:.1f}s "
+              f"final_eval={timings['final_eval']:.1f}s "
+              f"screen_path={timings['screen_path']} "
+              f"refine_path={timings['refine_path']}", file=sys.stderr)
+
+    orients = torch.tensor([production_orientation(model, nn) for nn in nn2],
+                           device=dev)
+    order = torch.argsort(torch.where(torch.isfinite(objs), objs, torch.inf),
+                          stable=True)
+    return TrainResult(nn_params=nn2[order], betas=b2[order, :, None],
+                       objectives=objs[order], screen_losses=screen,
+                       loss_traces=adam.loss_trace[order],
+                       orientations=orients[order], timings=timings)
 
 
 def _initial(initial_beta, cohort: Cohort) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch
 from conditional_ude_tpu_torch.nn import MLP
 from conditional_ude_tpu_torch.ops.interp import LinearInterp, linspace
 from conditional_ude_tpu_torch.ops.rk4 import SolveResult, solve_rk4, stage_times
+from conditional_ude_tpu_torch.ops.tsit5 import solve_tsit5
 
 LN2 = float(np.log(2.0))
 
@@ -145,6 +146,26 @@ class CPeptideModel:
 
         return f
 
+    def vector_field_lanes(self, nn_params: torch.Tensor,
+                           betas: torch.Tensor, cohort: Cohort):
+        """``f(t[..., N], y[..., N, 2])`` with a time of its own for every
+        lane (the adaptive solver's trajectories do not step in lockstep);
+        ΔG from the glucose interpolant at each lane's time."""
+        glucose = LinearInterp(cohort.timepoints, cohort.glucose)
+        g0 = glucose(0.0)
+        prod = self.production(nn_params, betas)
+        decay = -(cohort.k0 + cohort.k2)
+        inflow = cohort.k0 * cohort.c0
+        k1, k2, neg_k1 = cohort.k1, cohort.k2, -cohort.k1
+
+        def f(t: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+            u1, u2 = y[..., 0], y[..., 1]
+            du1 = decay * u1 + k1 * u2 + inflow + prod(glucose.at(t) - g0)
+            du2 = neg_k1 * u2 + k2 * u1
+            return torch.stack([du1, du2], dim=-1)
+
+        return f
+
     def rhs(self, t, y, nn_params, betas, cohort: Cohort) -> torch.Tensor:
         """One evaluation of the right-hand side at time ``t``."""
         return self.vector_field(nn_params, betas, cohort, [t])(t, y)
@@ -152,15 +173,25 @@ class CPeptideModel:
 
 def simulate_cohort(model: CPeptideModel, nn_params: torch.Tensor,
                     betas: torch.Tensor, cohort: Cohort, saveat=None,
-                    substeps: int = 16) -> SolveResult:
-    """Fixed-step RK4 of every lane from ``timepoints[0]``; ``ys[..., N, T, 2]``."""
+                    substeps: int = 16, solver: str = "rk4",
+                    max_steps: int = 256) -> SolveResult:
+    """Every lane from ``timepoints[0]``: fixed-step RK4 (``substeps`` per
+    save segment) or adaptive Tsit5 (``solver="tsit5"``, at most
+    ``max_steps`` steps, rtol 1e-3, atol 1e-6); ``ys[..., N, T, 2]``."""
     saveat = cohort.timepoints if saveat is None else saveat
     betas = torch.as_tensor(betas, dtype=torch.float32, device=cohort.device)
     t0 = cohort.timepoints[0]
-    f = model.vector_field(nn_params, betas, cohort,
-                           stage_times(saveat, t0, substeps))
     batch = torch.broadcast_shapes(betas.shape, (cohort.n,))
     y0 = cohort.u0.expand(*batch, 2)
+    if solver == "tsit5":
+        f = model.vector_field_lanes(nn_params, betas, cohort)
+        res = solve_tsit5(f, y0, t0, np.asarray(saveat)[-1], saveat,
+                          max_steps=max_steps)
+        return SolveResult(ys=res.ys, success=res.success)
+    if solver != "rk4":
+        raise ValueError(f"unknown solver {solver!r}")
+    f = model.vector_field(nn_params, betas, cohort,
+                           stage_times(saveat, t0, substeps))
     return solve_rk4(f, y0, saveat, t0=t0, substeps=substeps)
 
 

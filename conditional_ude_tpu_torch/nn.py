@@ -73,6 +73,21 @@ class MLP(nn.Module):
     def num_params(self) -> int:
         return sum(fi * fo + fo for fi, fo in self.layer_dims)
 
+    def init_batch(self, n: int, generator: torch.Generator) -> torch.Tensor:
+        """``n`` flat parameter vectors ``[n, P]`` on the generator's device:
+        Glorot-uniform weights in ±sqrt(6 / (fan_in + fan_out)), zero biases.
+
+        ``torch.Generator`` and ``jax.random`` draw different numbers, so
+        the designs equal the JAX package's in distribution, not in value.
+        """
+        opts = dict(dtype=torch.float32, device=generator.device)
+        parts = []
+        for fi, fo in self.layer_dims:
+            bound = (6.0 / (fi + fo)) ** 0.5
+            u = torch.rand(n, fo * fi, generator=generator, **opts)
+            parts += [(2.0 * u - 1.0) * bound, torch.zeros(n, fo, **opts)]
+        return torch.cat(parts, dim=1)
+
     def unflatten(self, flat: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """Split ``flat[..., P]`` into per-layer ``(W[..., fo, fi], b[..., fo])`` views."""
         if flat.shape[-1] != self.num_params:

@@ -43,6 +43,19 @@ class LinearInterp:
         out = y0 + torch.as_tensor(w, device=dev) * (y1 - y0)
         return out[..., 0] if np.ndim(t) == 0 else out
 
+    def at(self, t: torch.Tensor) -> torch.Tensor:
+        """``y`` at per-lane times ``t[..., N]`` for ``ys[N, K]``: each lane
+        its own query, as the adaptive solver needs."""
+        ts = torch.as_tensor(self.ts, device=t.device)
+        tq = torch.clamp(t, float(self.ts[0]), float(self.ts[-1]))
+        idx = torch.clamp(torch.searchsorted(ts, tq.contiguous(), right=True)
+                          - 1, 0, ts.shape[0] - 2)
+        ys = self.ys.expand(*t.shape, ts.shape[0])
+        y0 = torch.gather(ys, -1, idx[..., None])[..., 0]
+        y1 = torch.gather(ys, -1, idx[..., None] + 1)[..., 0]
+        w = (tq - ts[idx]) / (ts[idx + 1] - ts[idx])
+        return y0 + w * (y1 - y0)
+
 
 def linspace(lower: float, upper: float, steps: int) -> np.ndarray:
     """float32 ``[steps]`` grid computed as ``jnp.linspace`` computes it:

@@ -1,0 +1,303 @@
+"""K2: population SSE with its exact discrete gradient, for every Adam step
+and every L-BFGS trial of joint training (counterpart of
+``conditional_ude_tpu/ops/pallas_grad.py:314-473``,
+``_build_lane_grad_kernel``, and ``population_sse_and_grad_pallas``).
+
+The production term depends on time and parameters but not on the state,
+so the c-peptide ODE is affine in the state and one RK4 step is
+
+    v ← R·v + M_a·r(t) + M_mid·r(t + dt/2) + M_d·r(t + dt)
+
+with 2×2 stage matrices of the kinetics (``_stage_matrices``).  A lane is
+one (restart, individual) pair.  Its forward pass needs the network at
+1 + n_seg·(2·substeps + 1) points (69 on the OGTT grid; row 0 is the ΔG = 0
+baseline); an adjoint recursion over the five residuals gives each point's
+weight (the baseline's is −Σw), and one hand VJP per point gives ∇nn[37]
+and ∇β = (Σ_q ∂/∂e^β)·e^β.  The sum over individuals runs outside the
+kernel (:func:`population_sse_and_grad`), as in the JAX package.
+
+:func:`lane_sse_and_grad` launches ``csrc/lane_grad.cu`` for CUDA tensors
+and runs :func:`lane_sse_and_grad_reference`, the same arithmetic as plain
+tensor code over a leading lane axis, for CPU tensors.
+:class:`PopulationSSE` puts it under autograd: its forward launches once
+and its backward scales the saved gradients.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from conditional_ude_tpu_torch.nn import MLP
+from conditional_ude_tpu_torch.ops.cuda_build import (
+    F32_PTR,
+    I32,
+    I64,
+    VP,
+    KernelLibrary,
+)
+from conditional_ude_tpu_torch.ops.rk4_cohort import (
+    _mlp_columns,
+    _segments,
+    check_restart_inputs,
+    require_contiguous,
+)
+from conditional_ude_tpu_torch.ops.tsit5 import f32
+
+MAX_SUBSTEPS = 16
+
+# kernel launches since import (or since a caller reset it to 0)
+launches = 0
+
+kernel = KernelLibrary("lane_grad.cu", "lane_sse_and_grad",
+                       [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR,
+                        I32, I32, I32, VP])
+
+
+def grid_constants(timepoints, substeps: int) -> np.ndarray:
+    """Host float32 constants of the kernel: ``[1 − w0, w0, 1/(2·substeps),
+    1/2, 1/6, 1/24]`` then per segment ``[dt, c, c/2, c/4, 2c, 4c]`` with
+    c = dt/6, each rounded once from float64 as the JAX kernel's Python
+    floats are."""
+    _, j0, one_minus_w0, w0 = _segments(timepoints, substeps)
+    ts = np.asarray(timepoints, np.float64)
+    head = [one_minus_w0, w0, 1.0 / (2.0 * substeps), 0.5, 1.0 / 6.0,
+            1.0 / 24.0]
+    segs = []
+    for s in range(ts.shape[0] - 1):
+        dt = (float(ts[s + 1]) - float(ts[s])) / substeps
+        c = dt / 6.0
+        segs += [dt, c, 0.5 * c, 0.25 * c, 2.0 * c, 4.0 * c]
+    return np.asarray(head + segs, np.float32)
+
+
+def _mm(x, y):
+    x11, x12, x21, x22 = x
+    y11, y12, y21, y22 = y
+    return (x11 * y11 + x12 * y21, x11 * y12 + x12 * y22,
+            x21 * y11 + x22 * y21, x21 * y12 + x22 * y22)
+
+
+def _stage_matrices(k0, k1, k2, seg, rc):
+    """(R, M_a, M_mid, M_d) of one RK4 step of v' = A v + r(t), in the JAX
+    kernel's order of operations (``pallas_grad.py:109-121``)."""
+    dt, c, hc, qc, c2, c4 = seg
+    half, sixth, t24 = rc
+    b = (dt * -(k0 + k2), dt * k1, dt * k2, dt * -k1)
+    b2 = _mm(b, b)
+    b3 = _mm(b2, b)
+    b4 = _mm(b3, b)
+    eye = (1.0, 0.0, 0.0, 1.0)
+    r_m = [eye[i] + b[i] + half * b2[i] + sixth * b3[i] + t24 * b4[i]
+           for i in range(4)]
+    m_a = [c * eye[i] + c * b[i] + hc * b2[i] + qc * b3[i] for i in range(4)]
+    m_mid = [c4 * eye[i] + c2 * b[i] + hc * b2[i] for i in range(4)]
+    m_d = (c, 0.0, 0.0, c)
+    return r_m, m_a, m_mid, m_d
+
+
+def _adjoint_weights(consts, k0, k1, k2, res, n_seg, substeps):
+    """Per-point head weights ``[QT][lanes]`` from the residuals; row 0
+    (the baseline) gets −Σ of the others."""
+    rc = consts[3:6].tolist()
+    q_seg = 2 * substeps + 1
+    rows = [None] * (1 + n_seg * q_seg)
+    l1 = l2 = torch.zeros_like(res[0])
+    for s in range(n_seg - 1, -1, -1):
+        seg = consts[6 + 6 * s: 12 + 6 * s].tolist()
+        r_m, m_a, m_mid, m_d = _stage_matrices(k0, k1, k2, seg, rc)
+        l1 = l1 + 2.0 * res[s + 1]
+        w = [None] * q_seg
+        for i in range(substeps - 1, -1, -1):
+            a = m_a[0] * l1 + m_a[2] * l2
+            w[2 * i] = a
+            mid = m_mid[0] * l1 + m_mid[2] * l2
+            w[2 * i + 1] = mid
+            end = m_d[0] * l1 + m_d[2] * l2
+            w[2 * i + 2] = end if w[2 * i + 2] is None else w[2 * i + 2] + end
+            l1, l2 = r_m[0] * l1 + r_m[2] * l2, r_m[1] * l1 + r_m[3] * l2
+        rows[1 + s * q_seg: 1 + (s + 1) * q_seg] = w
+    w_tot = rows[1]
+    for q in range(2, len(rows)):
+        w_tot = w_tot + rows[q]
+    rows[0] = -w_tot
+    return rows
+
+
+def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
+                                kinetics, timepoints, substeps: int = 8):
+    """Plain PyTorch version of the kernel over ``[R, N]`` lanes: per-lane
+    ``(sse[R, N], gnn[R, N, P], gb[R, N])``, the sums over the evaluation
+    points taken first to last as the kernel takes them."""
+    consts = grid_constants(timepoints, substeps)
+    _, j0, _, _ = _segments(timepoints, substeps)
+    one_minus_w0, w0, inv_2s = consts[:3].tolist()
+    n_seg = len(timepoints) - 1
+    q_seg = 2 * substeps + 1
+    (w1, b1), (w2, b2), (w3, b3) = _mlp_columns(nn_params, net)
+    eb = torch.exp(betas)                                         # [R, N]
+    k0, k1, k2, c0 = (kinetics[:, i] for i in range(4))
+    g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
+
+    # ΔG of every evaluation point [QT][N]; row 0 is the baseline ΔG = 0
+    dgs = [torch.zeros_like(g_at0)]
+    for s in range(n_seg):
+        gl, gr = glucose[:, s], glucose[:, s + 1]
+        for q in range(q_seg):
+            wq = np.float32(q) * np.float32(inv_2s)
+            dgs.append(f32(np.float32(1.0) - wq) * gl + f32(wq) * gr - g_at0)
+
+    def forward(dg):
+        h1 = [torch.tanh(w1[o][0] * dg + w1[o][1] * eb + b1[o])
+              for o in range(4)]
+        h2 = []
+        for o in range(4):
+            acc = w2[o][0] * h1[0]
+            for k in range(1, 4):
+                acc = acc + w2[o][k] * h1[k]
+            h2.append(torch.tanh(acc + b2[o]))
+        acc = w3[0][0] * h2[0]
+        for k in range(1, 4):
+            acc = acc + w3[0][k] * h2[k]
+        z3 = acc + b3[0]
+        return h1, h2, z3
+
+    def softplus(z):
+        return torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z)))
+
+    out = [softplus(forward(dg)[2]) for dg in dgs]
+    base = out[0]
+    kc = k0 * c0
+
+    # forward: matrix-form RK4 on the precomputed productions
+    rc = consts[3:6].tolist()
+    u1 = c0.expand_as(eb)
+    u2 = (k2 / k1) * u1
+    res = [u1 - data[:, 0]]
+    for s in range(n_seg):
+        seg = consts[6 + 6 * s: 12 + 6 * s].tolist()
+        r_m, m_a, m_mid, m_d = _stage_matrices(k0, k1, k2, seg, rc)
+        bq = 1 + s * q_seg
+        for i in range(substeps):
+            ra = kc + out[bq + 2 * i] - base
+            rm = kc + out[bq + 2 * i + 1] - base
+            rd = kc + out[bq + 2 * i + 2] - base
+            n1 = (r_m[0] * u1 + r_m[1] * u2 + m_a[0] * ra + m_mid[0] * rm
+                  + m_d[0] * rd)
+            n2 = (r_m[2] * u1 + r_m[3] * u2 + m_a[2] * ra + m_mid[2] * rm
+                  + m_d[2] * rd)
+            u1, u2 = n1, n2
+        res.append(u1 - data[:, s + 1])
+    sse = res[0] * res[0]
+    for r in res[1:]:
+        sse = sse + r * r
+
+    # backward: adjoint weights, then one hand VJP per point
+    wts = _adjoint_weights(consts, k0, k1, k2, res, n_seg, substeps)
+    grads = None
+    deb = None
+    for dg, wq in zip(dgs, wts):
+        h1, h2, z3 = forward(dg)
+        dz3 = wq * (1.0 / (1.0 + torch.exp(-z3)))
+        g3 = [dz3 * h2[k] for k in range(4)] + [dz3]
+        dz2 = [dz3 * w3[0][k] * (1.0 - h2[k] * h2[k]) for k in range(4)]
+        g2 = [dz2[o] * h1[k] for o in range(4) for k in range(4)] + dz2
+        dz1 = []
+        for k in range(4):
+            dh = dz2[0] * w2[0][k]
+            for o in range(1, 4):
+                dh = dh + dz2[o] * w2[o][k]
+            dz1.append(dh * (1.0 - h1[k] * h1[k]))
+        g1 = [dz1[o] * x for o in range(4) for x in (dg, eb)] + dz1
+        dh_eb = dz1[0] * w1[0][1]
+        for o in range(1, 4):
+            dh_eb = dh_eb + dz1[o] * w1[o][1]
+        contrib = torch.stack(g1 + g2 + g3, dim=-1)
+        grads = contrib if grads is None else grads + contrib
+        deb = dh_eb if deb is None else deb + dh_eb
+    return sse, grads, deb * eb
+
+
+def lane_sse_and_grad(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
+                      glucose: torch.Tensor, data: torch.Tensor,
+                      kinetics: torch.Tensor, timepoints, substeps: int = 8):
+    """Per-lane ``(sse[R, N], gnn[R, N, P], gb[R, N])`` of restarts
+    ``nn_params[R, P]``, ``betas[R, N]`` on a cohort ``glucose[N, K]``,
+    ``data[N, K]``, ``kinetics[N, 4]``: lane (r, n) is restart r on
+    individual n.  CPU tensors run the plain version; CUDA tensors launch
+    the kernel."""
+    check_restart_inputs(net, nn_params, betas, glucose, data, kinetics,
+                         timepoints)
+    if not 1 <= substeps <= MAX_SUBSTEPS:
+        raise ValueError(f"substeps must be 1..{MAX_SUBSTEPS}")
+    if betas.device.type == "cpu":
+        return lane_sse_and_grad_reference(net, nn_params, betas, glucose,
+                                           data, kinetics, timepoints,
+                                           substeps)
+    if betas.device.type != "cuda":
+        raise ValueError(f"no value+grad kernel for device {betas.device}")
+    return _launch(nn_params, betas, glucose, data, kinetics, timepoints,
+                   substeps)
+
+
+def _launch(nn_params, betas, glucose, data, kinetics, timepoints, substeps):
+    global launches
+    require_contiguous(nn_params=nn_params, betas=betas, glucose=glucose,
+                       data=data, kinetics=kinetics)
+    r, n = betas.shape
+    p = nn_params.shape[1]
+    opts = dict(dtype=torch.float32, device=betas.device)
+    sse = torch.empty(r, n, **opts)
+    gnn = torch.empty(r, n, p, **opts)
+    gb = torch.empty(r, n, **opts)
+    if r * n == 0:
+        return sse, gnn, gb
+    _, j0, _, _ = _segments(timepoints, substeps)
+    consts = grid_constants(timepoints, substeps)
+    with torch.cuda.device(betas.device):
+        stream = torch.cuda.current_stream(betas.device).cuda_stream
+        kernel(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
+               data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
+               gnn.data_ptr(), gb.data_ptr(), r * n, n,
+               consts.ctypes.data_as(F32_PTR), len(timepoints) - 1, substeps,
+               j0, stream)
+    launches += 1
+    return sse, gnn, gb
+
+
+def population_sse_and_grad(net: MLP, nn_params: torch.Tensor,
+                            betas: torch.Tensor, glucose: torch.Tensor,
+                            data: torch.Tensor, kinetics: torch.Tensor,
+                            timepoints, substeps: int = 8):
+    """``(f[R], gnn[R, P], gb[R, N])``: the population mean SSE per restart
+    and its exact gradient.  One kernel launch over the (restart ×
+    individual) lanes, then the mean over individuals, ``inf`` where it is
+    not finite (``pallas_grad.py:651-663``)."""
+    sse, gnn, gb = lane_sse_and_grad(
+        net, nn_params.contiguous(), betas.contiguous(), glucose, data,
+        kinetics, timepoints, substeps)
+    inv_n = f32(1.0 / betas.shape[1])
+    mean = sse.sum(1) * inv_n
+    f = torch.where(torch.isfinite(mean), mean, torch.inf)
+    return f, gnn.sum(1) * inv_n, gb * inv_n
+
+
+class PopulationSSE(torch.autograd.Function):
+    """``f[R]`` of :func:`population_sse_and_grad` under autograd: the
+    forward launches the kernel once and keeps ∇nn and ∇β; the backward
+    returns them times ``grad_output``."""
+
+    @staticmethod
+    def forward(ctx, nn_params, betas, net, glucose, data, kinetics,
+                timepoints, substeps):
+        f, gnn, gb = population_sse_and_grad(net, nn_params, betas, glucose,
+                                             data, kinetics, timepoints,
+                                             substeps)
+        ctx.save_for_backward(gnn, gb)
+        return f
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        gnn, gb = ctx.saved_tensors
+        return (grad_output[:, None] * gnn, grad_output[:, None] * gb,
+                None, None, None, None, None, None)

@@ -9,35 +9,33 @@ observation grid.  :func:`cohort_sse` launches the CUDA kernel in
 the same arithmetic as plain tensor code, for CPU tensors.
 
 The kernel is built by ``nvcc`` for ``sm_90a`` at first use into ``build/``
-at the repository root and bound with ``ctypes``.
+at the repository root and bound with ``ctypes`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from conditional_ude_tpu_torch.nn import MLP, softplus
+from conditional_ude_tpu_torch.ops.cuda_build import (
+    F32,
+    F32_PTR,
+    I32,
+    I64,
+    VP,
+    KernelLibrary,
+)
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rk4_cohort.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-# -fmad=false: no contracted multiply-adds, so the kernel performs the plain
-# version's operations in the plain version's order; no fast math
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 MAX_TIMEPOINTS = 16
 CANONICAL_WIDTHS = (4, 4)
 
 # kernel launches since import (or since a caller reset it to 0)
 launches = 0
 
-_lib = None
+kernel = KernelLibrary("rk4_cohort.cu", "rk4_cohort_sse",
+                       [VP, I64, VP, VP, VP, VP, VP, I64, F32_PTR, I32, I32,
+                        I32, F32, F32, VP])
 
 
 def check_net_canonical(net: MLP, input_dims: int | tuple = (2, 3)) -> None:
@@ -87,6 +85,13 @@ def _mlp_rows(nn_params: torch.Tensor, net: MLP):
         i += fo
         layers.append((W, b))
     return layers
+
+
+def _mlp_columns(nn_params: torch.Tensor, net: MLP):
+    """:func:`_mlp_rows` of restarts ``nn_params[R, P]`` as ``[R, 1]``
+    columns, which broadcast over an individual axis."""
+    return [([[w[:, None] for w in row] for row in W], [b[:, None] for b in B])
+            for W, B in _mlp_rows(nn_params, net)]
 
 
 def _mlp_forward(layers, x):
@@ -151,29 +156,63 @@ def cohort_sse_reference(net: MLP, nn_params, betas, glucose, data, kinetics,
     return torch.where(torch.isfinite(sse), sse, torch.inf)
 
 
-def _check_inputs(net, nn_params, betas, glucose, data, kinetics, timepoints,
-                  substeps):
-    check_net_canonical(net)
-    tensors = dict(nn_params=nn_params, betas=betas, glucose=glucose,
-                   data=data, kinetics=kinetics)
-    for name, t in tensors.items():
+def _check_float32(betas: torch.Tensor, **tensors) -> None:
+    for name, t in dict(betas=betas, **tensors).items():
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
             raise TypeError(f"{name} must be a float32 tensor")
         if t.device != betas.device:
             raise ValueError(f"{name} is on {t.device}, betas on {betas.device}")
-    n_lanes, k = betas.shape[0], len(timepoints)
-    n_kin = 4 + int(net.input_dims == 3)
-    shapes = dict(nn_params=(n_lanes, net.num_params), betas=(n_lanes,),
-                  glucose=(n_lanes, k), data=(n_lanes, k),
-                  kinetics=(n_lanes, n_kin))
+
+
+def _check_shapes(tensors: dict, shapes: dict, timepoints) -> None:
     for name, shape in shapes.items():
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, "
                              f"got {tuple(tensors[name].shape)}")
     ts = np.asarray(timepoints, np.float64)
-    if not 2 <= k <= MAX_TIMEPOINTS or np.any(np.diff(ts) <= 0):
+    if not 2 <= len(ts) <= MAX_TIMEPOINTS or np.any(np.diff(ts) <= 0):
         raise ValueError(f"timepoints must be 2..{MAX_TIMEPOINTS} increasing "
                          f"times, got {ts}")
+
+
+def require_contiguous(**tensors) -> None:
+    """The kernels index rows directly: every tensor must be contiguous."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def check_restart_inputs(net: MLP, nn_params, betas, glucose, data, kinetics,
+                         timepoints) -> None:
+    """Inputs of the kernels that take restarts (K1, K2, K3): the canonical
+    2-input network, float32 ``nn_params[R, P]`` and ``betas[R, N]`` on one
+    device with the cohort ``glucose[N, K]``, ``data[N, K]``,
+    ``kinetics[N, 4]`` and 2..16 increasing ``timepoints[K]``."""
+    check_net_canonical(net, 2)
+    tensors = dict(nn_params=nn_params, glucose=glucose, data=data,
+                   kinetics=kinetics)
+    _check_float32(betas, **tensors)
+    if betas.ndim != 2:
+        raise ValueError(f"betas must be [restarts, individuals], got "
+                         f"{tuple(betas.shape)}")
+    r, n = betas.shape
+    k = len(timepoints)
+    _check_shapes(tensors, dict(nn_params=(r, net.num_params), glucose=(n, k),
+                                data=(n, k), kinetics=(n, 4)), timepoints)
+
+
+def _check_inputs(net, nn_params, betas, glucose, data, kinetics, timepoints,
+                  substeps):
+    check_net_canonical(net)
+    tensors = dict(nn_params=nn_params, glucose=glucose, data=data,
+                   kinetics=kinetics)
+    _check_float32(betas, **tensors)
+    n_lanes, k = betas.shape[0], len(timepoints)
+    n_kin = 4 + int(net.input_dims == 3)
+    _check_shapes({**tensors, "betas": betas},
+                  dict(nn_params=(n_lanes, net.num_params), betas=(n_lanes,),
+                       glucose=(n_lanes, k), data=(n_lanes, k),
+                       kinetics=(n_lanes, n_kin)), timepoints)
     if substeps < 1:
         raise ValueError("substeps must be >= 1")
 
@@ -213,10 +252,8 @@ def _launch(nn_params, betas, glucose, data, kinetics, timepoints, substeps):
                                      (0, nn_params.shape[1])):
         raise ValueError("nn_params must be contiguous rows or one row "
                          "expanded with lane stride 0")
-    for name, t in (("betas", betas), ("glucose", glucose), ("data", data),
-                    ("kinetics", kinetics)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    require_contiguous(betas=betas, glucose=glucose, data=data,
+                       kinetics=kinetics)
     n_lanes = betas.shape[0]
     out = torch.empty(n_lanes, dtype=torch.float32, device=betas.device)
     if n_lanes == 0:
@@ -226,55 +263,9 @@ def _launch(nn_params, betas, glucose, data, kinetics, timepoints, substeps):
     with torch.cuda.device(betas.device):
         eb = torch.exp(betas)
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        err = library().rk4_cohort_sse(
-            nn_params.data_ptr(), lane_stride, eb.data_ptr(),
-            glucose.data_ptr(), data.data_ptr(), kinetics.data_ptr(),
-            out.data_ptr(), n_lanes,
-            segs.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            segs.shape[0], substeps, j0, one_minus_w0, w0, stream)
-    if err != 0:
-        raise RuntimeError(f"rk4_cohort_sse launch failed: CUDA error {err}")
+        kernel(nn_params.data_ptr(), lane_stride, eb.data_ptr(),
+               glucose.data_ptr(), data.data_ptr(), kinetics.data_ptr(),
+               out.data_ptr(), n_lanes, segs.ctypes.data_as(F32_PTR),
+               segs.shape[0], substeps, j0, one_minus_w0, w0, stream)
     launches += 1
     return out
-
-
-# -- build and bind -----------------------------------------------------------
-
-def nvcc_command(output: Path) -> list[str]:
-    """The ``nvcc`` command line that builds the kernel library."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = "nvcc" if CUDA_HOME is None else str(Path(CUDA_HOME) / "bin" / "nvcc")
-    return [nvcc, *NVCC_FLAGS, "-o", str(output), str(SOURCE)]
-
-
-def build() -> Path:
-    """Build the kernel library unless a build of this exact source and these
-    flags exists; returns its path."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"rk4_cohort-{key.hexdigest()[:16]}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp.so")
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
-def library() -> ctypes.CDLL:
-    """The built kernel library with its C signature declared."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.rk4_cohort_sse
-        vp, ll, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_float)
-        fn.argtypes = [vp, ll, vp, vp, vp, vp, vp, ll,
-                       ctypes.POINTER(ctypes.c_float), i32, i32, i32, f32,
-                       f32, vp]
-        fn.restype = i32
-        _lib = lib
-    return _lib

@@ -1,12 +1,20 @@
-"""The frozen-network path of the flagship experiment, end to end
-(counterpart of ``experiments/common.py:119-256`` and
-``experiments/exp02_conditional.py:58-102`` without ``--retrain``).
+"""The flagship experiment end to end (counterpart of
+``experiments/common.py:119-256`` and ``experiments/exp02_conditional.py``).
 
-With the trained candidates of ``cude_neural_parameters.npz`` held fixed:
+Two paths share the stages after training:
+
+* ``run_frozen_pipeline``: exp02 without ``--retrain``, on the trained
+  candidates of ``cude_neural_parameters.npz`` and their fit/validation
+  split;
+* ``run_training_pipeline``: exp02 with ``--retrain``; the stratified 70/30
+  fit/validation split of the training subjects from a seed, then
+  ``train_conditional`` on the fit split.  It writes nothing into the
+  artifacts directory, whose files are the JAX package's reference.
+
+The stages, given candidate networks and their training β's:
 
 1. validation selection: an unbounded β fit of every candidate on every
-   validation subject (the training subjects outside the artifact's
-   ``idx_fit``), and the candidate with the least summed objective;
+   validation subject, and the candidate with the least summed objective;
 2. (β, σ) re-estimation on all training and all test subjects, bounds the
    selected candidate's training-β range ±10%, and the SSE back-converted
    from the σ-NLL;
@@ -35,9 +43,12 @@ from conditional_ude_tpu_torch.analysis.profiles import (
 from conditional_ude_tpu_torch.convert import load_candidates, params_from_jax
 from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
 from conditional_ude_tpu_torch.fit.train import (
+    TrainConfig,
+    TrainResult,
     evaluate_model,
     fit_betas_sigma,
     select_best,
+    train_conditional,
 )
 from conditional_ude_tpu_torch.models.cpeptide import (
     CPeptideModel,
@@ -45,10 +56,13 @@ from conditional_ude_tpu_torch.models.cpeptide import (
     production_orientation,
 )
 from conditional_ude_tpu_torch.nn import chain
-from conditional_ude_tpu_torch.utils.stats import spearman
+from conditional_ude_tpu_torch.utils.stats import spearman, stratified_split
+
+SEED = 270523   # the flagship's seed (experiments/exp02_conditional.py)
+
 
 @dataclasses.dataclass
-class FrozenResult:
+class PipelineResult:
     best: int
     val_objectives: np.ndarray   # [R, N_val]
     orientation: float
@@ -60,11 +74,12 @@ class FrozenResult:
     s_test: np.ndarray
     sse_test: np.ndarray
     spearman: dict[str, float]
-    profile: Profile              # test cohort, [35, steps]
+    profile: Profile | None       # test cohort, [35, steps]
     census_test: dict[str, int]
-    delta_profile: Profile        # all subjects, Δβ axis
+    delta_profile: Profile | None  # all subjects, Δβ axis
     census_all: dict[str, int]
     seconds: dict[str, float]     # wall-clock per stage
+    training: TrainResult | None = None   # the retrain path's candidates
 
     def metrics(self) -> dict:
         """The exp02 metrics this path computes, as JSON-ready values."""
@@ -78,6 +93,8 @@ class FrozenResult:
             "identifiability_census_test": self.census_test,
             "identifiability_census_all": self.census_all,
             "stage_seconds": self.seconds,
+            **({"train_timings": self.training.timings}
+               if self.training is not None else {}),
         }
 
 
@@ -85,11 +102,32 @@ def _counts(census: np.ndarray) -> dict[str, int]:
     return {str(c): int((census == c).sum()) for c in np.unique(census)}
 
 
+def _cohort(split: OhashiSplit, dev: torch.device):
+    return build_cohort(split.glucose, split.timepoints, split.cpeptide,
+                        split.ages, split.t2dm, dev)
+
+
+class _Stages:
+    """Wall-clock of named stages, synchronised with the card."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.seconds: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.seconds[name] = time.perf_counter() - t0
+
+
 def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
                         lbfgs_iters: int = 1000, candidates: int | None = None,
                         subjects: int | None = None,
                         profile_steps: int = 10_000,
-                        census_steps: int = 1_000) -> FrozenResult:
+                        census_steps: int = 1_000) -> PipelineResult:
     """Run the frozen path on ``device``.
 
     ``candidates`` keeps the first candidates only and ``subjects`` the first
@@ -97,16 +135,6 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
     """
     dev = torch.device(device)
     artifacts_dir = Path(artifacts_dir)
-    seconds: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def stage(name):
-        t0 = time.perf_counter()
-        yield
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        seconds[name] = time.perf_counter() - t0
-
     train, test = load_npz(artifacts_dir / "ohashi.npz")
     nn_np, betas_np, idx_fit, orientations = load_candidates(
         artifacts_dir / "cude_neural_parameters.npz")
@@ -117,19 +145,53 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
     if subjects is not None:
         train, val, test = (s.subset(np.arange(min(subjects, len(s.ages))))
                             for s in (train, val, test))
-
-    def cohort(split: OhashiSplit):
-        return build_cohort(split.glucose, split.timepoints, split.cpeptide,
-                            split.ages, split.t2dm, dev)
-
     net = chain(4, 2, "tanh", input_dims=2)
-    model = CPeptideModel(net)
-    cand = params_from_jax(nn_np, net, dev)
+    return _select_and_analyse(
+        dev, CPeptideModel(net), params_from_jax(nn_np, net, dev), betas_np,
+        orientations, train, val, test, _Stages(dev), lbfgs_iters,
+        profile_steps, census_steps)
 
+
+def run_training_pipeline(device: torch.device | str,
+                          artifacts_dir: str | Path, seed: int = SEED,
+                          config: TrainConfig = TrainConfig(),
+                          lbfgs_iters: int = 1000,
+                          profile_steps: int = 10_000,
+                          census_steps: int = 1_000) -> PipelineResult:
+    """Run the retrain path on ``device``: the fit/validation split and the
+    training designs from ``seed``, ``train_conditional`` with ``config`` on
+    the fit split, then the shared stages on the trained candidates (a step
+    count of 0 skips that profile scan)."""
+    dev = torch.device(device)
+    train, test = load_npz(Path(artifacts_dir) / "ohashi.npz")
+    idx_fit, idx_val = stratified_split(np.random.default_rng(seed),
+                                        train.types, 0.7)
+    model = CPeptideModel(chain(4, 2, "tanh", input_dims=2))
+    stage = _Stages(dev)
+    with stage("train"):
+        trained = train_conditional(
+            model, _cohort(train.subset(idx_fit), dev), config,
+            generator=torch.Generator(device=dev).manual_seed(seed),
+            seed=seed)
+    result = _select_and_analyse(
+        dev, model, trained.nn_params, trained.betas.cpu().numpy(),
+        trained.orientations.cpu().numpy(), train, train.subset(idx_val),
+        test, stage, lbfgs_iters, profile_steps, census_steps)
+    return dataclasses.replace(result, training=trained)
+
+
+def _select_and_analyse(dev, model: CPeptideModel, cand: torch.Tensor,
+                        betas_np: np.ndarray, orientations: np.ndarray,
+                        train: OhashiSplit, val: OhashiSplit,
+                        test: OhashiSplit, stage: _Stages, lbfgs_iters: int,
+                        profile_steps: int,
+                        census_steps: int) -> PipelineResult:
+    """Stages 1-5 on candidates ``cand[R, P]`` with training β's
+    ``betas_np[R, N_fit(, 1)]``; a step count of 0 skips that scan."""
     with stage("select"):
         objectives = evaluate_model(
-            model, cand, torch.as_tensor(betas_np, device=dev), cohort(val),
-            lbfgs_iters=lbfgs_iters)
+            model, cand, torch.as_tensor(betas_np, device=dev),
+            _cohort(val, dev), lbfgs_iters=lbfgs_iters)
         best = select_best(objectives)
     nn_best = cand[best]
     betas_best = np.asarray(betas_np[best], np.float32).ravel()
@@ -144,7 +206,7 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
     # training and test subjects in one batch: every individual is its own
     # L-BFGS row, so this equals two separate fits
     both = OhashiSplit.concatenate(train, test)
-    cohort_both = cohort(both)
+    cohort_both = _cohort(both, dev)
     with stage("refit"):
         b_all, s_all, o_all = (t.cpu().numpy() for t in fit_betas_sigma(
             model, nn_best, cohort_both, initial_beta=-1.0,
@@ -162,24 +224,28 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
             "age": spearman(b_idx, both.ages),
             "insulin_sensitivity": spearman(b_idx, both.insulin_sensitivity)}
 
-    with stage("profile_test"):
-        prof = cohort_beta_profiles(model, nn_best, cohort(test),
-                                    sigmas=s_test, lower=float(lb) - 1.0,
-                                    upper=float(ub) + 1.0,
-                                    steps=profile_steps)
-        census_test = _counts(classify_identifiability(
-            find_confidence_intervals(prof, "cantelli95")))
-    with stage("census"):
-        prof_all = cohort_beta_profiles(model, nn_best, cohort_both,
-                                        sigmas=s_all, lower=-10.0, upper=10.0,
-                                        steps=census_steps, center=b_all)
-        census_all = _counts(classify_identifiability(
-            find_confidence_intervals(prof_all, "cantelli95")))
+    prof, census_test, prof_all, census_all = None, {}, None, {}
+    if profile_steps:
+        with stage("profile_test"):
+            prof = cohort_beta_profiles(model, nn_best, _cohort(test, dev),
+                                        sigmas=s_test, lower=float(lb) - 1.0,
+                                        upper=float(ub) + 1.0,
+                                        steps=profile_steps)
+            census_test = _counts(classify_identifiability(
+                find_confidence_intervals(prof, "cantelli95")))
+    if census_steps:
+        with stage("census"):
+            prof_all = cohort_beta_profiles(model, nn_best, cohort_both,
+                                            sigmas=s_all, lower=-10.0,
+                                            upper=10.0, steps=census_steps,
+                                            center=b_all)
+            census_all = _counts(classify_identifiability(
+                find_confidence_intervals(prof_all, "cantelli95")))
 
-    return FrozenResult(
+    return PipelineResult(
         best=best, val_objectives=objectives.cpu().numpy(),
         orientation=orientation, bounds=(float(lb), float(ub)),
         b_train=b_train, s_train=s_train, sse_train=sse_train,
         b_test=b_test, s_test=s_test, sse_test=sse_test, spearman=corr,
         profile=prof, census_test=census_test, delta_profile=prof_all,
-        census_all=census_all, seconds=seconds)
+        census_all=census_all, seconds=stage.seconds)

@@ -2,6 +2,7 @@
 
 * ``stratified_split``: per-class sampling that keeps the NGT/IGT/T2DM
   proportions;
+* ``latin_hypercube``: the β design of joint training;
 * ``spearman``: rank correlation of β against the clamp indices.
 """
 
@@ -26,6 +27,19 @@ def stratified_split(rng: np.random.Generator, types, f_train: float):
     train = np.sort(np.asarray(train, dtype=np.int64))
     test = np.setdiff1d(np.arange(len(types)), train)
     return train, test
+
+
+def latin_hypercube(rng: np.random.Generator, n_samples: int, dims: int,
+                    lower: float, upper: float) -> np.ndarray:
+    """Latin hypercube sample in [lower, upper]^dims, shape [n_samples, dims];
+    per dimension one permutation and one uniform draw, so a numpy seed
+    gives the JAX package's design bit for bit."""
+    out = np.empty((n_samples, dims))
+    for d in range(dims):
+        perm = rng.permutation(n_samples)
+        u = rng.uniform(size=n_samples)
+        out[:, d] = (perm + u) / n_samples
+    return lower + out * (upper - lower)
 
 
 def spearman(x, y) -> float:

@@ -1,4 +1,5 @@
-"""PyTorch port on the card: the CUDA kernel K4 against its plain version.
+"""PyTorch port on the card: the CUDA kernels K1-K4 against their plain
+versions.
 
 These tests need an NVIDIA card and skip without one.  The file imports no
 JAX, so on a machine with a card it runs on its own:
@@ -12,7 +13,12 @@ import torch
 
 from conditional_ude_tpu_torch.models.cpeptide import build_cohort
 from conditional_ude_tpu_torch.nn import chain
-from conditional_ude_tpu_torch.ops import rk4_cohort
+from conditional_ude_tpu_torch.ops import (
+    lane_grad,
+    rk4_cohort,
+    rk4_population,
+    tsit5_cohort,
+)
 
 pytestmark = pytest.mark.cuda
 TP = (0.0, 30.0, 60.0, 90.0, 120.0)
@@ -83,3 +89,74 @@ def test_wrapper_raises_instead_of_falling_back(card):
         rk4_cohort.cohort_sse(chain(4, 2, input_dims=3),
                               torch.zeros(8, 41, device=card), betas, g, d,
                               torch.ones(8, 5, device=card), TP, 8)
+
+
+def _restarts(r, n, device, seed=5):
+    """r restarts (Glorot weights, the last one huge) on n random subjects,
+    the last of them on a rising glucose curve."""
+    net, (nn, _, glucose, data, kin) = _lanes(max(r, n), device, seed)
+    nn = nn[:r].clone()
+    nn[-1] = torch.as_tensor(np.concatenate(
+        [np.repeat([[1e20, 0.0]], 4, 0).ravel(), np.zeros(4),
+         np.eye(4).ravel(), np.zeros(4), np.full(4, 1e20), [0.0]]),
+        dtype=torch.float32, device=device)
+    betas = torch.as_tensor(np.random.default_rng(seed).uniform(-2, 0, (r, n)),
+                            dtype=torch.float32, device=device)
+    return net, (nn, betas, glucose[-n:].contiguous(), data[-n:].contiguous(),
+                 kin[-n:].contiguous(), TP)
+
+
+@pytest.mark.parametrize("r,n", [(1, 1), (37, 8), (4096, 57)])
+def test_population_kernel_matches_plain(card, r, n):
+    net, args = _restarts(r, n, card)
+    before = rk4_population.launches
+    out = rk4_population.population_sse(net, *args, 8)
+    assert rk4_population.launches == before + 1
+    ref = rk4_population.population_sse_reference(net, *args, 8)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(out[-1]))
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    torch.testing.assert_close(out[fin], ref[fin], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("r,n", [(3, 5), (25, 57)])
+def test_value_and_grad_kernel_matches_plain(card, r, n):
+    net, args = _restarts(r, n, card)
+    before = lane_grad.launches
+    sse, gnn, gb = lane_grad.lane_sse_and_grad(net, *args, 8)
+    assert lane_grad.launches == before + 1
+    r_sse, r_gnn, r_gb = lane_grad.lane_sse_and_grad_reference(net, *args, 8)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(r_sse)
+    assert torch.equal(torch.isfinite(sse), fin) and not bool(fin[-1].all())
+    torch.testing.assert_close(sse[fin], r_sse[fin], rtol=1e-4, atol=0)
+    rows = torch.isfinite(r_gnn).all(-1)
+    assert torch.equal(torch.isfinite(gnn).all(-1), rows)
+    scale = r_gnn[rows].abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    assert float(((gnn[rows] - r_gnn[rows]) / scale).abs().max()) <= 2e-4
+    torch.testing.assert_close(gb[:-1], r_gb[:-1], rtol=1e-4, atol=1e-6)
+
+
+def test_population_sse_autograd_launches_once(card):
+    net, (nn, betas, *cohort) = _restarts(4, 6, card)
+    x = nn.clone().requires_grad_(True)
+    before = lane_grad.launches
+    f = lane_grad.PopulationSSE.apply(x, betas, net, *cohort, 8)
+    f[:-1].sum().backward()
+    assert lane_grad.launches == before + 1
+    _, gnn, _ = lane_grad.population_sse_and_grad(net, nn, betas, *cohort, 8)
+    torch.testing.assert_close(x.grad[:-1], gnn[:-1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("r,n", [(3, 6), (25, 57)])
+def test_tsit5_kernel_matches_plain(card, r, n):
+    net, args = _restarts(r, n, card)
+    before = tsit5_cohort.launches
+    sse, ok = tsit5_cohort.cohort_sse_tsit5(net, *args)
+    assert tsit5_cohort.launches == before + 1
+    r_sse, r_ok = tsit5_cohort.cohort_sse_tsit5_reference(net, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, r_ok) and not bool(ok[-1, -1])
+    torch.testing.assert_close(sse[ok], r_sse[ok], rtol=2e-2, atol=1e-3)
+    assert bool(torch.isinf(sse[~ok]).all())

@@ -1,9 +1,14 @@
 """PyTorch port: a reduced ``run_frozen_pipeline`` (4 candidates, 8 subjects
-per set, 50 L-BFGS iterations) against the same calls in the JAX package."""
+per set, 50 L-BFGS iterations) against the same calls in the JAX package,
+and a reduced ``run_training_pipeline`` (the retrain path) on the CPU."""
+
+import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conditional_ude_tpu.analysis import (
     classify_identifiability,
@@ -20,7 +25,16 @@ from conditional_ude_tpu.nn import chain
 from conditional_ude_tpu.utils.stats import spearman
 from conditional_ude_tpu_torch.convert import load_candidates
 from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
-from conditional_ude_tpu_torch.pipeline import run_frozen_pipeline
+from conditional_ude_tpu_torch.fit.train import TrainConfig, train_conditional
+from conditional_ude_tpu_torch.models.cpeptide import CPeptideModel as PortModel
+from conditional_ude_tpu_torch.models.cpeptide import build_cohort as port_cohort
+from conditional_ude_tpu_torch.nn import chain as port_chain
+from conditional_ude_tpu_torch.pipeline import (
+    SEED,
+    run_frozen_pipeline,
+    run_training_pipeline,
+)
+from conditional_ude_tpu_torch.utils.stats import stratified_split
 
 R, N, ITERS, STEPS = 4, 8, 50, 50
 
@@ -101,6 +115,57 @@ def test_reestimation(runs):
     # SSE = (NLL − (n/2)·log σ²)·2σ² carries the σ tolerance twice
     np.testing.assert_allclose(port.sse_test, ref["sse_test"], rtol=1e-2)
     assert abs(port.spearman["first_phase"] - ref["rho"]) < 0.05
+
+
+def test_retrain_split_is_the_artifacts_split():
+    """The flagship's seed rebuilds the fit/validation split the committed
+    candidates were trained on (57 fit and 25 validation subjects)."""
+    train, _ = load_npz("artifacts/ohashi.npz")
+    _, _, idx_fit, _ = load_candidates("artifacts/cude_neural_parameters.npz")
+    fit, val = stratified_split(np.random.default_rng(SEED), train.types, 0.7)
+    np.testing.assert_array_equal(fit, idx_fit)
+    assert (len(fit), len(val)) == (57, 25)
+
+
+@pytest.fixture(scope="module")
+def retrain():
+    """A reduced retrain path on the CPU (64 designs, 2 restarts, 3 Adam and
+    3 L-BFGS steps; 5 L-BFGS steps in selection and refit, no scans)."""
+    cfg = TrainConfig(initial_guesses=64, selected_initials=2, adam_iters=3,
+                      lbfgs_iters=3)
+    artifacts = sorted((p.name, p.stat().st_mtime_ns)
+                       for p in Path("artifacts").iterdir())
+    res = run_training_pipeline("cpu", "artifacts", config=cfg,
+                                lbfgs_iters=5, profile_steps=0,
+                                census_steps=0)
+    assert sorted((p.name, p.stat().st_mtime_ns)
+                  for p in Path("artifacts").iterdir()) == artifacts
+    return cfg, res
+
+
+def test_retrain_path_trains_on_the_fit_split(retrain):
+    cfg, res = retrain
+    tr = res.training
+    assert tr.nn_params.shape == (2, 37) and tr.betas.shape == (2, 57, 1)
+    assert tr.screen_losses.shape == (64,)
+    assert res.val_objectives.shape == (2, 25)
+    assert set(res.seconds) == {"train", "select", "refit"}
+    assert res.profile is None and res.census_all == {}
+    assert res.b_train.shape == (82,) and res.b_test.shape == (35,)
+    assert np.isfinite(res.sse_test).all()
+    json.dumps(res.metrics())
+    # the same seed gives the same training, called directly
+    train, _ = load_npz("artifacts/ohashi.npz")
+    fit, _ = stratified_split(np.random.default_rng(SEED), train.types, 0.7)
+    s = train.subset(fit)
+    direct = train_conditional(
+        PortModel(port_chain(4, 2)),
+        port_cohort(s.glucose, s.timepoints, s.cpeptide, s.ages, s.t2dm,
+                    "cpu"),
+        cfg, generator=torch.Generator().manual_seed(SEED), seed=SEED)
+    torch.testing.assert_close(direct.nn_params, tr.nn_params, rtol=0, atol=0)
+    torch.testing.assert_close(direct.objectives, tr.objectives, rtol=0,
+                               atol=0)
 
 
 def test_profiles_and_census(runs):

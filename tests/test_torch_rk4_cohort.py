@@ -142,9 +142,23 @@ def test_segment_constants():
 
 
 def test_build_command_targets_hopper_without_fast_math():
-    cmd = rk4_cohort.nvcc_command(rk4_cohort.BUILD_DIR / "x.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-fmad=false" in cmd and "-shared" in cmd
-    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
-    assert cmd[-1] == str(rk4_cohort.SOURCE) and rk4_cohort.SOURCE.exists()
+    """Every kernel of the port builds with the same flags, from its own
+    source, into a library named by the source, the headers and the flags."""
+    from conditional_ude_tpu_torch.ops import (
+        cuda_build,
+        lane_grad,
+        rk4_population,
+        tsit5_cohort,
+    )
+
+    for mod in (rk4_cohort, rk4_population, lane_grad, tsit5_cohort):
+        src = mod.kernel.source
+        cmd = cuda_build.nvcc_command(src, cuda_build.BUILD_DIR / "x.so")
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-fmad=false" in cmd and "-shared" in cmd
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+        assert cmd[-1] == str(src) and src.exists()
+        lib = cuda_build.library_path(src)
+        assert lib.parent == cuda_build.BUILD_DIR
+        assert lib.name.startswith(src.stem + "-")
 
