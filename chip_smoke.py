@@ -2,25 +2,35 @@
 
     python3 chip_smoke.py        # from the repository root
 
-1. builds the four kernels from ``conditional_ude_tpu_torch/csrc`` (one
-   ``nvcc`` each, all started together) and prints ptxas's registers and
-   spills;
-2. holds each kernel against its plain PyTorch version on the card, at the
+1. builds the four kernel sources from ``conditional_ude_tpu_torch/csrc``
+   (one ``nvcc`` each, all started together; each source holds a 2-input
+   body and the covariate model's 3-input body) and prints ptxas's
+   registers and spills of all eight bodies;
+2. holds each body against its plain PyTorch version on the card, at the
    main path's shape and at a ragged shape with random per-lane weights and
-   one lane of huge weights:
+   one lane of huge weights (the covariate bodies with real ages):
    K4 (cohort RK4) and K1 (population screen) at rtol 1e-5 / atol 1e-6,
    K2 (value + gradient) at rtol 1e-4 with gradients within 2e-4 of each
    row's largest, K3 (adaptive Tsit5) with the same ``ok`` mask and rtol
-   2e-2 / atol 1e-3;
-3. times each kernel and its plain version at the path's shape (CUDA
-   events) and works out the bound of each from its inputs;
-4. runs the frozen path (``run_frozen_pipeline``) at full width and checks
-   it against the committed results; K4's launches are counted over it;
-5. runs the retrain path (``run_training_pipeline``) at full width: 25,000
-   designs screened on the 57-subject fit split, 25 restarts of 1000 Adam
-   and 1000 L-BFGS steps, the Tsit5 re-rank, selection and the (β, σ)
-   refit; K1, K2 and K3's launches are counted over it, and the result is
-   held to the spread of the JAX package's per-seed runs.
+   2e-2 / atol 1e-3; K1c-K4c are the covariate bodies, held alike, and each
+   must read the age: two cohorts that differ only in the age column give
+   different results;
+3. times each body and its plain version at the path's shape (CUDA events)
+   and works out the bound of each from its inputs;
+4. runs the frozen path of exp02 (``run_frozen_pipeline``) at full width
+   and checks it against the committed results; K4's launches are counted
+   over it;
+5. runs the retrain path of exp02 (``run_training_pipeline``) at full
+   width: 25,000 designs screened on the 57-subject fit split, 25 restarts
+   of 1000 Adam and 1000 L-BFGS steps, the Tsit5 re-rank, selection and the
+   (β, σ) refit; K1, K2 and K3's launches are counted over it, and the
+   result is held to the spread of the JAX package's per-seed runs;
+6. runs the frozen path of exp07, the covariate model (``covariate=True``),
+   at full width and checks it against exp07's committed results; K4c's
+   launches are counted over it;
+7. runs the retrain path of exp07 at full width, as in 5; K1c, K2c and
+   K3c's launches are counted over it, and the result is held to limits
+   widened from the one JAX run of exp07.
 
 Every failure raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -51,8 +61,31 @@ PEAK_BYTES, PEAK_FLOPS, PEAK_SFU = 3.35e12, 67e12, 132 * 16 * 1.98e9
 # 4 + 4 tanh layers and the softplus head (multiplies, adds, the softplus
 # arithmetic), and the transcendentals (8 tanhf, expf, log1pf)
 MLP_FLOPS, MLP_SFU = 59, 10
-RHS_FLOPS = MLP_FLOPS + 16      # + ΔG blend and the two-state kinetics
-RK4_STEP_FLOPS = 4 * RHS_FLOPS + 30
+
+# the TPU kernel each body replaces: the function that builds its 2-input
+# body, and the line that adds the age input to its 3-input body
+REPLACES = {"K4": "conditional_ude_tpu/ops/pallas_rk4.py:98",
+            "K1": "conditional_ude_tpu/ops/pallas_rk4.py:251",
+            "K2": "conditional_ude_tpu/ops/pallas_grad.py:314",
+            "K3": "conditional_ude_tpu/ops/pallas_tsit5.py:42",
+            "K4c": "conditional_ude_tpu/ops/pallas_rk4.py:115",
+            "K1c": "conditional_ude_tpu/ops/pallas_rk4.py:291",
+            "K2c": "conditional_ude_tpu/ops/pallas_grad.py:383",
+            "K3c": "conditional_ude_tpu/ops/pallas_tsit5.py:61"}
+
+
+def mlp_flops(d: int) -> int:
+    """Arithmetic of one network evaluation on ``d`` inputs: a 3rd input
+    adds a multiply and an add to each of layer 1's four units."""
+    return MLP_FLOPS + 8 * (d - 2)
+
+
+def rhs_flops(d: int) -> int:
+    return mlp_flops(d) + 16      # + ΔG blend and the two-state kinetics
+
+
+def rk4_step_flops(d: int) -> int:
+    return 4 * rhs_flops(d) + 30
 
 
 def log(msg: str) -> None:
@@ -134,10 +167,10 @@ def bound(n_bytes: float, flops: float, sfu: float) -> tuple[float, str]:
     return 1e3 * times[by], by
 
 
-def huge_weights() -> np.ndarray:
-    """ΔG → head weights of 1e20: a rising glucose curve drives the
-    trajectory past float32."""
-    w1 = np.zeros((4, 2))
+def huge_weights(d: int) -> np.ndarray:
+    """ΔG → head weights of 1e20 on a ``d``-input network: a rising glucose
+    curve drives the trajectory past float32."""
+    w1 = np.zeros((4, d))
     w1[:, 0] = 1e20
     return np.concatenate([w1.ravel(), np.zeros(4), np.eye(4).ravel(),
                            np.zeros(4), np.full(4, 1e20), [0.0]])
@@ -186,7 +219,7 @@ def main() -> None:
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{kind}, {torch.cuda.device_count()} visible")
 
-    # -- build: one nvcc per kernel, all started together --------------------
+    # -- build: one nvcc per source, all started together --------------------
     kernels = {"K4": rk4_cohort, "K1": rk4_population, "K2": lane_grad,
                "K3": tsit5_cohort}
     t0 = time.perf_counter()
@@ -195,11 +228,26 @@ def main() -> None:
     for kid, mod in kernels.items():
         lib, sec, build_log = built[mod.kernel.source]
         log(f"[build] {kid} {lib.name} in {sec:.1f} s")
+        body = kid
         for line in build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas] {kid}: {line.strip()}")
+            if "entry function" in line:     # the template's input count
+                body = kid + ("c" if "ILi3E" in line else "")
+            elif "registers" in line or "spill" in line:
+                log(f"[ptxas] {body}: {line.strip()}")
 
-    net = chain(4, 2)
+    def library(kid: str):
+        mod = kernels[kid[:2]]
+        return mod.kernel_age if kid.endswith("c") else mod.kernel
+
+    def launch_count(kid: str) -> int:
+        mod = kernels[kid[:2]]
+        return mod.launches_age if kid.endswith("c") else mod.launches
+
+    def reset_counts(*kids: str) -> None:
+        for kid in kids:
+            setattr(kernels[kid[:2]],
+                    "launches_age" if kid.endswith("c") else "launches", 0)
+
     f32 = dict(dtype=torch.float32, device=dev)
     train, test = load_npz(ARTIFACTS / "ohashi.npz")
     both = OhashiSplit.concatenate(train, test)
@@ -211,227 +259,309 @@ def main() -> None:
     fit = train.subset(idx_fit)
     fit_cohort = build_cohort(fit.glucose, fit.timepoints, fit.cpeptide,
                               fit.ages, fit.t2dm, dev)
-    fit_args = (fit_cohort.glucose, fit_cohort.cpeptide,
-                fit_cohort.kinetics(), tp)
     n_fit = fit_cohort.n
     rng = np.random.default_rng(2705)
     results = {}
+    fit_ckpt, meta = load_checkpoint(ARTIFACTS / "cude_fit.npz")
+    cov_ckpt, cov_meta = load_checkpoint(ARTIFACTS / "cude_covariate_fit.npz")
+    cov_cand = np.load(ARTIFACTS / "cude_covariate_neural_parameters.npz")
 
-    def designs(g: int, n: int):
-        nn = torch.as_tensor(glorot(rng, net, g), **f32)
-        lhs = latin_hypercube(rng, g, n, -2.0, 0.0)
-        return nn, torch.as_tensor(lhs, **f32)
+    def kernel_phase(d: int) -> None:
+        """Steps 2 and 3 for the bodies on ``d`` inputs."""
+        sfx = "c" if d == 3 else ""
+        with_age = d == 3
+        net = chain(4, 2, input_dims=d)
+        p, n_kin = net.num_params, 4 + with_age
+        fit_args = (fit_cohort.glucose, fit_cohort.cpeptide,
+                    fit_cohort.kinetics(with_age=with_age), tp)
 
-    def ragged(r: int, n: int):
-        """r restarts of random weights (the last one huge) on the first n
-        subjects, the last of them on a rising glucose curve."""
-        pick = np.arange(n)
+        def designs(g: int, n: int):
+            nn = torch.as_tensor(glorot(rng, net, g), **f32)
+            lhs = latin_hypercube(rng, g, n, -2.0, 0.0)
+            return nn, torch.as_tensor(lhs, **f32)
+
+        def ragged(r: int, n: int):
+            """r restarts of random weights (the last one huge) on the first
+            n subjects, the last of them on a rising glucose curve."""
+            pick = np.arange(n)
+            glucose = both.glucose[pick].copy()
+            glucose[-1] = [5.0, 6.0, 7.0, 8.0, 9.0]
+            c = build_cohort(glucose, both.timepoints, both.cpeptide[pick],
+                             both.ages[pick], both.t2dm[pick], dev)
+            nn = glorot(rng, net, r) * rng.uniform(0.5, 3.0, (r, 1))
+            nn[-1] = huge_weights(d)
+            return (torch.as_tensor(nn, **f32),
+                    torch.as_tensor(rng.uniform(-3.0, 0.5, (r, n)), **f32),
+                    c.glucose, c.cpeptide, c.kinetics(with_age=with_age), tp)
+
+        # -- K4: cohort RK4 ---------------------------------------------------
+        s = 500                    # one chunk of a profile scan: 500 points
+        if d == 2:                 # the census: Δβ points × all 117 subjects
+            prof_cohort = cohort
+            nn_row = np.load(ARTIFACTS / "cude_neural_parameters.npz")[
+                "nn_params"][meta["best_model_index"]]
+            centre = torch.as_tensor(
+                np.concatenate([fit_ckpt["beta_train"],
+                                fit_ckpt["beta_test"]]), device=dev)
+            grid = torch.as_tensor(linspace(-10.0, 10.0, 1000)[:s],
+                                   device=dev)
+            chunk = f"census chunk ({s} x {cohort.n})"
+        else:                      # exp07's test profile: β points × 35
+            prof_cohort = build_cohort(test.glucose, test.timepoints,
+                                       test.cpeptide, test.ages, test.t2dm,
+                                       dev)
+            best = cov_meta["best_model_index"]
+            nn_row = cov_cand["nn_params"][best]
+            lb, ub = cov_meta["bounds"]
+            centre = torch.zeros(prof_cohort.n, **f32)
+            grid = torch.as_tensor(linspace(lb - 1.0, ub + 1.0, 10_000)[:s],
+                                   device=dev)
+            chunk = f"test profile chunk ({s} x {prof_cohort.n})"
+        n = prof_cohort.n
+        lanes = s * n
+
+        def expand(x):
+            return x.expand(s, *x.shape).reshape(lanes, *x.shape[1:])
+
+        prof = (torch.as_tensor(nn_row, device=dev).expand(lanes, -1),
+                (grid[:, None] + centre[None, :]).reshape(-1),
+                expand(prof_cohort.glucose), expand(prof_cohort.cpeptide),
+                expand(prof_cohort.kinetics(with_age=with_age)))
+        err = compare(rk4_cohort.cohort_sse(net, *prof, tp, 8),
+                      rk4_cohort.cohort_sse_reference(net, *prof, tp, 8),
+                      f"K4{sfx} {chunk}")
+        # ragged lane count, per-lane random weights and subjects, one lane
+        # of huge weights on a rising glucose curve
+        n_lanes = 1237
+        pick = rng.integers(0, cohort.n, n_lanes)
+        nn_r = glorot(rng, net, n_lanes)
+        nn_r[-1] = huge_weights(d)
         glucose = both.glucose[pick].copy()
         glucose[-1] = [5.0, 6.0, 7.0, 8.0, 9.0]
-        c = build_cohort(glucose, both.timepoints, both.cpeptide[pick],
-                         both.ages[pick], both.t2dm[pick], dev)
-        nn = glorot(rng, net, r) * rng.uniform(0.5, 3.0, (r, 1))
-        nn[-1] = huge_weights()
-        return (torch.as_tensor(nn, **f32),
-                torch.as_tensor(rng.uniform(-3.0, 0.5, (r, n)), **f32),
-                c.glucose, c.cpeptide, c.kinetics(), tp)
+        k4_ragged = (torch.as_tensor(nn_r, **f32),
+                     torch.as_tensor(rng.uniform(-4.0, 1.0, n_lanes), **f32),
+                     torch.as_tensor(glucose, **f32),
+                     torch.as_tensor(both.cpeptide[pick], **f32),
+                     cohort.kinetics(with_age=with_age)[
+                         torch.as_tensor(pick, device=dev)].contiguous())
+        out = rk4_cohort.cohort_sse(net, *k4_ragged, tp, 8)
+        if not bool(torch.isinf(out[-1])):
+            raise AssertionError(f"K4{sfx}: the huge-weight lane's SSE is "
+                                 "not inf")
+        err = max(err, compare(out, rk4_cohort.cohort_sse_reference(
+            net, *k4_ragged, tp, 8), f"K4{sfx} ragged (1237 lanes)"))
+        ms = cuda_ms(lambda: rk4_cohort.cohort_sse(net, *prof, tp, 8),
+                     reps=20)
+        plain = cuda_ms(lambda: rk4_cohort.cohort_sse_reference(
+            net, *prof, tp, 8), reps=3)
+        results["K4" + sfx] = dict(
+            err=err, ms=ms, plain=plain, shape=f"{chunk[:-1]}, {lanes} lanes)",
+            bound=bound(4 * (p + lanes * (12 + n_kin)),
+                        lanes * (32 * rk4_step_flops(d) + mlp_flops(d) + 10),
+                        lanes * (32 * 4 * MLP_SFU + MLP_SFU)))
 
-    # -- K4: cohort RK4 -------------------------------------------------------
-    fit_ckpt, meta = load_checkpoint(ARTIFACTS / "cude_fit.npz")
-    nn_all = np.load(ARTIFACTS / "cude_neural_parameters.npz")["nn_params"]
-    centre = torch.as_tensor(
-        np.concatenate([fit_ckpt["beta_train"], fit_ckpt["beta_test"]]),
-        device=dev)
-    n, s = cohort.n, 500       # one census chunk: 500 Δβ points × 117
-    grid = torch.as_tensor(linspace(-10.0, 10.0, 1000)[:s], device=dev)
-    lanes = s * n
+        # -- K1: population screen --------------------------------------------
+        nn_s, b_s = designs(4096, n_fit)
+        err = compare(
+            rk4_population.population_sse(net, nn_s, b_s, *fit_args, 8),
+            rk4_population.population_sse_reference(net, nn_s, b_s,
+                                                    *fit_args, 8),
+            f"K1{sfx} screen shape (4096 x {n_fit})")
+        r_args = ragged(1237, 8)
+        out = rk4_population.population_sse(net, *r_args, 8)
+        if not bool(torch.isinf(out[-1])):
+            raise AssertionError(f"K1{sfx}: the huge-weight restart's mean "
+                                 "is not inf")
+        err = max(err, compare(out, rk4_population.population_sse_reference(
+            net, *r_args, 8), f"K1{sfx} ragged (1237 x 8)"))
+        # the retrain path's own shape: all 25,000 designs on the fit split
+        g_full = 25_000
+        nn_s, b_s = designs(g_full, n_fit)
+        err = max(err, compare(
+            rk4_population.population_sse(net, nn_s, b_s, *fit_args, 8),
+            rk4_population.population_sse_reference(net, nn_s, b_s,
+                                                    *fit_args, 8),
+            f"K1{sfx} path shape ({g_full} x {n_fit})"))
+        ms = cuda_ms(lambda: rk4_population.population_sse(
+            net, nn_s, b_s, *fit_args, 8), reps=5)
+        plain = cuda_ms(lambda: rk4_population.population_sse_reference(
+            net, nn_s, b_s, *fit_args, 8), reps=1)
+        solves = g_full * n_fit
+        # β (and the age) enter layer 1 only; their partials are hoisted
+        hoisted = 8 * (d - 1)
+        results["K1" + sfx] = dict(
+            err=err, ms=ms, plain=plain, shape=f"{g_full} x {n_fit}",
+            bound=bound(4 * (g_full * (p + n_fit + 1) + n_fit * (10 + n_kin)),
+                        solves * (32 * (rk4_step_flops(d) - 4 * hoisted)
+                                  + hoisted + mlp_flops(d)),
+                        solves * (32 * 4 * MLP_SFU + MLP_SFU + 1)))
 
-    def expand(x):
-        return x.expand(s, *x.shape).reshape(lanes, *x.shape[1:])
+        # -- K2: value + gradient ---------------------------------------------
+        def k2_compare(args, what):
+            sse, gnn, gb = lane_grad.lane_sse_and_grad(net, *args, 8)
+            r_sse, r_gnn, r_gb = lane_grad.lane_sse_and_grad_reference(
+                net, *args, 8)
+            e = compare(sse, r_sse, f"{what} value", GRAD_RTOL, 0.0)
+            e = max(e, compare_scaled(gnn.reshape(-1, p), r_gnn.reshape(-1, p),
+                                      f"{what} grad nn"))
+            return max(e, compare_scaled(gb, r_gb, f"{what} grad beta"))
 
-    census = (torch.as_tensor(nn_all[meta["best_model_index"]], device=dev)
-              .expand(lanes, -1),
-              (grid[:, None] + centre[None, :]).reshape(-1),
-              expand(cohort.glucose), expand(cohort.cpeptide),
-              expand(cohort.kinetics()))
-    err = compare(rk4_cohort.cohort_sse(net, *census, tp, 8),
-                  rk4_cohort.cohort_sse_reference(net, *census, tp, 8),
-                  f"K4 census shape ({s} x {n})")
-    # ragged lane count, per-lane random weights and subjects, one lane of
-    # huge weights on a rising glucose curve
-    n_lanes = 1237
-    pick = rng.integers(0, n, n_lanes)
-    nn_r = glorot(rng, net, n_lanes)
-    nn_r[-1] = huge_weights()
-    glucose = both.glucose[pick].copy()
-    glucose[-1] = [5.0, 6.0, 7.0, 8.0, 9.0]
-    k4_ragged = (torch.as_tensor(nn_r, **f32),
-                 torch.as_tensor(rng.uniform(-4.0, 1.0, n_lanes), **f32),
-                 torch.as_tensor(glucose, **f32),
-                 torch.as_tensor(both.cpeptide[pick], **f32),
-                 cohort.kinetics()[torch.as_tensor(pick, device=dev)]
-                 .contiguous())
-    out = rk4_cohort.cohort_sse(net, *k4_ragged, tp, 8)
-    if not bool(torch.isinf(out[-1])):
-        raise AssertionError("K4: the huge-weight lane's SSE is not inf")
-    err = max(err, compare(out, rk4_cohort.cohort_sse_reference(
-        net, *k4_ragged, tp, 8), "K4 ragged (1237 lanes)"))
-    ms = cuda_ms(lambda: rk4_cohort.cohort_sse(net, *census, tp, 8), reps=20)
-    plain = cuda_ms(lambda: rk4_cohort.cohort_sse_reference(
-        net, *census, tp, 8), reps=3)
-    results["K4"] = dict(
-        err=err, ms=ms, plain=plain, shape=f"census chunk, {lanes} lanes",
-        bound=bound(4 * (37 + lanes * (1 + 5 + 5 + 4 + 1)),
-                    lanes * (32 * RK4_STEP_FLOPS + MLP_FLOPS + 10),
-                    lanes * (32 * 4 * MLP_SFU + MLP_SFU)))
+        r_path = 25
+        nn_s, b_s = designs(r_path, n_fit)
+        k2_path = (nn_s, b_s, *fit_args)
+        err = k2_compare(k2_path,
+                         f"K2{sfx} refine shape ({r_path} x {n_fit})")
+        err = max(err, k2_compare(ragged(7, 13)[:5] + (tp,),
+                                  f"K2{sfx} ragged (7 x 13)"))
+        ms = cuda_ms(lambda: lane_grad.lane_sse_and_grad(net, *k2_path, 8),
+                     reps=50)
+        plain = cuda_ms(lambda: lane_grad.lane_sse_and_grad_reference(
+            net, *k2_path, 8), reps=3)
+        lanes = r_path * n_fit
+        # the function's least work: one forward per point, then the VJP on
+        # its stored activations (tanh' from h, one expf for the softplus'
+        # sigmoid) and the accumulation; the kernel's second forward is its
+        # own cost.  A 3rd input adds its 4 weight gradients.
+        per_point = mlp_flops(d) + 95 + 38 + 8 * (d - 2)
+        results["K2" + sfx] = dict(
+            err=err, ms=ms, plain=plain, shape=f"{r_path} x {n_fit}",
+            bound=bound(4 * (r_path * p + lanes * (1 + 1 + p + 1)
+                             + n_fit * (10 + n_kin)),
+                        lanes * (69 * per_point + 32 * 47 + 480),
+                        lanes * (69 * (MLP_SFU + 1) + 1)))
 
-    # -- K1: population screen ------------------------------------------------
-    nn_s, b_s = designs(4096, n_fit)
-    err = compare(rk4_population.population_sse(net, nn_s, b_s, *fit_args, 8),
-                  rk4_population.population_sse_reference(net, nn_s, b_s,
-                                                          *fit_args, 8),
-                  f"K1 screen shape (4096 x {n_fit})")
-    r_args = ragged(1237, 8)
-    out = rk4_population.population_sse(net, *r_args, 8)
-    if not bool(torch.isinf(out[-1])):
-        raise AssertionError("K1: the huge-weight restart's mean is not inf")
-    err = max(err, compare(out, rk4_population.population_sse_reference(
-        net, *r_args, 8), "K1 ragged (1237 x 8)"))
-    # the retrain path's own shape: all 25,000 designs on the fit split
-    g_full = 25_000
-    nn_s, b_s = designs(g_full, n_fit)
-    err = max(err, compare(
-        rk4_population.population_sse(net, nn_s, b_s, *fit_args, 8),
-        rk4_population.population_sse_reference(net, nn_s, b_s, *fit_args, 8),
-        f"K1 path shape ({g_full} x {n_fit})"))
-    ms = cuda_ms(lambda: rk4_population.population_sse(net, nn_s, b_s,
-                                                       *fit_args, 8), reps=5)
-    plain = cuda_ms(lambda: rk4_population.population_sse_reference(
-        net, nn_s, b_s, *fit_args, 8), reps=1)
-    solves = g_full * n_fit
-    results["K1"] = dict(
-        err=err, ms=ms, plain=plain, shape=f"{g_full} x {n_fit}",
-        bound=bound(4 * (g_full * (37 + n_fit + 1) + n_fit * 14),
-                    solves * (32 * (RK4_STEP_FLOPS - 4 * 8) + 8 + MLP_FLOPS),
-                    solves * (32 * 4 * MLP_SFU + MLP_SFU + 1)))
+        # -- K3: adaptive Tsit5 -----------------------------------------------
+        def k3_compare(args, what):
+            sse, ok = tsit5_cohort.cohort_sse_tsit5(net, *args)
+            r_sse, r_ok = tsit5_cohort.cohort_sse_tsit5_reference(net, *args)
+            if not torch.equal(ok, r_ok):
+                raise AssertionError(f"{what}: ok masks differ "
+                                     f"({int(ok.sum())} vs {int(r_ok.sum())})")
+            return compare(sse, r_sse, what, TSIT5_RTOL, TSIT5_ATOL), ok
 
-    # -- K2: value + gradient -------------------------------------------------
-    def k2_compare(args, what):
-        sse, gnn, gb = lane_grad.lane_sse_and_grad(net, *args, 8)
-        r_sse, r_gnn, r_gb = lane_grad.lane_sse_and_grad_reference(net, *args,
-                                                                   8)
-        e = compare(sse, r_sse, f"{what} value", GRAD_RTOL, 0.0)
-        e = max(e, compare_scaled(gnn.reshape(-1, 37), r_gnn.reshape(-1, 37),
-                                  f"{what} grad nn"))
-        return max(e, compare_scaled(gb, r_gb, f"{what} grad beta"))
+        err, ok = k3_compare(k2_path,
+                             f"K3{sfx} re-rank shape ({r_path} x {n_fit})")
+        e, ok = k3_compare(ragged(1237, 1), f"K3{sfx} ragged (1237 x 1)")
+        if bool(ok[-1, 0]):
+            raise AssertionError(f"K3{sfx}: the huge-weight lane did not fail")
+        err = max(err, e)
+        ms = cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5(net, *k2_path),
+                     reps=20)
+        plain = cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5_reference(
+            net, *k2_path), reps=1)
+        steps = int(tsit5_cohort.cohort_sse_tsit5_reference(
+            net, *k2_path, return_steps=True)[2].sum())
+        step_flops = 6 * (rhs_flops(d) + 32) + 200
+        results["K3" + sfx] = dict(
+            err=err, ms=ms, plain=plain,
+            shape=f"{r_path} x {n_fit}, {steps} steps in all",
+            bound=bound(4 * (r_path * p + lanes * 2 + n_fit * (10 + n_kin))
+                        + lanes,
+                        steps * step_flops + lanes * (2 * rhs_flops(d) + 40),
+                        steps * (6 * MLP_SFU + 4) + lanes * 2 * MLP_SFU))
 
-    r_path = 25
-    nn_s, b_s = designs(r_path, n_fit)
-    k2_path = (nn_s, b_s, *fit_args)
-    err = k2_compare(k2_path, f"K2 refine shape ({r_path} x {n_fit})")
-    err = max(err, k2_compare(ragged(7, 13)[:5] + (tp,), "K2 ragged (7 x 13)"))
-    ms = cuda_ms(lambda: lane_grad.lane_sse_and_grad(net, *k2_path, 8),
-                 reps=50)
-    plain = cuda_ms(lambda: lane_grad.lane_sse_and_grad_reference(
-        net, *k2_path, 8), reps=3)
-    lanes = r_path * n_fit
-    # the function's least work: one forward per point, then the VJP on its
-    # stored activations (tanh' from h, one expf for the softplus' sigmoid)
-    # and the accumulation; the kernel's second forward is its own cost
-    per_point = MLP_FLOPS + 95 + 38
-    results["K2"] = dict(
-        err=err, ms=ms, plain=plain, shape=f"{r_path} x {n_fit}",
-        bound=bound(4 * (r_path * 37 + lanes * (1 + 1 + 37 + 1) + n_fit * 14),
-                    lanes * (69 * per_point + 32 * 47 + 480),
-                    lanes * (69 * (MLP_SFU + 1) + 1)))
+    def live_age_check() -> None:
+        """Each covariate body on exp07's committed candidates and training
+        β's, on their fit subjects with their real ages and with every age
+        10 years higher: the two cohorts differ only in the age column, and
+        every body's result must differ between them."""
+        net = chain(4, 2, input_dims=3)
+        nn = torch.as_tensor(cov_cand["nn_params"], **f32)
+        betas = torch.as_tensor(cov_cand["betas"][..., 0], **f32)
+        s = train.subset(cov_cand["idx_fit"])
+        c = build_cohort(s.glucose, s.timepoints, s.cpeptide, s.ages, s.t2dm,
+                         dev)
+        r, n = betas.shape
+        outs = []
+        for shift in (0.0, 10.0):
+            kin = c.kinetics(with_age=True).clone()
+            kin[:, 4] += shift
+            args = (nn, betas, c.glucose, c.cpeptide, kin, tp)
+            lanes = (nn.repeat_interleave(n, 0), betas.reshape(-1),
+                     c.glucose.repeat(r, 1), c.cpeptide.repeat(r, 1),
+                     kin.repeat(r, 1))
+            outs.append({
+                "K1c": rk4_population.population_sse(net, *args, 8),
+                "K2c": lane_grad.lane_sse_and_grad(net, *args, 8)[1],
+                "K3c": tsit5_cohort.cohort_sse_tsit5(net, *args)[0],
+                "K4c": rk4_cohort.cohort_sse(net, *lanes, tp, 8)})
+        for kid in ("K4c", "K1c", "K2c", "K3c"):
+            a, b = outs[0][kid], outs[1][kid]
+            differ = int((a != b).sum())
+            log(f"[age] {kid}: {differ} of {a.numel()} values differ when "
+                "every age is 10 years higher")
+            if differ == 0:
+                raise AssertionError(f"{kid} does not read the age")
 
-    # -- K3: adaptive Tsit5 ---------------------------------------------------
-    def k3_compare(args, what):
-        sse, ok = tsit5_cohort.cohort_sse_tsit5(net, *args)
-        r_sse, r_ok = tsit5_cohort.cohort_sse_tsit5_reference(net, *args)
-        if not torch.equal(ok, r_ok):
-            raise AssertionError(f"{what}: ok masks differ "
-                                 f"({int(ok.sum())} vs {int(r_ok.sum())})")
-        return compare(sse, r_sse, what, TSIT5_RTOL, TSIT5_ATOL), ok
-
-    err, ok = k3_compare(k2_path, f"K3 re-rank shape ({r_path} x {n_fit})")
-    e, ok = k3_compare(ragged(1237, 1), "K3 ragged (1237 x 1)")
-    if bool(ok[-1, 0]):
-        raise AssertionError("K3: the huge-weight lane did not fail")
-    err = max(err, e)
-    ms = cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5(net, *k2_path),
-                 reps=20)
-    plain = cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5_reference(
-        net, *k2_path), reps=1)
-    steps = int(tsit5_cohort.cohort_sse_tsit5_reference(
-        net, *k2_path, return_steps=True)[2].sum())
-    lanes = r_path * n_fit
-    step_flops = 6 * (RHS_FLOPS + 32) + 200
-    results["K3"] = dict(
-        err=err, ms=ms, plain=plain,
-        shape=f"{r_path} x {n_fit}, {steps} steps in all",
-        bound=bound(4 * (r_path * 37 + lanes * 2 + n_fit * 14) + lanes,
-                    steps * step_flops + lanes * (2 * RHS_FLOPS + 40),
-                    steps * (6 * MLP_SFU + 4) + lanes * 2 * MLP_SFU))
+    kernel_phase(2)
+    kernel_phase(3)
+    live_age_check()
     for kid, r in results.items():
         log(f"[time] {kid} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain']:.3f} ms, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]})  [{card}]")
 
-    # -- the frozen path (K4) -------------------------------------------------
-    rk4_cohort.launches = 0
-    t0 = time.perf_counter()
-    res = run_frozen_pipeline(dev, ARTIFACTS, lbfgs_iters=1000)
-    wall = time.perf_counter() - t0
-    results["K4"]["launches"] = rk4_cohort.launches
-    for name, sec in res.seconds.items():
-        log(f"[time] frozen stage {name}: {sec:.2f} s  [{card}]")
-    log(f"[time] frozen path total: {wall:.2f} s  [{card}]")
-    log(f"[path] K4 launches during the frozen path: "
-        f"{results['K4']['launches']}")
-    metrics = json.loads((REPO / "results" / "exp02_metrics.json").read_text())
-    failures = check_frozen(res, fit_ckpt, metrics)
-    if results["K4"]["launches"] == 0:
-        failures.append("K4 was not launched by the profile scans")
-    if failures:
-        raise AssertionError("frozen path checks failed:\n  "
-                             + "\n  ".join(failures))
+    # -- the frozen paths (K4, then K4c) -------------------------------------
+    for kid, covariate, metrics_file in (("K4", False, "exp02_metrics.json"),
+                                         ("K4c", True, "exp07_metrics.json")):
+        reset_counts(kid)
+        t0 = time.perf_counter()
+        res = run_frozen_pipeline(dev, ARTIFACTS, lbfgs_iters=1000,
+                                  covariate=covariate)
+        wall = time.perf_counter() - t0
+        results[kid]["launches"] = launch_count(kid)
+        exp = "exp07" if covariate else "exp02"
+        for name, sec in res.seconds.items():
+            log(f"[time] {exp} frozen stage {name}: {sec:.2f} s  [{card}]")
+        log(f"[time] {exp} frozen path total: {wall:.2f} s  [{card}]")
+        log(f"[path] {kid} launches during the {exp} frozen path: "
+            f"{results[kid]['launches']}")
+        metrics = json.loads((REPO / "results" / metrics_file).read_text())
+        if covariate:
+            failures = check_frozen_covariate(res, cov_ckpt, metrics)
+        else:
+            failures = check_frozen(res, fit_ckpt, metrics)
+        if results[kid]["launches"] == 0:
+            failures.append(f"{kid} was not launched by the profile scans")
+        if failures:
+            raise AssertionError(f"{exp} frozen path checks failed:\n  "
+                                 + "\n  ".join(failures))
 
-    # -- the retrain path (K1, K2, K3) ---------------------------------------
-    for kid in ("K1", "K2", "K3"):
-        kernels[kid].launches = 0
-    t0 = time.perf_counter()
-    res = run_training_pipeline(dev, ARTIFACTS, seed=SEED, lbfgs_iters=1000,
-                                profile_steps=0, census_steps=0)
-    wall = time.perf_counter() - t0
-    for kid in ("K1", "K2", "K3"):
-        results[kid]["launches"] = kernels[kid].launches
-    timings = res.training.timings
-    for name in ("screen", "adam", "lbfgs", "final_eval"):
-        log(f"[time] training stage {name}: {timings[name]:.2f} s  [{card}]")
-    for name, sec in res.seconds.items():
-        log(f"[time] retrain stage {name}: {sec:.2f} s  [{card}]")
-    log(f"[time] retrain path total: {wall:.2f} s  [{card}]")
-    log(f"[path] screen_path {timings['screen_path']}, refine_path "
-        f"{timings['refine_path']}; launches during the retrain path: "
-        + ", ".join(f"{k} {results[k]['launches']}"
-                    for k in ("K1", "K2", "K3")))
-    failures = check_retrain(res)
-    failures += [f"{k} was not launched by the retrain path"
-                 for k in ("K1", "K2", "K3") if results[k]["launches"] == 0]
-    if failures:
-        raise AssertionError("retrain path checks failed:\n  "
-                             + "\n  ".join(failures))
+    # -- the retrain paths (K1, K2, K3, then K1c, K2c, K3c) ------------------
+    for covariate in (False, True):
+        kids = [k + ("c" if covariate else "") for k in ("K1", "K2", "K3")]
+        exp = "exp07" if covariate else "exp02"
+        reset_counts(*kids)
+        t0 = time.perf_counter()
+        res = run_training_pipeline(dev, ARTIFACTS, seed=SEED,
+                                    lbfgs_iters=1000, profile_steps=0,
+                                    census_steps=0, covariate=covariate)
+        wall = time.perf_counter() - t0
+        for kid in kids:
+            results[kid]["launches"] = launch_count(kid)
+        timings = res.training.timings
+        for name in ("screen", "adam", "lbfgs", "final_eval"):
+            log(f"[time] {exp} training stage {name}: {timings[name]:.2f} s  "
+                f"[{card}]")
+        for name, sec in res.seconds.items():
+            log(f"[time] {exp} retrain stage {name}: {sec:.2f} s  [{card}]")
+        log(f"[time] {exp} retrain path total: {wall:.2f} s  [{card}]")
+        log(f"[path] {exp} screen_path {timings['screen_path']}, refine_path "
+            f"{timings['refine_path']}; launches during the retrain path: "
+            + ", ".join(f"{k} {results[k]['launches']}" for k in kids))
+        failures = (check_retrain_covariate(res) if covariate
+                    else check_retrain(res))
+        failures += [f"{k} was not launched by the retrain path"
+                     for k in kids if results[k]["launches"] == 0]
+        if failures:
+            raise AssertionError(f"{exp} retrain path checks failed:\n  "
+                                 + "\n  ".join(failures))
 
-    replaces = {"K4": "conditional_ude_tpu/ops/pallas_rk4.py:98",
-                "K1": "conditional_ude_tpu/ops/pallas_rk4.py:251",
-                "K2": "conditional_ude_tpu/ops/pallas_grad.py:314",
-                "K3": "conditional_ude_tpu/ops/pallas_tsit5.py:42"}
     log(json.dumps({"kernels": [{
-        "name": kernels[kid].kernel.name,
+        "name": library(kid).name,
         "route": "cuda",
-        "source": str(kernels[kid].kernel.source.relative_to(REPO)),
-        "replaces": replaces[kid],
+        "source": str(library(kid).source.relative_to(REPO)),
+        "replaces": REPLACES[kid],
         "launches": r["launches"],
         "max_abs_err": r["err"],
         "ms": r["ms"],
@@ -444,40 +574,72 @@ def main() -> None:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
-def check_frozen(res, fit: dict, metrics: dict) -> list[str]:
-    """The frozen path against the committed artifacts and metrics."""
+def check_fits(res, fit: dict, beta_tol: float, sigma_tol: float,
+               loose: dict | None = None) -> list[str]:
+    """The (β, σ) refit against a committed fit, subject by subject.
+    ``loose`` maps a split to subjects held only to (|Δβ|, relative σ)
+    limits of their own."""
     failures = []
-    log(f"[check] best candidate {res.best} (committed "
-        f"{metrics['best_model_index']})")
-    if res.best != metrics["best_model_index"]:
-        failures.append(f"best candidate {res.best}")
     for split in ("train", "test"):
         b, s = getattr(res, f"b_{split}"), getattr(res, f"s_{split}")
         for arr in (b, s, getattr(res, f"sse_{split}")):
             if not np.isfinite(arr).all():
                 failures.append(f"non-finite {split} fit")
-        db = float(np.max(np.abs(b - fit[f"beta_{split}"])))
-        ds = float(np.max(np.abs(s / fit[f"sigma_{split}"] - 1.0)))
-        log(f"[check] {split}: max |dbeta| {db:.2e}, max rel dsigma {ds:.2e}")
-        if db > 1e-2 or ds > 2e-2:
+        db = np.abs(b - fit[f"beta_{split}"])
+        ds = np.abs(s / fit[f"sigma_{split}"] - 1.0)
+        tight = np.ones(len(db), bool)
+        for i, (b_tol, s_tol) in (loose or {}).get(split, {}).items():
+            tight[i] = False
+            log(f"[check] {split} subject {i}: |dbeta| {db[i]:.2e}, rel "
+                f"dsigma {ds[i]:.2e} (limits {b_tol}, {s_tol})")
+            if db[i] > b_tol or ds[i] > s_tol:
+                failures.append(f"{split} subject {i} off the committed fit")
+        db, ds = db[tight], ds[tight]
+        log(f"[check] {split}: max |dbeta| {db.max():.2e}, max rel dsigma "
+            f"{ds.max():.2e} over {int(tight.sum())} subjects; median "
+            f"{np.median(db):.2e}, {np.median(ds):.2e}")
+        if db.max() > beta_tol or ds.max() > sigma_tol:
             failures.append(f"{split} beta/sigma off the committed fit")
+    return failures
+
+
+def check_census(got: dict, want: dict, name: str) -> list[str]:
+    log(f"[check] census {name}: {got} (committed {want})")
+    if any(abs(got.get(c, 0) - want.get(c, 0)) > 1
+           for c in set(got) | set(want)):
+        return [f"census {name} {got}"]
+    return []
+
+
+def check_summary(res, best: int, rho: float, sse_mean: float) -> list[str]:
+    """Best candidate, first-phase Spearman ± 0.01, test SSE mean ± 3 %."""
+    failures = []
+    log(f"[check] best candidate {res.best} (committed {best})")
+    if res.best != best:
+        failures.append(f"best candidate {res.best}")
+    got = res.spearman["first_phase"]
+    log(f"[check] spearman first phase {got:.4f} (committed {rho:.4f}); "
+        f"age {res.spearman['age']:.4f}, insulin sensitivity "
+        f"{res.spearman['insulin_sensitivity']:.4f}")
+    if abs(got - rho) > 0.01:
+        failures.append(f"spearman {got}")
+    got = float(np.mean(res.sse_test))
+    log(f"[check] test SSE mean {got:.4f} (committed {sse_mean:.4f})")
+    if abs(got / sse_mean - 1.0) > 0.03:
+        failures.append(f"test SSE mean {got}")
+    return failures
+
+
+def check_frozen(res, fit: dict, metrics: dict) -> list[str]:
+    """exp02's frozen path against the committed artifacts and metrics."""
+    failures = check_summary(res, metrics["best_model_index"],
+                             metrics["spearman"]["first_phase"],
+                             metrics["test_sse_mean"])
+    failures += check_fits(res, fit, 1e-2, 2e-2)
     for name, key in (("test", "identifiability_census_test"),
                       ("all", "identifiability_census_all")):
-        got, want = getattr(res, f"census_{name}"), metrics[key]
-        log(f"[check] census {name}: {got} (committed {want})")
-        if any(abs(got.get(c, 0) - want.get(c, 0)) > 1
-               for c in set(got) | set(want)):
-            failures.append(f"census {name} {got}")
-    rho = res.spearman["first_phase"]
-    log(f"[check] spearman first phase {rho:.4f} "
-        f"(committed {metrics['spearman']['first_phase']:.4f})")
-    if abs(rho - metrics["spearman"]["first_phase"]) > 0.01:
-        failures.append(f"spearman {rho}")
-    sse_mean = float(np.mean(res.sse_test))
-    log(f"[check] test SSE mean {sse_mean:.4f} "
-        f"(committed {metrics['test_sse_mean']:.4f})")
-    if abs(sse_mean / metrics["test_sse_mean"] - 1.0) > 0.03:
-        failures.append(f"test SSE mean {sse_mean}")
+        failures += check_census(getattr(res, f"census_{name}"), metrics[key],
+                                 name)
     prof, delta = res.profile.values, res.delta_profile.values
     if tuple(prof.shape) != (35, 10_000) or tuple(delta.shape) != (117, 1000):
         failures.append(f"profile shapes {tuple(prof.shape)}, "
@@ -489,11 +651,51 @@ def check_frozen(res, fit: dict, metrics: dict) -> list[str]:
     return failures
 
 
+# exp07's committed fit came from the TPU.  JAX on the CPU reproduces it
+# within exp02's limits (|Δβ| 1e-2, σ 2 %) on 114 of the 117 subjects and
+# misses three (ROADMAP Queue 3): training subject 6 by 0.26 in β and test
+# subject 6 by 0.57 in β (σ within 0.2 % for both), and training
+# subject 64 by 12.9 % in σ (β at the upper bound in both).  Each of the
+# three is held to about twice JAX's own miss.
+COV_LOOSE = {"train": {6: (0.6, 2e-2), 64: (1e-2, 0.3)},
+             "test": {6: (1.2, 2e-2)}}
+
+
+def check_frozen_covariate(res, fit: dict, metrics: dict) -> list[str]:
+    """exp07's frozen path against its committed fit and metrics: the test
+    SSE mean is that of the committed fit's ``sse_test``; exp07 has a
+    Raue-95 test census and no census over all subjects."""
+    failures = check_summary(res, metrics["best_model_index"],
+                             metrics["spearman"]["first_phase"],
+                             float(np.mean(fit["sse_test"])))
+    failures += check_fits(res, fit, 1e-2, 2e-2, COV_LOOSE)
+    failures += check_census(res.census_test,
+                             metrics["identifiability_census_test"], "test")
+    if tuple(res.profile.values.shape) != (35, 10_000):
+        failures.append(f"profile shape {tuple(res.profile.values.shape)}")
+    if res.delta_profile is not None or res.census_all:
+        failures.append("exp07 ran a census over all subjects")
+    return failures
+
+
 def check_retrain(res) -> list[str]:
     """The retrain path against the spread of the JAX package's per-seed
     runs (``results/exp02_seed_{11..55}.json``): best Tsit5 objective
     0.178-0.272 (committed artifact 0.246), test SSE mean 0.458-0.581
     widened by 10 %, Spearman -0.813 to -0.824."""
+    return check_trained(res, 0.30, (0.41, 0.64), -0.77,
+                         "JAX per-seed 0.178-0.272")
+
+
+def check_retrain_covariate(res) -> list[str]:
+    """exp07's retrain path against limits widened from its one JAX run
+    (best Tsit5 objective 0.2328, test SSE mean 0.672, Spearman -0.626); no
+    per-seed spread of exp07 exists."""
+    return check_trained(res, 0.30, (0.50, 0.85), -0.45, "JAX run 0.2328")
+
+
+def check_trained(res, obj_max: float, sse_range: tuple[float, float],
+                  rho_max: float, obj_ref: str) -> list[str]:
     failures = []
     tr = res.training
     timings = tr.timings
@@ -502,18 +704,19 @@ def check_retrain(res) -> list[str]:
                         f"{timings['refine_path']}")
     best_obj = float(tr.objectives[0])
     log(f"[check] best restart's Tsit5 objective {best_obj:.4f} "
-        f"(JAX per-seed 0.178-0.272; limit 0.30); restarts finite: "
+        f"({obj_ref}; limit {obj_max}); restarts finite: "
         f"{int(torch.isfinite(tr.objectives).sum())}/{tr.objectives.numel()}")
-    if not np.isfinite(best_obj) or best_obj > 0.30:
+    if not np.isfinite(best_obj) or best_obj > obj_max:
         failures.append(f"best objective {best_obj}")
     sse_mean = float(np.mean(res.sse_test))
-    log(f"[check] retrain test SSE mean {sse_mean:.4f} (limits 0.41-0.64)")
-    if not 0.41 <= sse_mean <= 0.64:
+    lo, hi = sse_range
+    log(f"[check] retrain test SSE mean {sse_mean:.4f} (limits {lo}-{hi})")
+    if not lo <= sse_mean <= hi:
         failures.append(f"test SSE mean {sse_mean}")
     rho = res.spearman["first_phase"]
-    log(f"[check] retrain spearman first phase {rho:.4f} (limit -0.77); "
+    log(f"[check] retrain spearman first phase {rho:.4f} (limit {rho_max}); "
         f"best candidate {res.best}, orientation {res.orientation:+.0f}")
-    if not rho <= -0.77:
+    if not rho <= rho_max:
         failures.append(f"spearman {rho}")
     return failures
 

@@ -5,7 +5,8 @@
   (or a shared Δβ axis around per-individual centres) and evaluates
   NLL = SSE / (2σ²); lanes are (grid point × individual) pairs, in grid
   chunks, and go through the fused cohort RK4 kernel (K4) for the canonical
-  network, otherwise through the batched RK4;
+  network on 2 inputs or, for the covariate model, on 3, otherwise through
+  the batched RK4;
 * ``find_confidence_intervals``: threshold crossing with the Cantelli-95
   (Δ = 7.16), Cantelli-90 (Δ = 5.24) or Raue-95 (Δ = χ²₁(0.95)) offsets,
   ±inf when the interval reaches the scan edge;
@@ -39,9 +40,10 @@ class Profile(NamedTuple):
 
 
 def fused_kernel_eligible(model: CPeptideModel) -> bool:
-    """Whether K4 computes this model: the canonical 2-input network."""
+    """Whether K4 computes this model: the canonical network on [ΔG, e^β]
+    or, for the covariate model, on [ΔG, e^β, age]."""
     try:
-        rk4_cohort.check_net_canonical(model.net, input_dims=2)
+        rk4_cohort.check_net_canonical(model.net)
     except ValueError:
         return False
     return True
@@ -66,7 +68,7 @@ def cohort_beta_profiles(model: CPeptideModel, nn_params: torch.Tensor,
            else torch.as_tensor(center, **f32))
     fused = fused_kernel_eligible(model)
     if fused:
-        kin = cohort.kinetics()
+        kin = cohort.kinetics(with_age=model.with_age)
 
     parts = []
     for i in range(0, steps, chunk):

@@ -1,12 +1,14 @@
 // Device code shared by the port's kernels: the canonical cUDE network and
 // the fixed-step time grid.
 //
-// The network is chain(4, 2) on [dG, e^beta]: two tanh layers of width 4
-// and a softplus head, 37 weights in the JAX package's flat layout (per
-// layer W row-major [fan_out][fan_in], then the bias).  Every dot product
-// runs left to right and adds the bias last, the order of the plain PyTorch
-// versions; the files are built with -fmad=false and without fast math, so
-// tanhf/expf/log1pf are the accurate ones and no multiply-add is contracted.
+// The network is chain(4, 2) on [dG, e^beta] (kIn = 2, 37 weights) or, for
+// the covariate model, on [dG, e^beta, age] (kIn = 3, 41 weights): two tanh
+// layers of width 4 and a softplus head, in the JAX package's flat layout
+// (per layer W row-major [fan_out][fan_in], then the bias).  Every dot
+// product runs left to right and adds the bias last, the order of the plain
+// PyTorch versions; the files are built with -fmad=false and without fast
+// math, so tanhf/expf/log1pf are the accurate ones and no multiply-add is
+// contracted.
 
 #pragma once
 
@@ -15,11 +17,15 @@
 
 namespace cude {
 
-constexpr int kIn = 2;
 constexpr int kWidth = 4;
-constexpr int kParams = kIn * kWidth + kWidth + kWidth * kWidth + kWidth + kWidth + 1;
-static_assert(kParams == 37, "canonical chain(4, 2) on 2 inputs has 37 weights");
 constexpr int kMaxTimepoints = 16;
+
+// weights of chain(4, 2) on `in` inputs
+constexpr int params_of(int in) {
+  return in * kWidth + kWidth + kWidth * kWidth + kWidth + kWidth + 1;
+}
+static_assert(params_of(2) == 37 && params_of(3) == 41,
+              "chain(4, 2) has 37 weights on 2 inputs, 41 on 3");
 
 // One observation segment of the fixed-step grid; every constant is rounded
 // once from float64 on the host, as the JAX kernels' Python floats are.
@@ -40,13 +46,39 @@ struct Grid {
   Segment seg[kMaxTimepoints - 1];
 };
 
+// the Grid of host segment rows [n_seg][t0, dt, dt/2, dt/6, 1/span]; false
+// when the arguments do not describe a grid the kernels take
+inline bool make_grid(const float* segments, int n_seg, int substeps, int j0,
+                      float one_minus_w0, float w0, Grid* grid) {
+  if (n_seg < 1 || n_seg > kMaxTimepoints - 1 || substeps < 1 || j0 < 0 ||
+      j0 >= n_seg)
+    return false;
+  grid->n_seg = n_seg;
+  grid->substeps = substeps;
+  grid->j0 = j0;
+  grid->one_minus_w0 = one_minus_w0;
+  grid->w0 = w0;
+  for (int s = 0; s < n_seg; ++s) {
+    const float* r = segments + 5 * s;
+    grid->seg[s] = Segment{r[0], r[1], r[2], r[3], r[4]};
+  }
+  return true;
+}
+
 __device__ __forceinline__ float softplus(float x) {
   // max(x, 0) + log1p(exp(-|x|)); a NaN passes through as in torch.clamp_min
   const float pos = x < 0.0f ? 0.0f : x;
   return pos + log1pf(expf(-fabsf(x)));
 }
 
+template <int In>
 struct Mlp {
+  static_assert(In == 2 || In == 3, "the network takes 2 or 3 inputs");
+  static constexpr int kIn = In;
+  static constexpr int kParams = params_of(In);
+  // columns of a kinetics row: k0, k1, k2, c0, then the age for 3 inputs
+  static constexpr int kKin = 4 + (In == 3);
+
   float w1[kWidth][kIn], b1[kWidth];
   float w2[kWidth][kWidth], b2[kWidth];
   float w3[kWidth], b3;
@@ -70,10 +102,12 @@ struct Mlp {
     b3 = __ldg(p + i);
   }
 
-  // layer 1 pre-activation w1[o][0]*x0 + w1[o][1]*x1 + b1[o]
-  __device__ __forceinline__ float z1(int o, float x0, float x1) const {
+  // layer 1 pre-activation w1[o][0]*x0 + w1[o][1]*x1 (+ w1[o][2]*x2) + b1[o];
+  // x2, the age, is read by the 3-input network only
+  __device__ __forceinline__ float z1(int o, float x0, float x1, float x2) const {
     float acc = w1[o][0] * x0;
     acc = acc + w1[o][1] * x1;
+    if constexpr (In == 3) acc = acc + w1[o][2] * x2;
     return acc + b1[o];
   }
 
@@ -103,10 +137,10 @@ struct Mlp {
     return softplus(z3(h2));
   }
 
-  __device__ __forceinline__ float operator()(float x0, float x1) const {
+  __device__ __forceinline__ float operator()(float x0, float x1, float x2) const {
     float h1[kWidth];
 #pragma unroll
-    for (int o = 0; o < kWidth; ++o) h1[o] = tanhf(z1(o, x0, x1));
+    for (int o = 0; o < kWidth; ++o) h1[o] = tanhf(z1(o, x0, x1, x2));
     return rest(h1);
   }
 };

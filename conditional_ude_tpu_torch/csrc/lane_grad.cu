@@ -4,8 +4,10 @@
 //
 // Replaces the TPU kernel
 // conditional_ude_tpu/ops/pallas_grad.py::_build_lane_grad_kernel (reached
-// through population_sse_and_grad_pallas / fused_population_vg).  A lane is
-// one (restart, individual) pair.  The production term does not depend on
+// through population_sse_and_grad_pallas / fused_population_vg), both of its
+// bodies: the network on [dG, e^beta] (37 weights) or, for the covariate
+// model, on [dG, e^beta, age] (41 weights; the age is the 5th column of the
+// individual's kinetics row).  A lane is one (restart, individual) pair.  The production term does not depend on
 // the state, so the ODE is affine in it and one RK4 step is
 //   v <- R v + M_a r(t) + M_mid r(t + dt/2) + M_d r(t + dt)
 // with 2x2 stage matrices of the kinetics.  The forward pass needs the
@@ -13,7 +15,9 @@
 // is the dG = 0 baseline) and gives the residuals at the save times; the
 // adjoint recursion over the residuals gives each point's weight (the
 // baseline's is minus their sum); one hand VJP per point gives the
-// gradient of the 37 weights and of beta.
+// gradient of the 37 (41) weights and of beta.  The age is an input, not a
+// parameter: it adds sum dz1[o] * age to w1[o][2]'s gradient and leaves the
+// beta cotangent as it is (pallas_grad.py:457-471).
 //
 // Design: one thread per lane, which takes its own e^beta as the TPU kernel
 // does.  The JAX kernel keeps every layer's
@@ -22,7 +26,7 @@
 // evaluates the network point by point inside the matrix-form RK4 and keeps
 // only the residuals; the adjoint recursion writes the 69 weights to a small
 // local array; the VJP pass recomputes each point's forward (4 + 4 tanhf and
-// the head) and accumulates the gradient in 37 registers and the beta
+// the head) and accumulates the gradient in 37 (41) registers and the beta
 // cotangent in one.  The mean over individuals runs outside the kernel.
 //
 // Bound: latency.  The flagship refinement runs 25 restarts x 57
@@ -37,16 +41,15 @@
 // their order are those of
 // conditional_ude_tpu_torch/ops/lane_grad.py::lane_sse_and_grad_reference.
 //
-// C interface (loaded with ctypes): lane_sse_and_grad returns
-// cudaGetLastError() after the launch.  It allocates nothing and launches
-// on the given stream.
+// C interface (loaded with ctypes): lane_sse_and_grad (2 inputs) and
+// lane_sse_and_grad_age (3 inputs) return cudaGetLastError() after the
+// launch.  They allocate nothing and launch on the given stream.
 
 #include "cude_mlp.cuh"
 
 namespace {
 
 using cude::kMaxTimepoints;
-using cude::kParams;
 using cude::kWidth;
 using cude::Mlp;
 
@@ -113,14 +116,15 @@ __device__ __forceinline__ Stage stage_matrices(float k0, float k1, float k2,
   return st;
 }
 
+template <int In>
 __global__ void __launch_bounds__(kBlock)
-lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, 37]
+lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, P]
                          const float* __restrict__ beta,     // [R * N]
                          const float* __restrict__ glucose,  // [N, K]
                          const float* __restrict__ data,     // [N, K]
-                         const float* __restrict__ kinetics, // [N, 4]
+                         const float* __restrict__ kinetics, // [N, 4|5]
                          float* __restrict__ sse_out,        // [R * N]
-                         float* __restrict__ gnn_out,        // [R * N, 37]
+                         float* __restrict__ gnn_out,        // [R * N, P]
                          float* __restrict__ gb_out,         // [R * N]
                          long long lanes, int n_ind, const GradGrid grid) {
   const long long lane = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
@@ -131,7 +135,10 @@ lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, 37]
   const int q_seg = 2 * grid.substeps + 1;
   const int n_pts = 1 + grid.n_seg * q_seg;
 
-  Mlp mlp;
+  using Net = Mlp<In>;
+  constexpr int kParams = Net::kParams;
+  constexpr int kKin = Net::kKin;
+  Net mlp;
   mlp.load(nn + r * kParams);
   const float e_beta = expf(beta[lane]);
   float g[kMaxTimepoints], d[kMaxTimepoints];
@@ -139,10 +146,12 @@ lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, 37]
     g[j] = glucose[n * k_pts + j];
     d[j] = data[n * k_pts + j];
   }
-  const float k0 = kinetics[4 * n + 0];
-  const float k1 = kinetics[4 * n + 1];
-  const float k2 = kinetics[4 * n + 2];
-  const float c0 = kinetics[4 * n + 3];
+  const float* kin = kinetics + kKin * n;
+  const float k0 = kin[0];
+  const float k1 = kin[1];
+  const float k2 = kin[2];
+  const float c0 = kin[3];
+  const float age = kKin == 5 ? kin[kKin - 1] : 0.0f;  // read by 3 inputs only
   const float g_at0 = grid.one_minus_w0 * g[grid.j0] + grid.w0 * g[grid.j0 + 1];
   const float kc = k0 * c0;
 
@@ -155,7 +164,7 @@ lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, 37]
     const float wq = static_cast<float>(j) * grid.inv_2s;
     return (1.0f - wq) * g[s] + wq * g[s + 1] - g_at0;
   };
-  auto net = [&](float dg) -> float { return mlp(dg, e_beta); };
+  auto net = [&](float dg) -> float { return mlp(dg, e_beta, age); };
 
   // -- forward: matrix-form RK4 on the productions --------------------------
   const float base = net(0.0f);
@@ -207,13 +216,18 @@ lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, 37]
   w[0] = -w_tot;
 
   // -- one hand VJP per point, accumulated in registers -------------------
+  // offsets of the flat layout: W1 [4][In], b1, W2 [4][4], b2, w3, b3
+  constexpr int kB1 = kWidth * In, kW2 = kB1 + kWidth;
+  constexpr int kB2 = kW2 + kWidth * kWidth, kW3 = kB2 + kWidth;
+  constexpr int kB3 = kW3 + kWidth;
+  static_assert(kB3 + 1 == kParams, "flat layout");
   float gacc[kParams];
   float deb = 0.0f;
   for (int q = 0; q < n_pts; ++q) {
     const float x = dg_at(q);
     float h1[kWidth], h2[kWidth];
 #pragma unroll
-    for (int o = 0; o < kWidth; ++o) h1[o] = tanhf(mlp.z1(o, x, e_beta));
+    for (int o = 0; o < kWidth; ++o) h1[o] = tanhf(mlp.z1(o, x, e_beta, age));
     mlp.layer2(h1, h2);
     const float z3 = mlp.z3(h2);
     const float dz3 = w[q] * (1.0f / (1.0f + expf(-z3)));
@@ -221,15 +235,15 @@ lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, 37]
     float dz2[kWidth], dz1[kWidth];
 #pragma unroll
     for (int k = 0; k < kWidth; ++k) {
-      contrib[32 + k] = dz3 * h2[k];
+      contrib[kW3 + k] = dz3 * h2[k];
       dz2[k] = dz3 * mlp.w3[k] * (1.0f - h2[k] * h2[k]);
     }
-    contrib[36] = dz3;
+    contrib[kB3] = dz3;
 #pragma unroll
     for (int o = 0; o < kWidth; ++o) {
 #pragma unroll
-      for (int k = 0; k < kWidth; ++k) contrib[12 + 4 * o + k] = dz2[o] * h1[k];
-      contrib[28 + o] = dz2[o];
+      for (int k = 0; k < kWidth; ++k) contrib[kW2 + kWidth * o + k] = dz2[o] * h1[k];
+      contrib[kB2 + o] = dz2[o];
     }
 #pragma unroll
     for (int k = 0; k < kWidth; ++k) {
@@ -241,9 +255,10 @@ lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, 37]
     float dh_eb = dz1[0] * mlp.w1[0][1];
 #pragma unroll
     for (int o = 0; o < kWidth; ++o) {
-      contrib[2 * o] = dz1[o] * x;
-      contrib[2 * o + 1] = dz1[o] * e_beta;
-      contrib[8 + o] = dz1[o];
+      contrib[In * o] = dz1[o] * x;
+      contrib[In * o + 1] = dz1[o] * e_beta;
+      if constexpr (In == 3) contrib[In * o + 2] = dz1[o] * age;
+      contrib[kB1 + o] = dz1[o];
       if (o > 0) dh_eb = dh_eb + dz1[o] * mlp.w1[o][1];
     }
 #pragma unroll
@@ -257,16 +272,12 @@ lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, 37]
   gb_out[lane] = deb * e_beta;
 }
 
-}  // namespace
-
-extern "C" int lane_sse_and_grad(const float* nn, const float* beta,
-                                 const float* glucose, const float* data,
-                                 const float* kinetics, float* sse,
-                                 float* gnn, float* gb, long long lanes,
-                                 int n_ind,
-                                 const float* consts,  // host, see lane_grad.py
-                                 int n_seg, int substeps, int j0,
-                                 void* stream) {
+template <int In>
+int launch(const float* nn, const float* beta, const float* glucose,
+           const float* data, const float* kinetics, float* sse, float* gnn,
+           float* gb, long long lanes, int n_ind,
+           const float* consts,  // host, see lane_grad.py
+           int n_seg, int substeps, int j0, void* stream) {
   if (n_seg < 1 || n_seg > kMaxTimepoints - 1 || substeps < 1 ||
       substeps > kMaxSubsteps || j0 < 0 || j0 >= n_seg || n_ind < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -286,8 +297,30 @@ extern "C" int lane_sse_and_grad(const float* nn, const float* beta,
     grid.seg[s] = GradSegment{c[0], c[1], c[2], c[3], c[4], c[5]};
   }
   const long long blocks = (lanes + kBlock - 1) / kBlock;
-  lane_sse_and_grad_kernel<<<static_cast<unsigned int>(blocks), kBlock, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  lane_sse_and_grad_kernel<In><<<static_cast<unsigned int>(blocks), kBlock, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
       nn, beta, glucose, data, kinetics, sse, gnn, gb, lanes, n_ind, grid);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int lane_sse_and_grad(const float* nn, const float* beta,
+                                 const float* glucose, const float* data,
+                                 const float* kinetics, float* sse,
+                                 float* gnn, float* gb, long long lanes,
+                                 int n_ind, const float* consts, int n_seg,
+                                 int substeps, int j0, void* stream) {
+  return launch<2>(nn, beta, glucose, data, kinetics, sse, gnn, gb, lanes,
+                   n_ind, consts, n_seg, substeps, j0, stream);
+}
+
+extern "C" int lane_sse_and_grad_age(const float* nn, const float* beta,
+                                     const float* glucose, const float* data,
+                                     const float* kinetics, float* sse,
+                                     float* gnn, float* gb, long long lanes,
+                                     int n_ind, const float* consts, int n_seg,
+                                     int substeps, int j0, void* stream) {
+  return launch<3>(nn, beta, glucose, data, kinetics, sse, gnn, gb, lanes,
+                   n_ind, consts, n_seg, substeps, j0, stream);
 }

@@ -1,32 +1,37 @@
 // Fused cohort RK4 solve + SSE of the conditional c-peptide model, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel conditional_ude_tpu/ops/pallas_rk4.py::_build_kernel
-// (reached through cohort_sse_pallas).  Every lane is an independent 2-state
-// ODE: van Cauter kinetics plus the production term
+// (reached through cohort_sse_pallas), both of its bodies.  Every lane is an
+// independent 2-state ODE: van Cauter kinetics plus the production term
 // MLP([dG, e^beta]) - MLP([0, e^beta]) of the canonical chain(4, 2) network
-// (2 inputs, two tanh layers of width 4, softplus head: 37 weights), driven
-// by the lane's glucose curve.  The kernel integrates it with fixed-step RK4
-// over the shared observation grid and returns the SSE against the lane's
-// c-peptide data at the save points; a non-finite SSE is stored as +inf.
+// (2 inputs, two tanh layers of width 4, softplus head: 37 weights), or, for
+// the covariate model, MLP([dG, e^beta, age]) - MLP([0, e^beta, age]) (3
+// inputs, 41 weights; the age is the 5th column of the lane's kinetics row),
+// driven by the lane's glucose curve.  The kernel integrates it with
+// fixed-step RK4 over the shared observation grid and returns the SSE against
+// the lane's c-peptide data at the save points; a non-finite SSE is stored as
+// +inf.
 //
-// Design: one thread per lane.  The lane's 37 weights, its 5 glucose and data
-// values and its 4 kinetic constants live in registers for the whole solve;
-// the baseline MLP([0, e^beta]) is computed once before the time loop.  The
+// Design: one thread per lane.  The lane's 37 (41) weights, its 5 glucose and
+// data values and its 4 (5) kinetics values live in registers for the whole
+// solve; the baseline network is computed once before the time loop.  The
 // time grid is shared, so the per-segment step sizes, the interpolation
 // constants and the t = 0 blend (j0, w0) are computed on the host and passed
-// by value.  A lane reads 37 + 15 floats and writes one, so on this card the
+// by value.  A lane reads ~52 floats and writes one, so on this card the
 // kernel is bound by the per-lane arithmetic: 128 right-hand sides of eight
-// tanhf, one expf and one log1pf (SFU and FMA pipes) and 33 multiply-adds.
-// Reading one shared weight vector from shared memory and a warp-level
-// layout of the MLP are later work.
+// tanhf, one expf and one log1pf (SFU and FMA pipes) and 33 (37) multiplies
+// and adds.  Reading one shared weight vector from shared memory and a
+// warp-level layout of the MLP are later work.
 //
 // Numerics (cude_mlp.cuh): accurate tanhf/expf/log1pf, no contracted
 // multiply-adds; the operations and their order are those of the plain
 // PyTorch version in
-// conditional_ude_tpu_torch/ops/rk4_cohort.py::cohort_sse_reference.
+// conditional_ude_tpu_torch/ops/rk4_cohort.py::cohort_sse_reference, which
+// follows the JAX kernel: w . [dG, e^beta, age] left to right, then the bias.
 //
-// C interface (loaded with ctypes): rk4_cohort_sse returns cudaGetLastError()
-// after the launch.  It allocates nothing and launches on the given stream.
+// C interface (loaded with ctypes): rk4_cohort_sse (2 inputs) and
+// rk4_cohort_sse_age (3 inputs) return cudaGetLastError() after the launch.
+// They allocate nothing and launch on the given stream.
 
 #include "cude_mlp.cuh"
 
@@ -39,6 +44,7 @@ using cude::Segment;
 
 constexpr int kBlock = 128;
 
+template <int In>
 __global__ void __launch_bounds__(kBlock)
 rk4_cohort_sse_kernel(const float* __restrict__ nn, long long nn_lane_stride,
                       const float* __restrict__ eb,
@@ -50,7 +56,9 @@ rk4_cohort_sse_kernel(const float* __restrict__ nn, long long nn_lane_stride,
   if (lane >= lanes) return;
   const int k_pts = grid.n_seg + 1;
 
-  Mlp mlp;
+  using Net = Mlp<In>;
+  constexpr int kKin = Net::kKin;
+  Net mlp;
   mlp.load(nn + lane * nn_lane_stride);
   const float e_beta = eb[lane];
   float g[kMaxTimepoints], d[kMaxTimepoints];
@@ -58,12 +66,14 @@ rk4_cohort_sse_kernel(const float* __restrict__ nn, long long nn_lane_stride,
     g[j] = glucose[lane * k_pts + j];
     d[j] = data[lane * k_pts + j];
   }
-  const float k0 = kinetics[lane * 4 + 0];
-  const float k1 = kinetics[lane * 4 + 1];
-  const float k2 = kinetics[lane * 4 + 2];
-  const float c0 = kinetics[lane * 4 + 3];
+  const float* kin = kinetics + lane * kKin;
+  const float k0 = kin[0];
+  const float k1 = kin[1];
+  const float k2 = kin[2];
+  const float c0 = kin[3];
+  const float age = kKin == 5 ? kin[kKin - 1] : 0.0f;  // read by 3 inputs only
 
-  const float base = mlp(0.0f, e_beta);
+  const float base = mlp(0.0f, e_beta, age);
   const float g_at0 = grid.one_minus_w0 * g[grid.j0] + grid.w0 * g[grid.j0 + 1];
   const float decay = -(k0 + k2);
   const float inflow = k0 * c0;
@@ -80,7 +90,7 @@ rk4_cohort_sse_kernel(const float* __restrict__ nn, long long nn_lane_stride,
     auto rhs = [&](float t, float v1, float v2, float& d1, float& d2) {
       const float w = (t - sg.t0) * sg.inv_span;
       const float dg = (1.0f - w) * gl + w * gr - g_at0;
-      const float prod = mlp(dg, e_beta) - base;
+      const float prod = mlp(dg, e_beta, age) - base;
       d1 = decay * v1 + k1 * v2 + inflow + prod;
       d2 = neg_k1 * v2 + k2 * v1;
     };
@@ -100,33 +110,46 @@ rk4_cohort_sse_kernel(const float* __restrict__ nn, long long nn_lane_stride,
   out[lane] = isfinite(sse) ? sse : INFINITY;
 }
 
+template <int In>
+int launch(const float* nn, long long nn_lane_stride, const float* eb,
+           const float* glucose, const float* data, const float* kinetics,
+           float* out, long long lanes,
+           const float* segments,  // host [n_seg, 5]
+           int n_seg, int substeps, int j0, float one_minus_w0, float w0,
+           void* stream) {
+  Grid grid;
+  if (!cude::make_grid(segments, n_seg, substeps, j0, one_minus_w0, w0, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes <= 0) return 0;
+  const long long blocks = (lanes + kBlock - 1) / kBlock;
+  rk4_cohort_sse_kernel<In><<<static_cast<unsigned int>(blocks), kBlock, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      nn, nn_lane_stride, eb, glucose, data, kinetics, out, lanes, grid);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int rk4_cohort_sse(const float* nn, long long nn_lane_stride,
                               const float* eb, const float* glucose,
                               const float* data, const float* kinetics,
                               float* out, long long lanes,
-                              const float* segments,  // host [n_seg, 5]
-                              int n_seg, int substeps, int j0,
-                              float one_minus_w0, float w0, void* stream) {
-  if (n_seg < 1 || n_seg > kMaxTimepoints - 1 || substeps < 1 || j0 < 0 ||
-      j0 >= n_seg)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (lanes <= 0) return 0;
-  Grid grid;
-  grid.n_seg = n_seg;
-  grid.substeps = substeps;
-  grid.j0 = j0;
-  grid.one_minus_w0 = one_minus_w0;
-  grid.w0 = w0;
-  for (int s = 0; s < n_seg; ++s) {
-    grid.seg[s] = Segment{segments[5 * s + 0], segments[5 * s + 1],
-                          segments[5 * s + 2], segments[5 * s + 3],
-                          segments[5 * s + 4]};
-  }
-  const long long blocks = (lanes + kBlock - 1) / kBlock;
-  rk4_cohort_sse_kernel<<<static_cast<unsigned int>(blocks), kBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      nn, nn_lane_stride, eb, glucose, data, kinetics, out, lanes, grid);
-  return static_cast<int>(cudaGetLastError());
+                              const float* segments, int n_seg, int substeps,
+                              int j0, float one_minus_w0, float w0,
+                              void* stream) {
+  return launch<2>(nn, nn_lane_stride, eb, glucose, data, kinetics, out,
+                   lanes, segments, n_seg, substeps, j0, one_minus_w0, w0,
+                   stream);
+}
+
+extern "C" int rk4_cohort_sse_age(const float* nn, long long nn_lane_stride,
+                                  const float* eb, const float* glucose,
+                                  const float* data, const float* kinetics,
+                                  float* out, long long lanes,
+                                  const float* segments, int n_seg,
+                                  int substeps, int j0, float one_minus_w0,
+                                  float w0, void* stream) {
+  return launch<3>(nn, nn_lane_stride, eb, glucose, data, kinetics, out,
+                   lanes, segments, n_seg, substeps, j0, one_minus_w0, w0,
+                   stream);
 }

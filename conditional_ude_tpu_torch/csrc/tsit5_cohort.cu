@@ -2,7 +2,10 @@
 // re-rank of joint cUDE training), for Hopper (sm_90a).
 //
 // Replaces the TPU kernel conditional_ude_tpu/ops/pallas_tsit5.py::_build_kernel
-// (reached through cohort_sse_tsit5_pallas / screen_population_tsit5_pallas).
+// (reached through cohort_sse_tsit5_pallas / screen_population_tsit5_pallas),
+// both of its bodies: the network on [dG, e^beta] (37 weights) or, for the
+// covariate model, on [dG, e^beta, age] (41 weights; the age is the 5th
+// column of the individual's kinetics row, an input at every stage).
 // Every lane integrates its 2-state c-peptide ODE with the Tsitouras 5(4)
 // pair: FSAL, a PI step-size controller, Hairer's initial step, rtol/atol
 // scaled error norm, at most max_steps steps.  Each accepted step that
@@ -29,9 +32,9 @@
 // Accept/reject decisions sit on err <= 1, so a one-ulp difference can
 // change a lane's step sequence; the comparisons hold at Tsit5 tolerance.
 //
-// C interface (loaded with ctypes): tsit5_cohort_sse returns
-// cudaGetLastError() after the launch.  It allocates nothing and launches
-// on the given stream.
+// C interface (loaded with ctypes): tsit5_cohort_sse (2 inputs) and
+// tsit5_cohort_sse_age (3 inputs) return cudaGetLastError() after the
+// launch.  They allocate nothing and launch on the given stream.
 
 #include <string.h>
 
@@ -40,7 +43,6 @@
 namespace {
 
 using cude::kMaxTimepoints;
-using cude::kParams;
 using cude::Mlp;
 
 constexpr int kBlock = 64;
@@ -86,12 +88,13 @@ __device__ __forceinline__ float rms2(float a1, float a2, float s1, float s2) {
   return sqrtf(0.5f * (x1 * x1 + x2 * x2) + 1e-30f);
 }
 
+template <int In>
 __global__ void __launch_bounds__(kBlock)
-tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, 37]
+tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, P]
                         const float* __restrict__ eb,       // [R * N] e^beta
                         const float* __restrict__ glucose,  // [N, K]
                         const float* __restrict__ data,     // [N, K]
-                        const float* __restrict__ kinetics, // [N, 4]
+                        const float* __restrict__ kinetics, // [N, 4|5]
                         float* __restrict__ sse_out,        // [R * N]
                         bool* __restrict__ ok_out,          // [R * N]
                         long long lanes, int n_ind, int n_save, int j0,
@@ -101,19 +104,23 @@ tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, 37]
   const long long r = lane / n_ind;
   const int n = static_cast<int>(lane - r * n_ind);
 
-  Mlp mlp;
-  mlp.load(nn + r * kParams);
+  using Net = Mlp<In>;
+  constexpr int kKin = Net::kKin;
+  Net mlp;
+  mlp.load(nn + r * Net::kParams);
   const float e_beta = eb[lane];
   float g[kMaxTimepoints], d[kMaxTimepoints];
   for (int j = 0; j < n_save; ++j) {
     g[j] = glucose[n * n_save + j];
     d[j] = data[n * n_save + j];
   }
-  const float k0 = kinetics[4 * n + 0];
-  const float k1 = kinetics[4 * n + 1];
-  const float k2 = kinetics[4 * n + 2];
-  const float c0 = kinetics[4 * n + 3];
-  const float base = mlp(0.0f, e_beta);
+  const float* kin = kinetics + kKin * n;
+  const float k0 = kin[0];
+  const float k1 = kin[1];
+  const float k2 = kin[2];
+  const float c0 = kin[3];
+  const float age = kKin == 5 ? kin[kKin - 1] : 0.0f;  // read by 3 inputs only
+  const float base = mlp(0.0f, e_beta, age);
   const float g_at0 = k.one_minus_w0 * g[j0] + k.w0 * g[j0 + 1];
 
   // glucose at a lane's own time: a chain of where(t >= lo, segment, value)
@@ -127,7 +134,7 @@ tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, 37]
     return val;
   };
   auto rhs = [&](float t, float v1, float v2, float& d1, float& d2) {
-    const float prod = mlp(g_at(t) - g_at0, e_beta) - base;
+    const float prod = mlp(g_at(t) - g_at0, e_beta, age) - base;
     d1 = -(k0 + k2) * v1 + k1 * v2 + k0 * c0 + prod;
     d2 = -k1 * v2 + k2 * v1;
   };
@@ -230,15 +237,12 @@ tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, 37]
   ok_out[lane] = ok;
 }
 
-}  // namespace
-
-extern "C" int tsit5_cohort_sse(const float* nn, const float* eb,
-                                const float* glucose, const float* data,
-                                const float* kinetics, float* sse, bool* ok,
-                                long long lanes, int n_ind,
-                                const float* consts,  // host, 130 floats
-                                int n_save, int j0, int max_steps,
-                                void* stream) {
+template <int In>
+int launch(const float* nn, const float* eb, const float* glucose,
+           const float* data, const float* kinetics, float* sse, bool* ok,
+           long long lanes, int n_ind,
+           const float* consts,  // host, 130 floats
+           int n_save, int j0, int max_steps, void* stream) {
   if (n_save < 2 || n_save > kMaxTimepoints || j0 < 0 || j0 > n_save - 2 ||
       n_ind < 1 || max_steps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -246,9 +250,31 @@ extern "C" int tsit5_cohort_sse(const float* nn, const float* eb,
   Tsit5Consts k;
   memcpy(&k, consts, sizeof(k));
   const long long blocks = (lanes + kBlock - 1) / kBlock;
-  tsit5_cohort_sse_kernel<<<static_cast<unsigned int>(blocks), kBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  tsit5_cohort_sse_kernel<In><<<static_cast<unsigned int>(blocks), kBlock, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       nn, eb, glucose, data, kinetics, sse, ok, lanes, n_ind, n_save, j0,
       max_steps, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int tsit5_cohort_sse(const float* nn, const float* eb,
+                                const float* glucose, const float* data,
+                                const float* kinetics, float* sse, bool* ok,
+                                long long lanes, int n_ind,
+                                const float* consts, int n_save, int j0,
+                                int max_steps, void* stream) {
+  return launch<2>(nn, eb, glucose, data, kinetics, sse, ok, lanes, n_ind,
+                   consts, n_save, j0, max_steps, stream);
+}
+
+extern "C" int tsit5_cohort_sse_age(const float* nn, const float* eb,
+                                    const float* glucose, const float* data,
+                                    const float* kinetics, float* sse,
+                                    bool* ok, long long lanes, int n_ind,
+                                    const float* consts, int n_save, int j0,
+                                    int max_steps, void* stream) {
+  return launch<3>(nn, eb, glucose, data, kinetics, sse, ok, lanes, n_ind,
+                   consts, n_save, j0, max_steps, stream);
 }

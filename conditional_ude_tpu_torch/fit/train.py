@@ -105,7 +105,9 @@ def initial_designs(net: MLP, n: int, generator: torch.Generator,
 
 def _check_trainable(model: CPeptideModel, cfg: TrainConfig) -> None:
     """The kernels take the canonical cUDE only: one conditional parameter,
-    chain(4, 2) on [ΔG, e^β], training with fixed-step RK4."""
+    chain(4, 2) on [ΔG, e^β] (or, for the covariate model, on [ΔG, e^β,
+    age]), training with fixed-step RK4.  A kind that does not match the
+    network's input count cannot be built (``CPeptideModel``)."""
     if cfg.n_conditional != 1:
         raise NotImplementedError(
             f"train_conditional takes n_conditional=1 only, got "
@@ -115,7 +117,7 @@ def _check_trainable(model: CPeptideModel, cfg: TrainConfig) -> None:
             f"train_conditional trains with solver='rk4' only, got "
             f"{cfg.solver!r}")
     try:
-        check_net_canonical(model.net, 2)
+        check_net_canonical(model.net)
     except ValueError as err:
         raise NotImplementedError(str(err)) from None
 
@@ -157,7 +159,8 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
         nn_inits, betas_init = (torch.as_tensor(np.array(a), dtype=torch.float32)
                                 for a in designs)
     nn_inits, betas_init = nn_inits.to(dev), betas_init.to(dev)
-    cohort_args = (cohort.glucose, cohort.cpeptide, cohort.kinetics(),
+    cohort_args = (cohort.glucose, cohort.cpeptide,
+                   cohort.kinetics(with_age=model.with_age),
                    tuple(float(t) for t in cohort.timepoints))
 
     # -- screen every design (K1) --------------------------------------------
@@ -217,8 +220,10 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
               f"screen_path={timings['screen_path']} "
               f"refine_path={timings['refine_path']}", file=sys.stderr)
 
-    orients = torch.tensor([production_orientation(model, nn) for nn in nn2],
-                           device=dev)
+    # the covariate model's gauge is taken at the cohort's mean age
+    mean_age = cohort.age.mean()
+    orients = torch.tensor([production_orientation(model, nn, age=mean_age)
+                            for nn in nn2], device=dev)
     order = torch.argsort(torch.where(torch.isfinite(objs), objs, torch.inf),
                           stable=True)
     return TrainResult(nn_params=nn2[order], betas=b2[order, :, None],

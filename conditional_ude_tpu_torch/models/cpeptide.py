@@ -6,11 +6,13 @@ ODE (van Cauter two-compartment kinetics):
     du2 = -k1·u2 + k2·u1
     production = NN([ΔG(t), e^β]) − NN([0, e^β])
 with ΔG(t) = glucose(t) − glucose(0) from linear interpolation of the
-measured glucose, and the steady state u0 = [c0, (k2/k1)·c0].
+measured glucose, and the steady state u0 = [c0, (k2/k1)·c0].  The
+covariate model (``kind="conditional_covariate"``, experiment 07) feeds each
+individual's age as a third input: NN([ΔG, e^β, age]) − NN([0, e^β, age]).
 
 A cohort is a set of tensors with the individual axis last; β may carry
 leading batch axes (candidate networks, profile grid points) in front of it.
-This slice ports the conditional head only; the analytic, UDE and covariate
+The port has the conditional and covariate heads; the analytic and UDE
 heads come with later slices.
 """
 
@@ -98,22 +100,54 @@ def build_cohort(glucose, timepoints, cpeptide, ages, t2dm,
                   k0=k0, k1=k1, k2=k2, c0=cpeptide[:, 0].clone())
 
 
+# the network's input count of each production head
+KINDS = {"conditional": 2, "conditional_covariate": 3}
+
+
 @dataclasses.dataclass(frozen=True)
 class CPeptideModel:
-    """Kinetics plus the conditional production head ``net([ΔG, e^β])``."""
+    """Kinetics plus a conditional production head: ``net([ΔG, e^β])``
+    (``kind="conditional"``) or ``net([ΔG, e^β, age])``
+    (``kind="conditional_covariate"``)."""
 
     net: MLP
+    kind: str = "conditional"
 
-    def production(self, nn_params: torch.Tensor, betas: torch.Tensor):
-        """``prod(dg)`` = NN([ΔG, e^β]) − NN([0, e^β]); the baseline and
-        e^β are computed once, outside the time loop."""
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"kind must be one of {sorted(KINDS)}, got "
+                             f"{self.kind!r}")
+        if self.net.input_dims != KINDS[self.kind]:
+            raise ValueError(
+                f"a {self.kind!r} model needs a {KINDS[self.kind]}-input "
+                f"network, got input_dims={self.net.input_dims}")
+
+    @property
+    def with_age(self) -> bool:
+        """Whether the network takes the age as its third input."""
+        return self.kind == "conditional_covariate"
+
+    def production(self, nn_params: torch.Tensor, betas: torch.Tensor,
+                   age=None):
+        """``prod(dg)`` = NN([ΔG, e^β(, age)]) − NN([0, e^β(, age)]); the
+        baseline and e^β are computed once, outside the time loop.  ``age``
+        (broadcast against ``betas``) is required by the covariate model and
+        ignored otherwise."""
         eb = torch.exp(betas)
-        base = self.net.scalar(
-            nn_params, torch.stack([torch.zeros_like(eb), eb], dim=-1))
+        extra = []
+        if self.with_age:
+            if age is None:
+                raise ValueError("the covariate model needs the age")
+            extra = [torch.as_tensor(age, dtype=eb.dtype, device=eb.device)]
+
+        def net(dg: torch.Tensor) -> torch.Tensor:
+            x = torch.broadcast_tensors(dg, eb, *extra)
+            return self.net.scalar(nn_params, torch.stack(x, dim=-1))
+
+        base = net(torch.zeros_like(eb))
 
         def prod(dg: torch.Tensor) -> torch.Tensor:
-            dg, e = torch.broadcast_tensors(dg, eb)
-            return self.net.scalar(nn_params, torch.stack([dg, e], dim=-1)) - base
+            return net(dg) - base
 
         return prod
 
@@ -133,7 +167,7 @@ class CPeptideModel:
         # ΔG is measured from absolute t = 0, not from the first knot
         dg = glucose(times) - glucose(0.0)[:, None]          # [N, U]
         dg = dg.T.reshape(len(times), *[1] * (betas.ndim - 1), cohort.n)
-        table = self.production(nn_params, betas)(dg)        # [U, ..., N]
+        table = self.production(nn_params, betas, cohort.age)(dg)  # [U, ..., N]
         decay = -(cohort.k0 + cohort.k2)
         inflow = cohort.k0 * cohort.c0
         k1, k2, neg_k1 = cohort.k1, cohort.k2, -cohort.k1
@@ -153,7 +187,7 @@ class CPeptideModel:
         ΔG from the glucose interpolant at each lane's time."""
         glucose = LinearInterp(cohort.timepoints, cohort.glucose)
         g0 = glucose(0.0)
-        prod = self.production(nn_params, betas)
+        prod = self.production(nn_params, betas, cohort.age)
         decay = -(cohort.k0 + cohort.k2)
         inflow = cohort.k0 * cohort.c0
         k1, k2, neg_k1 = cohort.k1, cohort.k2, -cohort.k1
@@ -197,14 +231,16 @@ def simulate_cohort(model: CPeptideModel, nn_params: torch.Tensor,
 
 def production_orientation(model: CPeptideModel, nn_params: torch.Tensor,
                            beta_range=(-2.5, 0.5), dg_range=(0.5, 10.0),
-                           steps: int = 13) -> float:
+                           age=50.0, steps: int = 13) -> float:
     """Canonical ±1 gauge of a trained conditional axis: +1 when production
     decreases in β over the physiological (β, ΔG) box, −1 when the trained
-    gauge is mirrored.  β analyses use ``orientation * β``."""
+    gauge is mirrored.  β analyses use ``orientation * β``.  ``age`` feeds
+    the covariate model's third input (use the cohort's mean age) and is
+    ignored otherwise."""
     dev = nn_params.device
     bs = torch.as_tensor(linspace(*beta_range, steps), device=dev)
     dgs = torch.as_tensor(linspace(*dg_range, 8), device=dev)
     dg, b = torch.broadcast_tensors(dgs[None, :], bs[:, None])   # [steps, 8]
-    surf = model.production(nn_params, b)(dg)
+    surf = model.production(nn_params, b, age)(dg)
     slope = torch.mean(surf[1:] - surf[:-1])
     return 1.0 if bool(slope <= 0) else -1.0

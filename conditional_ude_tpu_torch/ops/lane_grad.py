@@ -13,8 +13,11 @@ one (restart, individual) pair.  Its forward pass needs the network at
 1 + n_seg·(2·substeps + 1) points (69 on the OGTT grid; row 0 is the ΔG = 0
 baseline); an adjoint recursion over the five residuals gives each point's
 weight (the baseline's is −Σw), and one hand VJP per point gives ∇nn[37]
-and ∇β = (Σ_q ∂/∂e^β)·e^β.  The sum over individuals runs outside the
-kernel (:func:`population_sse_and_grad`), as in the JAX package.
+and ∇β = (Σ_q ∂/∂e^β)·e^β.  The covariate model's network takes the age as
+a third input (the kinetics' 5th column): ∇nn has 41 entries, w1[o][2]'s
+being Σ_q dz1[o]·age, and ∇β is unchanged (``pallas_grad.py:457-471``).  The
+sum over individuals runs outside the kernel
+(:func:`population_sse_and_grad`), as in the JAX package.
 
 :func:`lane_sse_and_grad` launches ``csrc/lane_grad.cu`` for CUDA tensors
 and runs :func:`lane_sse_and_grad_reference`, the same arithmetic as plain
@@ -46,12 +49,16 @@ from conditional_ude_tpu_torch.ops.tsit5 import f32
 
 MAX_SUBSTEPS = 16
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset them to 0): the
+# 2-input body and the 3-input (covariate) body
 launches = 0
+launches_age = 0
 
-kernel = KernelLibrary("lane_grad.cu", "lane_sse_and_grad",
-                       [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR,
-                        I32, I32, I32, VP])
+_ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32,
+             VP]
+kernel = KernelLibrary("lane_grad.cu", "lane_sse_and_grad", _ARGTYPES)
+kernel_age = KernelLibrary("lane_grad.cu", "lane_sse_and_grad_age",
+                           _ARGTYPES)
 
 
 def grid_constants(timepoints, substeps: int) -> np.ndarray:
@@ -137,6 +144,7 @@ def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
     (w1, b1), (w2, b2), (w3, b3) = _mlp_columns(nn_params, net)
     eb = torch.exp(betas)                                         # [R, N]
     k0, k1, k2, c0 = (kinetics[:, i] for i in range(4))
+    extra = [kinetics[:, 4]] if kinetics.shape[1] == 5 else []     # the age
     g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
 
     # ΔG of every evaluation point [QT][N]; row 0 is the baseline ΔG = 0
@@ -147,9 +155,14 @@ def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
             wq = np.float32(q) * np.float32(inv_2s)
             dgs.append(f32(np.float32(1.0) - wq) * gl + f32(wq) * gr - g_at0)
 
+    def layer1(o, dg):
+        acc = w1[o][0] * dg + w1[o][1] * eb
+        for w, x in zip(w1[o][2:], extra):
+            acc = acc + w * x
+        return acc + b1[o]
+
     def forward(dg):
-        h1 = [torch.tanh(w1[o][0] * dg + w1[o][1] * eb + b1[o])
-              for o in range(4)]
+        h1 = [torch.tanh(layer1(o, dg)) for o in range(4)]
         h2 = []
         for o in range(4):
             acc = w2[o][0] * h1[0]
@@ -208,7 +221,7 @@ def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
             for o in range(1, 4):
                 dh = dh + dz2[o] * w2[o][k]
             dz1.append(dh * (1.0 - h1[k] * h1[k]))
-        g1 = [dz1[o] * x for o in range(4) for x in (dg, eb)] + dz1
+        g1 = [dz1[o] * x for o in range(4) for x in [dg, eb] + extra] + dz1
         dh_eb = dz1[0] * w1[0][1]
         for o in range(1, 4):
             dh_eb = dh_eb + dz1[o] * w1[o][1]
@@ -223,9 +236,10 @@ def lane_sse_and_grad(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
                       kinetics: torch.Tensor, timepoints, substeps: int = 8):
     """Per-lane ``(sse[R, N], gnn[R, N, P], gb[R, N])`` of restarts
     ``nn_params[R, P]``, ``betas[R, N]`` on a cohort ``glucose[N, K]``,
-    ``data[N, K]``, ``kinetics[N, 4]``: lane (r, n) is restart r on
-    individual n.  CPU tensors run the plain version; CUDA tensors launch
-    the kernel."""
+    ``data[N, K]``, ``kinetics[N, 4]`` (``[N, 5]`` with the age for a
+    3-input network): lane (r, n) is restart r on individual n.  CPU tensors
+    run the plain version; CUDA tensors launch the kernel's body for the
+    network's input count."""
     check_restart_inputs(net, nn_params, betas, glucose, data, kinetics,
                          timepoints)
     if not 1 <= substeps <= MAX_SUBSTEPS:
@@ -236,12 +250,13 @@ def lane_sse_and_grad(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
                                            substeps)
     if betas.device.type != "cuda":
         raise ValueError(f"no value+grad kernel for device {betas.device}")
-    return _launch(nn_params, betas, glucose, data, kinetics, timepoints,
-                   substeps)
+    return _launch(net, nn_params, betas, glucose, data, kinetics,
+                   timepoints, substeps)
 
 
-def _launch(nn_params, betas, glucose, data, kinetics, timepoints, substeps):
-    global launches
+def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
+            substeps):
+    global launches, launches_age
     require_contiguous(nn_params=nn_params, betas=betas, glucose=glucose,
                        data=data, kinetics=kinetics)
     r, n = betas.shape
@@ -256,12 +271,16 @@ def _launch(nn_params, betas, glucose, data, kinetics, timepoints, substeps):
     consts = grid_constants(timepoints, substeps)
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        kernel(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
-               data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
-               gnn.data_ptr(), gb.data_ptr(), r * n, n,
-               consts.ctypes.data_as(F32_PTR), len(timepoints) - 1, substeps,
-               j0, stream)
-    launches += 1
+        lib = kernel_age if net.input_dims == 3 else kernel
+        lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
+            data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
+            gnn.data_ptr(), gb.data_ptr(), r * n, n,
+            consts.ctypes.data_as(F32_PTR), len(timepoints) - 1, substeps, j0,
+            stream)
+    if net.input_dims == 3:
+        launches_age += 1
+    else:
+        launches += 1
     return sse, gnn, gb
 
 

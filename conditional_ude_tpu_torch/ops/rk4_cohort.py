@@ -4,9 +4,12 @@
 Lanes are (grid point × individual) pairs of a likelihood-profile scan, or
 any other set of independent solves: each lane has its own network weights,
 β, glucose curve, c-peptide data and kinetic constants; all lanes share the
-observation grid.  :func:`cohort_sse` launches the CUDA kernel in
-``csrc/rk4_cohort.cu`` for CUDA tensors and runs :func:`cohort_sse_reference`,
-the same arithmetic as plain tensor code, for CPU tensors.
+observation grid.  The network is the canonical ``chain(4, 2)`` on
+[ΔG, e^β], or on [ΔG, e^β, age] for the covariate model, whose kinetics rows
+carry the age as a 5th column.  :func:`cohort_sse` launches the CUDA kernel in
+``csrc/rk4_cohort.cu`` for CUDA tensors (one body per input count) and runs
+:func:`cohort_sse_reference`, the same arithmetic as plain tensor code, for
+CPU tensors.
 
 The kernel is built by ``nvcc`` for ``sm_90a`` at first use into ``build/``
 at the repository root and bound with ``ctypes`` (``ops/cuda_build.py``).
@@ -30,24 +33,27 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
 MAX_TIMEPOINTS = 16
 CANONICAL_WIDTHS = (4, 4)
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset them to 0): the
+# 2-input body and the 3-input (covariate) body
 launches = 0
+launches_age = 0
 
-kernel = KernelLibrary("rk4_cohort.cu", "rk4_cohort_sse",
-                       [VP, I64, VP, VP, VP, VP, VP, I64, F32_PTR, I32, I32,
-                        I32, F32, F32, VP])
+_ARGTYPES = [VP, I64, VP, VP, VP, VP, VP, I64, F32_PTR, I32, I32, I32, F32,
+             F32, VP]
+kernel = KernelLibrary("rk4_cohort.cu", "rk4_cohort_sse", _ARGTYPES)
+kernel_age = KernelLibrary("rk4_cohort.cu", "rk4_cohort_sse_age", _ARGTYPES)
 
 
-def check_net_canonical(net: MLP, input_dims: int | tuple = (2, 3)) -> None:
-    """K4 computes the canonical cUDE network only: ``chain(4, 2)`` with tanh
-    hidden layers and a softplus scalar head, on [ΔG, e^β] (2 inputs) or
-    [ΔG, e^β, age] (3 inputs, the covariate model)."""
-    allowed = (input_dims,) if isinstance(input_dims, int) else input_dims
+def check_net_canonical(net: MLP) -> None:
+    """The kernels compute the canonical cUDE network only: ``chain(4, 2)``
+    with tanh hidden layers and a softplus scalar head, on [ΔG, e^β]
+    (2 inputs) or [ΔG, e^β, age] (3 inputs, the covariate model)."""
+    allowed = (2, 3)
     if (net.input_dims not in allowed or net.widths != CANONICAL_WIDTHS
             or any(a != "tanh" for a in net.activations)
             or net.output_dims != 1 or net.output_activation != "softplus"):
         raise ValueError(
-            f"the cohort RK4 kernel supports only {allowed}-input chain(4, 2) "
+            f"the kernels support only {allowed}-input chain(4, 2) "
             "MLPs with tanh hidden layers and a softplus output head; got "
             f"input_dims={net.input_dims}, widths={net.widths}, "
             f"activations={net.activations}, "
@@ -182,13 +188,20 @@ def require_contiguous(**tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def kinetics_columns(net: MLP) -> int:
+    """Columns of a kinetics row for ``net``: (k0, k1, k2, c0), and the age
+    for a 3-input network."""
+    return 4 + int(net.input_dims == 3)
+
+
 def check_restart_inputs(net: MLP, nn_params, betas, glucose, data, kinetics,
                          timepoints) -> None:
     """Inputs of the kernels that take restarts (K1, K2, K3): the canonical
-    2-input network, float32 ``nn_params[R, P]`` and ``betas[R, N]`` on one
-    device with the cohort ``glucose[N, K]``, ``data[N, K]``,
-    ``kinetics[N, 4]`` and 2..16 increasing ``timepoints[K]``."""
-    check_net_canonical(net, 2)
+    2- or 3-input network, float32 ``nn_params[R, P]`` and ``betas[R, N]``
+    on one device with the cohort ``glucose[N, K]``, ``data[N, K]``,
+    ``kinetics[N, 4]`` (``[N, 5]`` with the age for 3 inputs) and 2..16
+    increasing ``timepoints[K]``."""
+    check_net_canonical(net)
     tensors = dict(nn_params=nn_params, glucose=glucose, data=data,
                    kinetics=kinetics)
     _check_float32(betas, **tensors)
@@ -198,7 +211,9 @@ def check_restart_inputs(net: MLP, nn_params, betas, glucose, data, kinetics,
     r, n = betas.shape
     k = len(timepoints)
     _check_shapes(tensors, dict(nn_params=(r, net.num_params), glucose=(n, k),
-                                data=(n, k), kinetics=(n, 4)), timepoints)
+                                data=(n, k),
+                                kinetics=(n, kinetics_columns(net))),
+                  timepoints)
 
 
 def _check_inputs(net, nn_params, betas, glucose, data, kinetics, timepoints,
@@ -208,11 +223,10 @@ def _check_inputs(net, nn_params, betas, glucose, data, kinetics, timepoints,
                    kinetics=kinetics)
     _check_float32(betas, **tensors)
     n_lanes, k = betas.shape[0], len(timepoints)
-    n_kin = 4 + int(net.input_dims == 3)
     _check_shapes({**tensors, "betas": betas},
                   dict(nn_params=(n_lanes, net.num_params), betas=(n_lanes,),
                        glucose=(n_lanes, k), data=(n_lanes, k),
-                       kinetics=(n_lanes, n_kin)), timepoints)
+                       kinetics=(n_lanes, kinetics_columns(net))), timepoints)
     if substeps < 1:
         raise ValueError("substeps must be >= 1")
 
@@ -226,9 +240,10 @@ def cohort_sse(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
 
     ``nn_params[L, P]`` (an expanded view with lane stride 0 is taken as it
     is), ``betas[L]`` (β, not e^β), ``glucose[L, K]``, ``data[L, K]``,
-    ``kinetics[L, 4]`` rows (k0, k1, k2, c0), ``timepoints[K]`` shared by all
-    lanes.  CPU tensors run :func:`cohort_sse_reference`; CUDA tensors launch
-    the kernel.
+    ``kinetics[L, 4]`` rows (k0, k1, k2, c0), with the age as a 5th column
+    for a 3-input network, ``timepoints[K]`` shared by all lanes.  CPU
+    tensors run :func:`cohort_sse_reference`; CUDA tensors launch the
+    kernel's body for the network's input count.
     """
     _check_inputs(net, nn_params, betas, glucose, data, kinetics, timepoints,
                   substeps)
@@ -237,16 +252,13 @@ def cohort_sse(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
                                     kinetics, timepoints, substeps)
     if betas.device.type != "cuda":
         raise ValueError(f"no cohort RK4 kernel for device {betas.device}")
-    if net.input_dims != 2:
-        raise NotImplementedError(
-            "the covariate (3-input) variant of the cohort RK4 kernel is not "
-            "ported yet")
-    return _launch(nn_params, betas, glucose, data, kinetics, timepoints,
+    return _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
                    substeps)
 
 
-def _launch(nn_params, betas, glucose, data, kinetics, timepoints, substeps):
-    global launches
+def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
+            substeps):
+    global launches, launches_age
     if nn_params.stride(-1) != 1 or (nn_params.shape[0] > 1 and
                                      nn_params.stride(0) not in
                                      (0, nn_params.shape[1])):
@@ -263,9 +275,13 @@ def _launch(nn_params, betas, glucose, data, kinetics, timepoints, substeps):
     with torch.cuda.device(betas.device):
         eb = torch.exp(betas)
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        kernel(nn_params.data_ptr(), lane_stride, eb.data_ptr(),
-               glucose.data_ptr(), data.data_ptr(), kinetics.data_ptr(),
-               out.data_ptr(), n_lanes, segs.ctypes.data_as(F32_PTR),
-               segs.shape[0], substeps, j0, one_minus_w0, w0, stream)
-    launches += 1
+        lib = kernel_age if net.input_dims == 3 else kernel
+        lib(nn_params.data_ptr(), lane_stride, eb.data_ptr(),
+            glucose.data_ptr(), data.data_ptr(), kinetics.data_ptr(),
+            out.data_ptr(), n_lanes, segs.ctypes.data_as(F32_PTR),
+            segs.shape[0], substeps, j0, one_minus_w0, w0, stream)
+    if net.input_dims == 3:
+        launches_age += 1
+    else:
+        launches += 1
     return out

@@ -5,12 +5,13 @@
 A restart is one network ``nn[P]`` and one β per individual.  For each
 restart the kernel solves every individual's c-peptide ODE with fixed-step
 RK4 over the shared observation grid, sums the SSEs over the individuals
-and returns their mean, ``inf`` where it is not finite.  β enters only
-layer 1 of the network and does not change in time, so the partial
-pre-activations ``w1[o][1]·e^β + b1[o]`` and the baseline
-``MLP([0, e^β])`` are computed once per individual (the JAX kernel's
-hoisting, ``pallas_rk4.py:290-299``; the plain version hoists at the same
-place, so the two agree bit for bit).
+and returns their mean, ``inf`` where it is not finite.  β (and, for the
+covariate model's 3-input network, the age) enter only layer 1 of the
+network and do not change in time, so the partial pre-activations
+``(w1[o][1]·e^β + b1[o]) + w1[o][2]·age`` and the baseline network are
+computed once per individual (the JAX kernel's hoisting,
+``pallas_rk4.py:290-299``; the plain version hoists at the same place, so
+the two agree bit for bit).
 
 :func:`population_sse` launches ``csrc/rk4_population.cu`` for CUDA
 tensors and runs :func:`population_sse_reference` for CPU tensors.
@@ -35,17 +36,22 @@ from conditional_ude_tpu_torch.ops.rk4_cohort import (
     _mlp_forward,
     _segments,
     check_restart_inputs,
+    kinetics_columns,
     require_contiguous,
 )
 
 SHARED_BYTES = 48 * 1024    # the cohort lives in static-limit shared memory
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset them to 0): the
+# 2-input body and the 3-input (covariate) body
 launches = 0
+launches_age = 0
 
-kernel = KernelLibrary("rk4_population.cu", "rk4_population_sse",
-                       [VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32,
-                        I32, F32, F32, F32, VP])
+_ARGTYPES = [VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32, F32,
+             F32, F32, VP]
+kernel = KernelLibrary("rk4_population.cu", "rk4_population_sse", _ARGTYPES)
+kernel_age = KernelLibrary("rk4_population.cu", "rk4_population_sse_age",
+                           _ARGTYPES)
 
 
 def population_sse_reference(net: MLP, nn_params, betas, glucose, data,
@@ -60,8 +66,10 @@ def population_sse_reference(net: MLP, nn_params, betas, glucose, data,
     eb = torch.exp(betas)
     k0, k1, k2, c0 = (kinetics[:, i] for i in range(4))
 
-    # hoisted: layer-1 β partials and the baseline network
+    # hoisted: layer-1 β (and age) partials and the baseline network
     s1 = [w1[o][1] * eb + b1[o] for o in range(len(w1))]
+    if kinetics.shape[1] == 5:
+        s1 = [s1[o] + w1[o][2] * kinetics[:, 4] for o in range(len(w1))]
     base = _mlp_forward(rest, [torch.tanh(v) for v in s1])
     g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
     decay = -(k0 + k2)
@@ -106,9 +114,10 @@ def population_sse(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
                    ) -> torch.Tensor:
     """Population mean SSE ``[G]`` of restarts ``nn_params[G, P]``,
     ``betas[G, N]`` (β, not e^β) on a cohort ``glucose[N, K]``,
-    ``data[N, K]``, ``kinetics[N, 4]`` (k0, k1, k2, c0) over the shared
-    ``timepoints[K]``.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel."""
+    ``data[N, K]``, ``kinetics[N, 4]`` (k0, k1, k2, c0; a 5th column, the
+    age, for a 3-input network) over the shared ``timepoints[K]``.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel's body
+    for the network's input count."""
     check_restart_inputs(net, nn_params, betas, glucose, data, kinetics,
                          timepoints)
     if betas.shape[1] < 1 or substeps < 1:
@@ -118,17 +127,18 @@ def population_sse(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
                                         kinetics, timepoints, substeps)
     if betas.device.type != "cuda":
         raise ValueError(f"no population RK4 kernel for device {betas.device}")
-    return _launch(nn_params, betas, glucose, data, kinetics, timepoints,
-                   substeps)
+    return _launch(net, nn_params, betas, glucose, data, kinetics,
+                   timepoints, substeps)
 
 
-def _launch(nn_params, betas, glucose, data, kinetics, timepoints, substeps):
-    global launches
+def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
+            substeps):
+    global launches, launches_age
     require_contiguous(nn_params=nn_params, betas=betas, glucose=glucose,
                        data=data, kinetics=kinetics)
     g, n = betas.shape
     k = glucose.shape[1]
-    if 4 * n * (2 * k + 4) > SHARED_BYTES:
+    if 4 * n * (2 * k + kinetics_columns(net)) > SHARED_BYTES:
         raise ValueError(f"a cohort of {n} individuals x {k} times does not "
                          f"fit the kernel's {SHARED_BYTES} bytes of shared "
                          "memory")
@@ -138,9 +148,13 @@ def _launch(nn_params, betas, glucose, data, kinetics, timepoints, substeps):
     segs, j0, one_minus_w0, w0 = _segments(timepoints, substeps)
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        kernel(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
-               data.data_ptr(), kinetics.data_ptr(), out.data_ptr(), g, n,
-               segs.ctypes.data_as(F32_PTR), segs.shape[0], substeps, j0,
-               one_minus_w0, w0, float(np.float32(1.0 / n)), stream)
-    launches += 1
+        lib = kernel_age if net.input_dims == 3 else kernel
+        lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
+            data.data_ptr(), kinetics.data_ptr(), out.data_ptr(), g, n,
+            segs.ctypes.data_as(F32_PTR), segs.shape[0], substeps, j0,
+            one_minus_w0, w0, float(np.float32(1.0 / n)), stream)
+    if net.input_dims == 3:
+        launches_age += 1
+    else:
+        launches += 1
     return out

@@ -10,7 +10,8 @@ through the free interpolant.  A lane that is done or failed changes no
 more, so it may stop stepping.  Failed lanes report ``ok = False`` and an
 ``inf`` SSE.  The operations and their order are the JAX kernel's, which
 differ in small ways from ``ops/tsit5.py`` (the glucose interpolant, the
-2-state error norm, the save-time test).
+2-state error norm, the save-time test).  The covariate model's network
+takes the age (the kinetics' 5th column) as a third input at every stage.
 
 :func:`cohort_sse_tsit5` launches ``csrc/tsit5_cohort.cu`` for CUDA tensors
 and runs :func:`cohort_sse_tsit5_reference` for CPU tensors.
@@ -42,12 +43,15 @@ from conditional_ude_tpu_torch.ops.rk4_cohort import (
 )
 from conditional_ude_tpu_torch.ops.tsit5 import f32
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset them to 0): the
+# 2-input body and the 3-input (covariate) body
 launches = 0
+launches_age = 0
 
-kernel = KernelLibrary("tsit5_cohort.cu", "tsit5_cohort_sse",
-                       [VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32,
-                        I32, I32, VP])
+_ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32, VP]
+kernel = KernelLibrary("tsit5_cohort.cu", "tsit5_cohort_sse", _ARGTYPES)
+kernel_age = KernelLibrary("tsit5_cohort.cu", "tsit5_cohort_sse_age",
+                           _ARGTYPES)
 
 
 def constants(timepoints, rtol: float, atol: float) -> np.ndarray:
@@ -97,7 +101,8 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
     layers = _mlp_columns(nn_params, net)
     eb = torch.exp(betas)
     k0, k1, k2, c0 = (kinetics[:, i] for i in range(4))
-    base = _mlp_forward(layers, [torch.zeros_like(eb), eb])
+    extra = [kinetics[:, 4]] if kinetics.shape[1] == 5 else []     # the age
+    base = _mlp_forward(layers, [torch.zeros_like(eb), eb] + extra)
     A = [[f32(a) for a in row] for row in tableau._A]
     C = [f32(c) for c in tableau._C]
     BT = [f32(b) for b in tableau._BTILDE]
@@ -119,7 +124,7 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
     g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
 
     def rhs(t, v1, v2):
-        prod = _mlp_forward(layers, [g_at(t) - g_at0, eb]) - base
+        prod = _mlp_forward(layers, [g_at(t) - g_at0, eb] + extra) - base
         return (-(k0 + k2) * v1 + k1 * v2 + k0 * c0 + prod,
                 -k1 * v2 + k2 * v1)
 
@@ -238,8 +243,9 @@ def cohort_sse_tsit5(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
                      rtol: float = 1e-3, atol: float = 1e-6):
     """Per-lane adaptive ``(sse[R, N], ok[R, N])`` of restarts
     ``nn_params[R, P]``, ``betas[R, N]`` on a cohort ``glucose[N, K]``,
-    ``data[N, K]``, ``kinetics[N, 4]``.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel."""
+    ``data[N, K]``, ``kinetics[N, 4]`` (``[N, 5]`` with the age for a
+    3-input network).  CPU tensors run the plain version; CUDA tensors
+    launch the kernel's body for the network's input count."""
     check_restart_inputs(net, nn_params, betas, glucose, data, kinetics,
                          timepoints)
     if max_steps < 1:
@@ -250,13 +256,13 @@ def cohort_sse_tsit5(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
                                           max_steps, rtol, atol)
     if betas.device.type != "cuda":
         raise ValueError(f"no Tsit5 kernel for device {betas.device}")
-    return _launch(nn_params, betas, glucose, data, kinetics, timepoints,
-                   max_steps, rtol, atol)
+    return _launch(net, nn_params, betas, glucose, data, kinetics,
+                   timepoints, max_steps, rtol, atol)
 
 
-def _launch(nn_params, betas, glucose, data, kinetics, timepoints, max_steps,
-            rtol, atol):
-    global launches
+def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
+            max_steps, rtol, atol):
+    global launches, launches_age
     require_contiguous(nn_params=nn_params, betas=betas, glucose=glucose,
                        data=data, kinetics=kinetics)
     r, n = betas.shape
@@ -269,11 +275,15 @@ def _launch(nn_params, betas, glucose, data, kinetics, timepoints, max_steps,
     with torch.cuda.device(betas.device):
         eb = torch.exp(betas)
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        kernel(nn_params.data_ptr(), eb.data_ptr(), glucose.data_ptr(),
-               data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
-               ok.data_ptr(), r * n, n, consts.ctypes.data_as(F32_PTR),
-               len(timepoints), j0, max_steps, stream)
-    launches += 1
+        lib = kernel_age if net.input_dims == 3 else kernel
+        lib(nn_params.data_ptr(), eb.data_ptr(), glucose.data_ptr(),
+            data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
+            ok.data_ptr(), r * n, n, consts.ctypes.data_as(F32_PTR),
+            len(timepoints), j0, max_steps, stream)
+    if net.input_dims == 3:
+        launches_age += 1
+    else:
+        launches += 1
     return sse, ok
 
 

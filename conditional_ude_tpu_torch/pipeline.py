@@ -1,15 +1,20 @@
-"""The flagship experiment end to end (counterpart of
-``experiments/common.py:119-256`` and ``experiments/exp02_conditional.py``).
+"""The flagship experiment and its covariate variant end to end
+(counterpart of ``experiments/common.py:119-256``,
+``experiments/exp02_conditional.py`` and ``experiments/exp07_covariate.py``).
 
 Two paths share the stages after training:
 
-* ``run_frozen_pipeline``: exp02 without ``--retrain``, on the trained
-  candidates of ``cude_neural_parameters.npz`` and their fit/validation
-  split;
-* ``run_training_pipeline``: exp02 with ``--retrain``; the stratified 70/30
-  fit/validation split of the training subjects from a seed, then
+* ``run_frozen_pipeline``: exp02 (exp07 with ``covariate=True``) without
+  ``--retrain``, on the trained candidates of ``cude_neural_parameters.npz``
+  (``cude_covariate_neural_parameters.npz``) and their fit/validation split;
+* ``run_training_pipeline``: the same with ``--retrain``; the stratified
+  70/30 fit/validation split of the training subjects from a seed, then
   ``train_conditional`` on the fit split.  It writes nothing into the
   artifacts directory, whose files are the JAX package's reference.
+
+exp07 is exp02 with the age as the network's third input
+(``kind="conditional_covariate"``); its test census uses the Raue-95
+threshold, and it has no census over all subjects.
 
 The stages, given candidate networks and their training β's:
 
@@ -20,8 +25,8 @@ The stages, given candidate networks and their training β's:
    from the σ-NLL;
 3. Spearman correlations of the oriented β with the clamp indices;
 4. the test-cohort likelihood profiles over [lb − 1, ub + 1] and their
-   Cantelli-95 identifiability census;
-5. the census over all subjects, each scanned over β̂ᵢ ± 10.
+   identifiability census (Cantelli-95 for exp02, Raue-95 for exp07);
+5. exp02 only: the census over all subjects, each scanned over β̂ᵢ ± 10.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from conditional_ude_tpu_torch.fit.train import (
     train_conditional,
 )
 from conditional_ude_tpu_torch.models.cpeptide import (
+    KINDS,
     CPeptideModel,
     build_cohort,
     production_orientation,
@@ -59,6 +65,27 @@ from conditional_ude_tpu_torch.nn import chain
 from conditional_ude_tpu_torch.utils.stats import spearman, stratified_split
 
 SEED = 270523   # the flagship's seed (experiments/exp02_conditional.py)
+
+
+@dataclasses.dataclass(frozen=True)
+class Experiment:
+    """What exp02 and exp07 differ in."""
+
+    kind: str              # the CPeptideModel's production head
+    candidates: str        # the JAX package's trained candidates (artifacts)
+    ci_method: str         # threshold of the test-profile census
+    census_all: bool       # whether the census over all subjects runs
+
+    def model(self) -> CPeptideModel:
+        net = chain(4, 2, "tanh", input_dims=KINDS[self.kind])
+        return CPeptideModel(net, self.kind)
+
+
+EXP02 = Experiment("conditional", "cude_neural_parameters.npz", "cantelli95",
+                   census_all=True)
+EXP07 = Experiment("conditional_covariate",
+                   "cude_covariate_neural_parameters.npz", "raue95",
+                   census_all=False)
 
 
 @dataclasses.dataclass
@@ -127,17 +154,19 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
                         lbfgs_iters: int = 1000, candidates: int | None = None,
                         subjects: int | None = None,
                         profile_steps: int = 10_000,
-                        census_steps: int = 1_000) -> PipelineResult:
-    """Run the frozen path on ``device``.
+                        census_steps: int = 1_000,
+                        covariate: bool = False) -> PipelineResult:
+    """Run the frozen path of exp02 (exp07 with ``covariate``) on ``device``.
 
     ``candidates`` keeps the first candidates only and ``subjects`` the first
     subjects of the validation, training and test sets (reduced runs).
     """
+    exp = EXP07 if covariate else EXP02
     dev = torch.device(device)
     artifacts_dir = Path(artifacts_dir)
     train, test = load_npz(artifacts_dir / "ohashi.npz")
     nn_np, betas_np, idx_fit, orientations = load_candidates(
-        artifacts_dir / "cude_neural_parameters.npz")
+        artifacts_dir / exp.candidates)
     val = train.subset(np.setdiff1d(np.arange(len(train.ages)), idx_fit))
     if candidates is not None:
         nn_np, betas_np = nn_np[:candidates], betas_np[:candidates]
@@ -145,9 +174,9 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
     if subjects is not None:
         train, val, test = (s.subset(np.arange(min(subjects, len(s.ages))))
                             for s in (train, val, test))
-    net = chain(4, 2, "tanh", input_dims=2)
+    model = exp.model()
     return _select_and_analyse(
-        dev, CPeptideModel(net), params_from_jax(nn_np, net, dev), betas_np,
+        dev, exp, model, params_from_jax(nn_np, model.net, dev), betas_np,
         orientations, train, val, test, _Stages(dev), lbfgs_iters,
         profile_steps, census_steps)
 
@@ -157,16 +186,19 @@ def run_training_pipeline(device: torch.device | str,
                           config: TrainConfig = TrainConfig(),
                           lbfgs_iters: int = 1000,
                           profile_steps: int = 10_000,
-                          census_steps: int = 1_000) -> PipelineResult:
-    """Run the retrain path on ``device``: the fit/validation split and the
-    training designs from ``seed``, ``train_conditional`` with ``config`` on
-    the fit split, then the shared stages on the trained candidates (a step
-    count of 0 skips that profile scan)."""
+                          census_steps: int = 1_000,
+                          covariate: bool = False) -> PipelineResult:
+    """Run the retrain path of exp02 (exp07 with ``covariate``) on
+    ``device``: the fit/validation split and the training designs from
+    ``seed``, ``train_conditional`` with ``config`` on the fit split, then
+    the shared stages on the trained candidates (a step count of 0 skips
+    that profile scan)."""
+    exp = EXP07 if covariate else EXP02
     dev = torch.device(device)
     train, test = load_npz(Path(artifacts_dir) / "ohashi.npz")
     idx_fit, idx_val = stratified_split(np.random.default_rng(seed),
                                         train.types, 0.7)
-    model = CPeptideModel(chain(4, 2, "tanh", input_dims=2))
+    model = exp.model()
     stage = _Stages(dev)
     with stage("train"):
         trained = train_conditional(
@@ -174,19 +206,20 @@ def run_training_pipeline(device: torch.device | str,
             generator=torch.Generator(device=dev).manual_seed(seed),
             seed=seed)
     result = _select_and_analyse(
-        dev, model, trained.nn_params, trained.betas.cpu().numpy(),
+        dev, exp, model, trained.nn_params, trained.betas.cpu().numpy(),
         trained.orientations.cpu().numpy(), train, train.subset(idx_val),
         test, stage, lbfgs_iters, profile_steps, census_steps)
     return dataclasses.replace(result, training=trained)
 
 
-def _select_and_analyse(dev, model: CPeptideModel, cand: torch.Tensor,
+def _select_and_analyse(dev, exp: Experiment, model: CPeptideModel,
+                        cand: torch.Tensor,
                         betas_np: np.ndarray, orientations: np.ndarray,
                         train: OhashiSplit, val: OhashiSplit,
                         test: OhashiSplit, stage: _Stages, lbfgs_iters: int,
                         profile_steps: int,
                         census_steps: int) -> PipelineResult:
-    """Stages 1-5 on candidates ``cand[R, P]`` with training β's
+    """Stages 1-5 of ``exp`` on candidates ``cand[R, P]`` with training β's
     ``betas_np[R, N_fit(, 1)]``; a step count of 0 skips that scan."""
     with stage("select"):
         objectives = evaluate_model(
@@ -198,7 +231,8 @@ def _select_and_analyse(dev, model: CPeptideModel, cand: torch.Tensor,
     if orientations.size:
         orientation = float(orientations[best])
     else:
-        orientation = production_orientation(model, nn_best)
+        orientation = production_orientation(model, nn_best,
+                                             age=float(np.mean(train.ages)))
 
     # bounds: the training-β range ±10%
     lb = betas_best.min() - 0.1 * abs(betas_best.min())
@@ -232,8 +266,8 @@ def _select_and_analyse(dev, model: CPeptideModel, cand: torch.Tensor,
                                         upper=float(ub) + 1.0,
                                         steps=profile_steps)
             census_test = _counts(classify_identifiability(
-                find_confidence_intervals(prof, "cantelli95")))
-    if census_steps:
+                find_confidence_intervals(prof, exp.ci_method)))
+    if census_steps and exp.census_all:
         with stage("census"):
             prof_all = cohort_beta_profiles(model, nn_best, cohort_both,
                                             sigmas=s_all, lower=-10.0,

@@ -112,5 +112,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         call(kinetics=torch.ones(N, 5))
     with pytest.raises(TypeError):
         call(betas=betas.double())
-    with pytest.raises(ValueError):       # the covariate net: not this kernel
-        call(net_=chain(4, 2, input_dims=3), nn_params=torch.zeros(G, 41))
+    # the covariate net needs the age column, and then runs
+    cov = dict(net_=chain(4, 2, input_dims=3), nn_params=torch.zeros(G, 41))
+    with pytest.raises(ValueError):
+        call(**cov)
+    assert call(**cov, kinetics=torch.ones(N, 5)).shape == (G,)

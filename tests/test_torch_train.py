@@ -160,7 +160,17 @@ def test_raises_for_what_the_kernels_do_not_take():
     for model, c in (
             (CPeptideModel(chain(4, 2)), dataclasses.replace(cfg, n_conditional=2)),
             (CPeptideModel(chain(4, 2)), dataclasses.replace(cfg, solver="tsit5")),
-            (CPeptideModel(chain(8, 2)), cfg),
-            (CPeptideModel(chain(4, 2, input_dims=3)), cfg)):
+            (CPeptideModel(chain(8, 2)), cfg)):
         with pytest.raises(NotImplementedError):
             ptrain.train_conditional(model, pc, c, seed=1)
+    # a kind that does not match the network's input count cannot be built;
+    # the covariate model, whose kind does, trains
+    with pytest.raises(ValueError):
+        CPeptideModel(chain(4, 2, input_dims=3))
+    with pytest.raises(ValueError):
+        CPeptideModel(chain(4, 2), "conditional_covariate")
+    res = ptrain.train_conditional(
+        CPeptideModel(chain(4, 2, input_dims=3), "conditional_covariate"), pc,
+        cfg, seed=1)
+    assert res.nn_params.shape == (2, 41) and res.betas.shape == (2, 3, 1)
+    assert torch.isfinite(res.screen_losses).any()
