@@ -1,36 +1,58 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py        # from the repository root
+    python3 chip_smoke.py                  # from the repository root
+    python3 chip_smoke.py --kernels-only   # steps 1-3 only; the last line
+                                           # is {"ok": null, "partial": ...}
 
-1. builds the four kernel sources from ``conditional_ude_tpu_torch/csrc``
+1. builds the five kernel sources from ``conditional_ude_tpu_torch/csrc``
    (one ``nvcc`` each, all started together; each source holds a 2-input
    body and the covariate model's 3-input body) and prints ptxas's
-   registers and spills of all eight bodies;
+   registers and spills of all ten bodies;
 2. holds each body against its plain PyTorch version on the card, at the
    main path's shape and at a ragged shape with random per-lane weights and
    one lane of huge weights (the covariate bodies with real ages):
    K4 (cohort RK4) and K1 (population screen) at rtol 1e-5 / atol 1e-6,
-   K2 (value + gradient) at rtol 1e-4 with gradients within 2e-4 of each
-   row's largest, K3 (adaptive Tsit5) with the same ``ok`` mask and rtol
-   2e-2 / atol 1e-3; K1c-K4c are the covariate bodies, held alike, and each
+   K2 (value + gradient on packed lanes) and K5 (value + gradient on
+   restart lanes) at rtol 1e-4 with gradients within 2e-4 of each row's
+   largest, K3 (adaptive Tsit5) with the same ``ok`` mask and rtol 2e-2 /
+   atol 1e-3; K1c-K5c are the covariate bodies, held alike, and K1c-K4c
    must read the age: two cohorts that differ only in the age column give
-   different results;
-3. times each body and its plain version at the path's shape (CUDA events)
-   and works out the bound of each from its inputs;
+   different results.  K1 and K3 are also held at the enlarged
+   multi-start's shapes (400,000 x 57 designs, 131,328 lanes).  K5 is also
+   held against K2's packed route on the same inputs, at 2,304 x 57 and at
+   the ragged shape: two layouts of one function, equal up to the order of
+   the sums.  On real ages a random network is saturated and its weight
+   gradient is what float32 leaves of cancelling terms, so there (and on
+   the committed trained candidates, for both bodies) the weight gradient
+   of each layout is held to a float64 witness, within 256 float32
+   roundings of the row's largest sum of absolute terms;
+3. times each body and its plain version at the path's shape (CUDA events),
+   K2 also at K5's shape, and works out the bound of each from its inputs;
 4. runs the frozen path of exp02 (``run_frozen_pipeline``) at full width
    and checks it against the committed results; K4's launches are counted
    over it;
 5. runs the retrain path of exp02 (``run_training_pipeline``) at full
    width: 25,000 designs screened on the 57-subject fit split, 25 restarts
    of 1000 Adam and 1000 L-BFGS steps, the Tsit5 re-rank, selection and the
-   (β, σ) refit; K1, K2 and K3's launches are counted over it, and the
-   result is held to the spread of the JAX package's per-seed runs;
+   (beta, sigma) refit; K1, K2 and K3's launches are counted over it, and
+   the result is held to the spread of the JAX package's per-seed runs;
 6. runs the frozen path of exp07, the covariate model (``covariate=True``),
    at full width and checks it against exp07's committed results; K4c's
    launches are counted over it;
 7. runs the retrain path of exp07 at full width, as in 5; K1c, K2c and
    K3c's launches are counted over it, and the result is held to limits
-   widened from the one JAX run of exp07.
+   widened from the one JAX run of exp07;
+8. runs the frozen path of exp02_xl, the enlarged multi-start (``xl=True``):
+   the 96 committed candidates on the 25 validation subjects, the refit,
+   the guarded selection's refit and both profile scans (K4 again), checked
+   against exp02_xl's committed results;
+9. runs the retrain path of exp02_xl at the width where the value+grad
+   route switches to K5: 400,000 designs screened, 2,304 restarts (131,328
+   lanes) refined; K5's launches are counted over it, K2's must be 0, and
+   the guarded result is held to exp02's retrain limits;
+10. trains the covariate model at that width with cut step counts
+    (``train_conditional``), which counts K5c's launches: no experiment of
+    the package pairs the covariate model with a multi-start this wide.
 
 Every failure raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -38,6 +60,7 @@ Every failure raises, so the exit code is non-zero.  The last line is
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -52,6 +75,12 @@ ARTIFACTS = REPO / "artifacts"
 RK4_RTOL, RK4_ATOL = 1e-5, 1e-6          # K4, K1: the JAX suite's RK4 kernel
 GRAD_RTOL, GRAD_ATOL = 1e-4, 2e-4        # K2: tests/test_pallas_grad.py
 TSIT5_RTOL, TSIT5_ATOL = 2e-2, 1e-3      # K3: tests/test_pallas_tsit5.py
+# K5 and K2's packed route against float64: float32 roundings (2^-23) of a
+# gradient row's largest sum of absolute per-point terms.  A restart's row
+# sums 57 x 69 = 3,933 terms one after another, and each term carries the
+# rounding of the forward solve through its residual, so the limit is 256
+# roundings (3.1e-5 of that sum), not 1
+EPS32, WITNESS_EPS = 2.0 ** -23, 256.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside the
 # tensor cores, and special-function (SFU) results/s: 16 per SM per clock,
@@ -71,7 +100,14 @@ REPLACES = {"K4": "conditional_ude_tpu/ops/pallas_rk4.py:98",
             "K4c": "conditional_ude_tpu/ops/pallas_rk4.py:115",
             "K1c": "conditional_ude_tpu/ops/pallas_rk4.py:291",
             "K2c": "conditional_ude_tpu/ops/pallas_grad.py:383",
-            "K3c": "conditional_ude_tpu/ops/pallas_tsit5.py:61"}
+            "K3c": "conditional_ude_tpu/ops/pallas_tsit5.py:61",
+            "K5": "conditional_ude_tpu/ops/pallas_grad.py:188",
+            "K5c": "conditional_ude_tpu/ops/pallas_grad.py:222"}
+# the enlarged multi-start at the width where the value+grad route switches
+# from K2 to K5: 2,304 restarts x 57 fit subjects = 131,328 lanes > 131,072
+XL_INITS, XL_RESTARTS = 400_000, 2304
+XL_ADAM, XL_LBFGS = 1000, 1000     # exp02_xl retrain: the full step counts
+XLC_ADAM, XLC_LBFGS = 100, 50      # the covariate model at that width: cut
 
 
 def mlp_flops(d: int) -> int:
@@ -157,6 +193,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_ms(fn):
+    """``(fn(), milliseconds)`` of one call by CUDA events, no warm-up."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound(n_bytes: float, flops: float, sfu: float) -> tuple[float, str]:
     """The least time the card could take (ms) and what bounds it: bytes
     over the memory rate, or operations (float32 arithmetic or
@@ -185,15 +233,29 @@ def glorot(rng: np.random.Generator, net, n: int) -> np.ndarray:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build, compare and time the kernels, then "
+                             "stop before the paths (the last line says "
+                             "ok: null, so it passes for no full run)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is visible")
     sys.path.insert(0, str(REPO))
     from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
-    from conditional_ude_tpu_torch.models.cpeptide import build_cohort
+    from conditional_ude_tpu_torch.fit.train import (
+        TrainConfig,
+        train_conditional,
+    )
+    from conditional_ude_tpu_torch.models.cpeptide import (
+        CPeptideModel,
+        build_cohort,
+    )
     from conditional_ude_tpu_torch.nn import chain
     from conditional_ude_tpu_torch.ops import (
         cuda_build,
         lane_grad,
+        population_grad,
         rk4_cohort,
         rk4_population,
         tsit5_cohort,
@@ -221,7 +283,7 @@ def main() -> None:
 
     # -- build: one nvcc per source, all started together --------------------
     kernels = {"K4": rk4_cohort, "K1": rk4_population, "K2": lane_grad,
-               "K3": tsit5_cohort}
+               "K3": tsit5_cohort, "K5": population_grad}
     t0 = time.perf_counter()
     built = cuda_build.build_all([m.kernel.source for m in kernels.values()])
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
@@ -262,6 +324,7 @@ def main() -> None:
     n_fit = fit_cohort.n
     rng = np.random.default_rng(2705)
     results = {}
+    wide = {}       # times of earlier kernels at the enlarged multi-start
     fit_ckpt, meta = load_checkpoint(ARTIFACTS / "cude_fit.npz")
     cov_ckpt, cov_meta = load_checkpoint(ARTIFACTS / "cude_covariate_fit.npz")
     cov_cand = np.load(ARTIFACTS / "cude_covariate_neural_parameters.npz")
@@ -460,6 +523,161 @@ def main() -> None:
                         steps * step_flops + lanes * (2 * rhs_flops(d) + 40),
                         steps * (6 * MLP_SFU + 4) + lanes * 2 * MLP_SFU))
 
+        # -- K5: value + gradient with restarts as threads --------------------
+        def k5_compare(args, what, ref=None, grad_nn=True):
+            """K5 against its plain version, or against ``ref``."""
+            f, gnn, gb = population_grad.restart_sse_and_grad(net, *args, 8)
+            if ref is None:
+                ref = population_grad.restart_sse_and_grad_reference(
+                    net, *args, 8)
+            e = compare(f, ref[0], f"{what} value", GRAD_RTOL, 0.0)
+            if grad_nn:
+                e = max(e, compare_scaled(gnn, ref[1], f"{what} grad nn"))
+            return max(e, compare_scaled(gb, ref[2], f"{what} grad beta"))
+
+        def k5_against_packed(args, what, grad_nn=True):
+            """K5 against K2's packed route on the same inputs: the other
+            layout of the same function, which sums over the evaluation
+            points and the individuals in another order.  Without
+            ``grad_nn`` the value and the beta gradient only, which no sum
+            over individuals enters."""
+            k5_compare(args, what,
+                       lane_grad.packed_sse_and_grad(net, *args, 8), grad_nn)
+
+        def against_float64(args, what):
+            """The weight gradient of both layouts against a float64 witness
+            on the same float32 inputs: the packed plain version run in
+            float64, which also gives each entry's sum of absolute
+            per-point terms.  Where the terms cancel, that sum and not the
+            entry is the scale of a float32 route's rounding, in either
+            order of the sum.  Each row of each route must lie within
+            ``WITNESS_EPS`` float32 roundings of its largest sum of terms;
+            rows that are not finite must be the same rows in both."""
+            a64 = tuple(t.double() if torch.is_tensor(t) else t for t in args)
+            inv_n = 1.0 / args[1].shape[1]
+            _, gnn, _, mag, _ = lane_grad.lane_sse_and_grad_reference(
+                net, *a64, 8, magnitudes=True)
+            g64, terms = gnn.sum(1) * inv_n, mag.sum(1) * inv_n
+            routes = {
+                f"K5{sfx}": population_grad.restart_sse_and_grad(
+                    net, *args, 8)[1],
+                f"K2{sfx} packed": lane_grad.packed_sse_and_grad(
+                    net, *args, 8)[1]}
+            k5_fin, k2_fin = (torch.isfinite(g).all(-1)
+                              for g in routes.values())
+            if not torch.equal(k5_fin, k2_fin):
+                raise AssertionError(f"{what}: non-finite rows differ "
+                                     "between the layouts")
+            fin = k5_fin & torch.isfinite(terms).all(-1)
+            scale = terms[fin].amax(-1, keepdim=True).clamp_min(1e-300)
+            cancel = g64[fin].abs().amax(-1) / scale[:, 0]
+            worst = {k: float(((g[fin].double() - g64[fin]).abs()
+                               / scale).max()) / EPS32
+                     for k, g in routes.items()}
+            log(f"[kernel] {what} grad nn against float64: {int(fin.sum())} "
+                "finite rows; a row's largest entry over its largest sum of "
+                f"|terms|: median {float(cancel.median()):.3e}, least "
+                f"{float(cancel.min()):.3e}; worst error in float32 "
+                "roundings of that sum: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+            if max(worst.values()) > WITNESS_EPS:
+                raise AssertionError(
+                    f"{what}: {worst} float32 roundings from the float64 "
+                    f"witness, limit {WITNESS_EPS}")
+
+        r_args = ragged(130, 13)
+        f = population_grad.restart_sse_and_grad(net, *r_args, 8)[0]
+        if not bool(torch.isinf(f[-1])):
+            raise AssertionError(f"K5{sfx}: the huge-weight restart's mean "
+                                 "is not inf")
+        err = k5_compare(r_args, f"K5{sfx} ragged (130 x 13)")
+        # on the real ages the two layouts' weight gradients are held to
+        # the float64 witness only (see the wide shape below)
+        k5_against_packed(r_args, f"K5{sfx} against K2{sfx}'s packed route, "
+                          "ragged (130 x 13)", grad_nn=not with_age)
+        against_float64(r_args, f"K5{sfx} and K2{sfx}'s packed route, ragged "
+                        "(130 x 13)")
+        r_wide = XL_RESTARTS
+        nn_s, b_s = designs(r_wide, n_fit)
+        k5_path = (nn_s, b_s, *fit_args)
+        lanes = r_wide * n_fit
+        ref, plain = timed_ms(
+            lambda: population_grad.restart_sse_and_grad_reference(
+                net, *k5_path, 8))
+        err = max(err, k5_compare(
+            k5_path, f"K5{sfx} wide shape ({r_wide} x {n_fit})", ref))
+        k5_against_packed(k5_path, f"K5{sfx} against K2{sfx}'s packed route "
+                          f"({r_wide} x {n_fit})", grad_nn=not with_age)
+        if with_age:
+            # A Glorot network on raw ages (30-70) is saturated: its output
+            # hardly depends on dG, every point's gradient is nearly the
+            # baseline's, and the weight gradient is what float32 leaves of
+            # their cancellation, in either order of the sum.  Scaled by the
+            # row's largest entry the two layouts then differ by more than
+            # the entry itself, so on the raw ages both weight gradients
+            # are held to the float64 witness (below), and to each other
+            # with the age scaled by 1/100, as the JAX suite's covariate
+            # tests scale it.
+            kin = fit_args[2].clone()
+            kin[:, 4] /= 100.0
+            k5_against_packed((nn_s, b_s, fit_args[0], fit_args[1], kin, tp),
+                              f"K5c against K2c's packed route, age / 100 "
+                              f"({r_wide} x {n_fit})")
+        against_float64(k5_path, f"K5{sfx} and K2{sfx}'s packed route "
+                        f"({r_wide} x {n_fit})")
+        # at a trained optimum the individuals' gradients cancel as well:
+        # the committed candidates with their training betas on their fit
+        # subjects
+        cand = cov_cand if with_age else np.load(
+            ARTIFACTS / "cude_neural_parameters.npz")
+        s_fit = train.subset(cand["idx_fit"])
+        c = build_cohort(s_fit.glucose, s_fit.timepoints, s_fit.cpeptide,
+                         s_fit.ages, s_fit.t2dm, dev)
+        trained = (torch.as_tensor(cand["nn_params"], **f32),
+                   torch.as_tensor(cand["betas"][..., 0], **f32).contiguous(),
+                   c.glucose, c.cpeptide, c.kinetics(with_age=with_age), tp)
+        against_float64(trained, f"K5{sfx} and K2{sfx}'s packed route on the "
+                        f"committed candidates ({trained[1].shape[0]} x "
+                        f"{c.n})")
+        ms = cuda_ms(lambda: population_grad.restart_sse_and_grad(
+            net, *k5_path, 8), reps=5)
+        # the least work is K2's, on every (restart, individual) pair; the
+        # outputs are per restart
+        results["K5" + sfx] = dict(
+            err=err, ms=ms, plain=plain, shape=f"{r_wide} x {n_fit}",
+            bound=bound(4 * (r_wide * (p + n_fit) + n_fit * (10 + n_kin)
+                             + r_wide * (1 + p + n_fit)),
+                        lanes * (69 * per_point + 32 * 47 + 480),
+                        lanes * (69 * (MLP_SFU + 1) + 1)))
+        ms = cuda_ms(lambda: lane_grad.lane_sse_and_grad(net, *k5_path, 8),
+                     reps=20)
+        wide["K2" + sfx] = dict(
+            ms=ms, shape=f"{r_wide} x {n_fit}, {lanes} lanes",
+            bound=bound(4 * (r_wide * p + lanes * (1 + 1 + p + 1)
+                             + n_fit * (10 + n_kin)),
+                        lanes * (69 * per_point + 32 * 47 + 480),
+                        lanes * (69 * (MLP_SFU + 1) + 1)))
+        # the wide paths' own shapes of K3 and K1: one launch over all
+        # 131,328 lanes, one over all 400,000 designs
+        e, _ = k3_compare(k5_path, f"K3{sfx} wide re-rank shape ({r_wide} x "
+                          f"{n_fit})")
+        results["K3" + sfx]["err"] = max(results["K3" + sfx]["err"], e)
+        ms = cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5(net, *k5_path),
+                     reps=5)
+        wide["K3" + sfx] = dict(ms=ms, shape=f"{r_wide} x {n_fit}, {lanes} "
+                                "lanes", bound=None)
+        nn_s, b_s = designs(XL_INITS, n_fit)
+        e = compare(
+            rk4_population.population_sse(net, nn_s, b_s, *fit_args, 8),
+            rk4_population.population_sse_reference(net, nn_s, b_s,
+                                                    *fit_args, 8),
+            f"K1{sfx} wide screen shape ({XL_INITS} x {n_fit})")
+        results["K1" + sfx]["err"] = max(results["K1" + sfx]["err"], e)
+        ms = cuda_ms(lambda: rk4_population.population_sse(
+            net, nn_s, b_s, *fit_args, 8), reps=2)
+        wide["K1" + sfx] = dict(ms=ms, shape=f"{XL_INITS} x {n_fit}",
+                                bound=None)
+
     def live_age_check() -> None:
         """Each covariate body on exp07's committed candidates and training
         β's, on their fit subjects with their real ages and with every age
@@ -500,6 +718,13 @@ def main() -> None:
         log(f"[time] {kid} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain']:.3f} ms, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]})  [{card}]")
+    for kid, r in wide.items():
+        log(f"[time] {kid} at {r['shape']}: kernel {r['ms']:.4f} ms"
+            + (f", bound {r['bound'][0]:.4f} ms ({r['bound'][1]})"
+               if r["bound"] else "") + f"  [{card}]")
+    if args.kernels_only:
+        log(json.dumps({"ok": None, "partial": "kernels"}))
+        return
 
     # -- the frozen paths (K4, then K4c) -------------------------------------
     for kid, covariate, metrics_file in (("K4", False, "exp02_metrics.json"),
@@ -556,6 +781,89 @@ def main() -> None:
         if failures:
             raise AssertionError(f"{exp} retrain path checks failed:\n  "
                                  + "\n  ".join(failures))
+
+    # -- exp02_xl, frozen: the 96 committed candidates ------------------------
+    reset_counts("K4")
+    t0 = time.perf_counter()
+    res = run_frozen_pipeline(dev, ARTIFACTS, lbfgs_iters=1000, xl=True)
+    wall = time.perf_counter() - t0
+    for name, sec in res.seconds.items():
+        log(f"[time] exp02_xl frozen stage {name}: {sec:.2f} s  [{card}]")
+    log(f"[time] exp02_xl frozen path total: {wall:.2f} s  [{card}]")
+    log(f"[path] K4 launches during the exp02_xl frozen path: "
+        f"{launch_count('K4')}")
+    failures = check_frozen_xl(res, json.loads(
+        (REPO / "results" / "exp02_xl_metrics.json").read_text()))
+    if launch_count("K4") == 0:
+        failures.append("K4 was not launched by exp02_xl's profile scans")
+    if failures:
+        raise AssertionError("exp02_xl frozen path checks failed:\n  "
+                             + "\n  ".join(failures))
+
+    # -- exp02_xl, retrained at K5's width (K1, K5, K3; no K2) ----------------
+    kids = ["K1", "K2", "K3", "K5"]
+    reset_counts(*kids)
+    cfg = TrainConfig(initial_guesses=XL_INITS, selected_initials=XL_RESTARTS,
+                      adam_iters=XL_ADAM, lbfgs_iters=XL_LBFGS)
+    log(f"[path] exp02_xl retrain: {XL_INITS} designs, {XL_RESTARTS} restarts "
+        f"x {n_fit} fit subjects = {XL_RESTARTS * n_fit} lanes, "
+        f"{XL_ADAM} Adam and {XL_LBFGS} L-BFGS steps")
+    t0 = time.perf_counter()
+    res = run_training_pipeline(dev, ARTIFACTS, seed=SEED, config=cfg,
+                                lbfgs_iters=1000, profile_steps=0,
+                                census_steps=0, xl=True)
+    wall = time.perf_counter() - t0
+    counts = {k: launch_count(k) for k in kids}
+    results["K5"]["launches"] = counts["K5"]
+    timings = res.training.timings
+    for name in ("screen", "adam", "lbfgs", "final_eval"):
+        log(f"[time] exp02_xl training stage {name}: {timings[name]:.2f} s  "
+            f"[{card}]")
+    for name, sec in res.seconds.items():
+        log(f"[time] exp02_xl retrain stage {name}: {sec:.2f} s  [{card}]")
+    log(f"[time] exp02_xl retrain path total: {wall:.2f} s  [{card}]")
+    log(f"[path] exp02_xl screen_path {timings['screen_path']}, refine_path "
+        f"{timings['refine_path']}; launches during the retrain path: "
+        + ", ".join(f"{k} {c}" for k, c in counts.items()))
+    failures = check_retrain_xl(res)
+    if (counts["K1"], counts["K2"], counts["K3"]) != (1, 0, 1) \
+            or counts["K5"] == 0:
+        failures.append(f"launches {counts}: expected K1 1, K2 0, K3 1 and "
+                        "K5 above 0")
+    if failures:
+        raise AssertionError("exp02_xl retrain path checks failed:\n  "
+                             + "\n  ".join(failures))
+
+    # -- the covariate model trained at K5c's width, step counts cut ----------
+    kids = ["K1c", "K2c", "K3c", "K5c"]
+    reset_counts(*kids)
+    cfg = TrainConfig(initial_guesses=XL_INITS, selected_initials=XL_RESTARTS,
+                      adam_iters=XLC_ADAM, lbfgs_iters=XLC_LBFGS)
+    log(f"[path] covariate training at {XL_RESTARTS} restarts: {XL_INITS} "
+        f"designs, {XLC_ADAM} Adam and {XLC_LBFGS} L-BFGS steps")
+    t0 = time.perf_counter()
+    tr = train_conditional(
+        CPeptideModel(chain(4, 2, input_dims=3), "conditional_covariate"),
+        fit_cohort, cfg,
+        generator=torch.Generator(device=dev).manual_seed(SEED), seed=SEED)
+    wall = time.perf_counter() - t0
+    counts = {k: launch_count(k) for k in kids}
+    results["K5c"]["launches"] = counts["K5c"]
+    for name in ("screen", "adam", "lbfgs", "final_eval"):
+        log(f"[time] covariate wide training stage {name}: "
+            f"{tr.timings[name]:.2f} s  [{card}]")
+    log(f"[time] covariate wide training total: {wall:.2f} s  [{card}]")
+    log(f"[path] covariate wide training refine_path "
+        f"{tr.timings['refine_path']}; launches: "
+        + ", ".join(f"{k} {c}" for k, c in counts.items()))
+    failures = check_wide_covariate_training(tr)
+    if (counts["K1c"], counts["K2c"], counts["K3c"]) != (1, 0, 1) \
+            or counts["K5c"] == 0:
+        failures.append(f"launches {counts}: expected K1c 1, K2c 0, K3c 1 "
+                        "and K5c above 0")
+    if failures:
+        raise AssertionError("covariate wide training checks failed:\n  "
+                             + "\n  ".join(failures))
 
     log(json.dumps({"kernels": [{
         "name": library(kid).name,
@@ -694,12 +1002,13 @@ def check_retrain_covariate(res) -> list[str]:
     return check_trained(res, 0.30, (0.50, 0.85), -0.45, "JAX run 0.2328")
 
 
-def check_trained(res, obj_max: float, sse_range: tuple[float, float],
-                  rho_max: float, obj_ref: str) -> list[str]:
+def check_routes_and_objective(tr, refine_path: str, obj_max: float,
+                               obj_ref: str) -> list[str]:
+    """The kernels' routes a training took and its best Tsit5 objective."""
     failures = []
-    tr = res.training
     timings = tr.timings
-    if timings["screen_path"] != "cuda_k1" or timings["refine_path"] != "cuda_k2":
+    if (timings["screen_path"], timings["refine_path"]) != ("cuda_k1",
+                                                            refine_path):
         failures.append(f"routes {timings['screen_path']}, "
                         f"{timings['refine_path']}")
     best_obj = float(tr.objectives[0])
@@ -708,6 +1017,13 @@ def check_trained(res, obj_max: float, sse_range: tuple[float, float],
         f"{int(torch.isfinite(tr.objectives).sum())}/{tr.objectives.numel()}")
     if not np.isfinite(best_obj) or best_obj > obj_max:
         failures.append(f"best objective {best_obj}")
+    return failures
+
+
+def check_trained(res, obj_max: float, sse_range: tuple[float, float],
+                  rho_max: float, obj_ref: str) -> list[str]:
+    failures = check_routes_and_objective(res.training, "cuda_k2", obj_max,
+                                          obj_ref)
     sse_mean = float(np.mean(res.sse_test))
     lo, hi = sse_range
     log(f"[check] retrain test SSE mean {sse_mean:.4f} (limits {lo}-{hi})")
@@ -718,6 +1034,91 @@ def check_trained(res, obj_max: float, sse_range: tuple[float, float],
         f"best candidate {res.best}, orientation {res.orientation:+.0f}")
     if not rho <= rho_max:
         failures.append(f"spearman {rho}")
+    return failures
+
+
+def check_frozen_xl(res, metrics: dict) -> list[str]:
+    """exp02_xl's frozen path against its committed metrics: the plain and
+    the guarded selection, each with its test SSE mean +- 3 %, and the
+    first-phase Spearman +- 0.01."""
+    failures = check_summary(res, metrics["best_model_index"],
+                             metrics["spearman_first_phase"],
+                             metrics["test_sse_mean"])
+    got = res.metrics()
+    log(f"[check] guarded best candidate {got['guarded_best_model_index']} "
+        f"(committed {metrics['guarded_best_model_index']}); guarded test "
+        f"SSE mean {got['guarded_test_sse_mean']:.4f} (committed "
+        f"{metrics['guarded_test_sse_mean']:.4f}), median "
+        f"{got['guarded_test_sse_median']:.4f} (committed "
+        f"{metrics['guarded_test_sse_median']:.4f}); test SSE median "
+        f"{got['test_sse_median']:.4f} (committed "
+        f"{metrics['test_sse_median']:.4f}); guarded spearman "
+        f"{got['guarded_spearman_first_phase']:.4f}")
+    if got["guarded_best_model_index"] != metrics["guarded_best_model_index"]:
+        failures.append("guarded best candidate "
+                        f"{got['guarded_best_model_index']}")
+    if abs(got["guarded_test_sse_mean"] / metrics["guarded_test_sse_mean"]
+           - 1.0) > 0.03:
+        failures.append(f"guarded test SSE mean "
+                        f"{got['guarded_test_sse_mean']}")
+    if tuple(res.val_objectives.shape) != (96, 25):
+        failures.append(f"validation objectives "
+                        f"{tuple(res.val_objectives.shape)}")
+    # exp02_xl committed no census: the scans are held to their shapes and
+    # to every subject being classified
+    log(f"[check] census test {res.census_test}, all {res.census_all} "
+        "(no committed census)")
+    for prof, shape, census in (
+            (res.profile, (35, 10_000), res.census_test),
+            (res.delta_profile, (117, 1000), res.census_all)):
+        if prof is None or tuple(prof.values.shape) != shape \
+                or sum(census.values()) != shape[0]:
+            failures.append(f"profile scan of shape {shape}: census {census}")
+    return failures
+
+
+def check_retrain_xl(res) -> list[str]:
+    """exp02_xl's retrain path at K5's width against exp02's retrain limits
+    (the JAX per-seed spread, see ``check_retrain``), held by the guarded
+    selection: more restarts must not do worse than 25."""
+    failures = check_routes_and_objective(res.training, "cuda_k5", 0.30,
+                                          "JAX per-seed 0.178-0.272 at 25 "
+                                          "restarts")
+    got = res.metrics()
+    log(f"[check] exp02_xl retrain: best candidate {res.best} (test SSE mean "
+        f"{got['test_sse_mean']:.4f}, spearman "
+        f"{res.spearman['first_phase']:.4f}), guarded best "
+        f"{res.guarded_best} (test SSE mean "
+        f"{got['guarded_test_sse_mean']:.4f}, limits 0.41-0.64; spearman "
+        f"{res.guarded_spearman:.4f}, limit -0.77)")
+    if tuple(res.val_objectives.shape) != (XL_RESTARTS, 25):
+        failures.append(f"validation objectives "
+                        f"{tuple(res.val_objectives.shape)}")
+    if not 0.41 <= got["guarded_test_sse_mean"] <= 0.64:
+        failures.append(f"guarded test SSE mean "
+                        f"{got['guarded_test_sse_mean']}")
+    if not res.guarded_spearman <= -0.77:
+        failures.append(f"guarded spearman {res.guarded_spearman}")
+    return failures
+
+
+def check_wide_covariate_training(tr) -> list[str]:
+    """The covariate model's training at K5c's width, with cut step counts:
+    K5c's route, every restart refined, a finite best objective no worse
+    than the best screened design, and Adam losses that fell."""
+    best_screen = float(tr.screen_losses[torch.isfinite(tr.screen_losses)].min())
+    failures = check_routes_and_objective(
+        tr, "cuda_k5", 1.05 * best_screen,
+        f"best screened design {best_screen:.4f}")
+    first, last = tr.loss_traces[:, 0], tr.loss_traces[:, -1]
+    fell = int((last < first).sum())
+    log(f"[check] covariate wide training: Adam loss fell in {fell} of "
+        f"{first.numel()} restarts, median {float(first.median()):.4f} -> "
+        f"{float(last.median()):.4f}")
+    if tuple(tr.nn_params.shape) != (XL_RESTARTS, 41) \
+            or fell < 0.9 * first.numel():
+        failures.append(f"shape {tuple(tr.nn_params.shape)}, losses fell in "
+                        f"{fell} restarts")
     return failures
 
 

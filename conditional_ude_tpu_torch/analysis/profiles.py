@@ -69,6 +69,7 @@ def cohort_beta_profiles(model: CPeptideModel, nn_params: torch.Tensor,
     fused = fused_kernel_eligible(model)
     if fused:
         kin = cohort.kinetics(with_age=model.with_age)
+        nn_params = nn_params.contiguous()    # a row of a strided table
 
     parts = []
     for i in range(0, steps, chunk):

@@ -18,8 +18,10 @@ from conditional_ude_tpu_torch.utils.checkpoint import load_checkpoint
 
 def params_from_jax(flat: np.ndarray, net: MLP,
                     device: torch.device | str) -> torch.Tensor:
-    """A flat JAX parameter array ``[..., P]`` as a float32 tensor on ``device``."""
-    flat = np.asarray(flat)
+    """A flat JAX parameter array ``[..., P]`` as a float32 tensor on
+    ``device``, rows contiguous whatever the file's memory order (the xl
+    candidates are stored column-major), as the kernels read them."""
+    flat = np.ascontiguousarray(flat)
     if flat.shape[-1] != net.num_params:
         raise ValueError(f"expected {net.num_params} parameters per network, "
                          f"got shape {flat.shape}")
@@ -36,3 +38,10 @@ def load_candidates(npz: str | Path):
     arrays, _ = load_checkpoint(npz)
     return (arrays["nn_params"], arrays["betas"], arrays["idx_fit"],
             arrays["orientations"])
+
+
+def candidate_objectives(npz: str | Path) -> np.ndarray:
+    """The candidates' training objectives ``[R]``, in the file's order: a
+    joint multi-start stores its candidates best first."""
+    arrays, _ = load_checkpoint(npz)
+    return np.asarray(arrays["objectives"])

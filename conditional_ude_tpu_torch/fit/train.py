@@ -4,7 +4,8 @@
 * ``train_conditional``: joint multi-start training of the shared network
   and one β per individual.  Screen every initial design with K1
   (``ops/rk4_population.py``), keep the best, refine them with Adam then
-  L-BFGS on the value and exact gradient of K2 (``ops/lane_grad.py``), and
+  L-BFGS on the value and exact gradient of K2 (``ops/lane_grad.py``; of K5,
+  ``ops/population_grad.py``, above 131,072 restart × individual lanes), and
   re-rank with adaptive Tsit5, K3 (``ops/tsit5_cohort.py``).  CUDA tensors
   launch the kernels; CPU tensors run their plain versions.
 * ``fit_betas``, ``fit_betas_sigma``, ``evaluate_model``: with the network
@@ -28,10 +29,14 @@ from conditional_ude_tpu_torch.fit.optim import adam_minimize
 from conditional_ude_tpu_torch.models.cpeptide import (
     Cohort,
     CPeptideModel,
-    production_orientation,
+    production_orientations,
 )
 from conditional_ude_tpu_torch.nn import MLP
-from conditional_ude_tpu_torch.ops import rk4_population, tsit5_cohort
+from conditional_ude_tpu_torch.ops import (
+    lane_grad,
+    rk4_population,
+    tsit5_cohort,
+)
 from conditional_ude_tpu_torch.ops.lane_grad import PopulationSSE
 from conditional_ude_tpu_torch.ops.lbfgs import lbfgs_minimize
 from conditional_ude_tpu_torch.ops.rk4_cohort import check_net_canonical
@@ -179,7 +184,7 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
                         stable=True)[:cfg.selected_initials]
     nn0, b0 = nn_inits[top], betas_init[top, :, 0]
 
-    # -- Adam, then L-BFGS on the flat [nn, β] rows (K2 value + gradient) ----
+    # -- Adam, then L-BFGS on the flat [nn, β] rows (K2 or K5 value + gradient)
     def loss(nn, b):
         return PopulationSSE.apply(nn, b, net, *cohort_args, cfg.substeps)
 
@@ -209,10 +214,15 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
             net, nn2, b2, *cohort_args, max_steps=cfg.max_steps)
     sync()
     t4 = time.perf_counter()
+    # the value+grad kernel that ran: K2 on packed lanes, K5 above its limit
+    if lane_grad.takes_restart_kernel(nn0.shape[0], cohort.n):
+        refine_path = "cuda_k5" if cuda else "plain_k5"
+    else:
+        refine_path = "cuda_k2" if cuda else "plain"
     timings = {"screen": t1 - t0, "adam": t2 - t1, "lbfgs": t3 - t2,
                "final_eval": t4 - t3,
                "screen_path": "cuda_k1" if cuda else "plain",
-               "refine_path": "cuda_k2" if cuda else "plain"}
+               "refine_path": refine_path}
     if cfg.log_timings:
         print(f"[train_conditional] screen={timings['screen']:.1f}s "
               f"adam={timings['adam']:.1f}s lbfgs={timings['lbfgs']:.1f}s "
@@ -222,8 +232,7 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
 
     # the covariate model's gauge is taken at the cohort's mean age
     mean_age = cohort.age.mean()
-    orients = torch.tensor([production_orientation(model, nn, age=mean_age)
-                            for nn in nn2], device=dev)
+    orients = production_orientations(model, nn2, age=mean_age)
     order = torch.argsort(torch.where(torch.isfinite(objs), objs, torch.inf),
                           stable=True)
     return TrainResult(nn_params=nn2[order], betas=b2[order, :, None],

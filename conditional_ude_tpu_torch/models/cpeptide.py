@@ -229,18 +229,25 @@ def simulate_cohort(model: CPeptideModel, nn_params: torch.Tensor,
     return solve_rk4(f, y0, saveat, t0=t0, substeps=substeps)
 
 
-def production_orientation(model: CPeptideModel, nn_params: torch.Tensor,
-                           beta_range=(-2.5, 0.5), dg_range=(0.5, 10.0),
-                           age=50.0, steps: int = 13) -> float:
-    """Canonical ±1 gauge of a trained conditional axis: +1 when production
-    decreases in β over the physiological (β, ΔG) box, −1 when the trained
-    gauge is mirrored.  β analyses use ``orientation * β``.  ``age`` feeds
-    the covariate model's third input (use the cohort's mean age) and is
-    ignored otherwise."""
+def production_orientations(model: CPeptideModel, nn_params: torch.Tensor,
+                            beta_range=(-2.5, 0.5), dg_range=(0.5, 10.0),
+                            age=50.0, steps: int = 13) -> torch.Tensor:
+    """Canonical ±1 gauge of trained conditional axes ``nn_params[..., P]``,
+    one per network: +1 when production decreases in β over the
+    physiological (β, ΔG) box, −1 when the trained gauge is mirrored.  β
+    analyses use ``orientation * β``.  ``age`` feeds the covariate model's
+    third input (use the cohort's mean age) and is ignored otherwise."""
     dev = nn_params.device
     bs = torch.as_tensor(linspace(*beta_range, steps), device=dev)
     dgs = torch.as_tensor(linspace(*dg_range, 8), device=dev)
     dg, b = torch.broadcast_tensors(dgs[None, :], bs[:, None])   # [steps, 8]
-    surf = model.production(nn_params, b, age)(dg)
-    slope = torch.mean(surf[1:] - surf[:-1])
-    return 1.0 if bool(slope <= 0) else -1.0
+    surf = model.production(nn_params[..., None, None, :], b, age)(dg)
+    slope = torch.mean(surf[..., 1:, :] - surf[..., :-1, :], dim=(-2, -1))
+    return torch.where(slope <= 0, 1.0, -1.0)
+
+
+def production_orientation(model: CPeptideModel, nn_params: torch.Tensor,
+                           **kwargs) -> float:
+    """:func:`production_orientations` of one network ``nn_params[P]``, as a
+    Python float."""
+    return float(production_orientations(model, nn_params, **kwargs))

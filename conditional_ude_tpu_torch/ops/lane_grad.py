@@ -17,7 +17,9 @@ and ∇β = (Σ_q ∂/∂e^β)·e^β.  The covariate model's network takes the a
 a third input (the kinetics' 5th column): ∇nn has 41 entries, w1[o][2]'s
 being Σ_q dz1[o]·age, and ∇β is unchanged (``pallas_grad.py:457-471``).  The
 sum over individuals runs outside the kernel
-(:func:`population_sse_and_grad`), as in the JAX package.
+(:func:`packed_sse_and_grad`), as in the JAX package;
+:func:`population_sse_and_grad` takes that route up to ``PACK_MAX_LANES``
+lanes and the restart kernel K5 (``ops/population_grad.py``) above.
 
 :func:`lane_sse_and_grad` launches ``csrc/lane_grad.cu`` for CUDA tensors
 and runs :func:`lane_sse_and_grad_reference`, the same arithmetic as plain
@@ -48,6 +50,9 @@ from conditional_ude_tpu_torch.ops.rk4_cohort import (
 from conditional_ude_tpu_torch.ops.tsit5 import f32
 
 MAX_SUBSTEPS = 16
+# above this many (restart × individual) lanes the restart kernel takes over
+# (``pallas_grad.py:550-553``)
+PACK_MAX_LANES = 131072
 
 # kernel launches since import (or since a caller reset them to 0): the
 # 2-input body and the 3-input (covariate) body
@@ -131,20 +136,80 @@ def _adjoint_weights(consts, k0, k1, k2, res, n_seg, substeps):
     return rows
 
 
+class PointNetwork:
+    """The canonical network on per-lane weight columns, evaluated point by
+    point at [ΔG, e^β(, age)] in the kernels' order of operations, with its
+    hand VJP (``csrc/cude_grad.cuh``, ``point_vjp``)."""
+
+    def __init__(self, layers, eb, extra):
+        (self.w1, self.b1), (self.w2, self.b2), (self.w3, self.b3) = layers
+        self.eb, self.extra = eb, extra
+
+    def forward(self, dg):
+        """Layer outputs ``(h1[4], h2[4], z3)`` at ΔG = ``dg``."""
+        h1 = []
+        for o in range(4):
+            acc = self.w1[o][0] * dg + self.w1[o][1] * self.eb
+            for w, x in zip(self.w1[o][2:], self.extra):
+                acc = acc + w * x
+            h1.append(torch.tanh(acc + self.b1[o]))
+        h2 = []
+        for o in range(4):
+            acc = self.w2[o][0] * h1[0]
+            for k in range(1, 4):
+                acc = acc + self.w2[o][k] * h1[k]
+            h2.append(torch.tanh(acc + self.b2[o]))
+        acc = self.w3[0][0] * h2[0]
+        for k in range(1, 4):
+            acc = acc + self.w3[0][k] * h2[k]
+        return h1, h2, acc + self.b3[0]
+
+    def __call__(self, dg):
+        z = self.forward(dg)[2]
+        return torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z)))
+
+    def vjp(self, dg, weight):
+        """``weight · ∂out/∂params`` stacked on a last axis ``[..., P]`` in
+        the flat layout, and ``weight · ∂out/∂e^β``; the forward is
+        recomputed."""
+        h1, h2, z3 = self.forward(dg)
+        dz3 = weight * (1.0 / (1.0 + torch.exp(-z3)))
+        g3 = [dz3 * h2[k] for k in range(4)] + [dz3]
+        dz2 = [dz3 * self.w3[0][k] * (1.0 - h2[k] * h2[k]) for k in range(4)]
+        g2 = [dz2[o] * h1[k] for o in range(4) for k in range(4)] + dz2
+        dz1 = []
+        for k in range(4):
+            dh = dz2[0] * self.w2[0][k]
+            for o in range(1, 4):
+                dh = dh + dz2[o] * self.w2[o][k]
+            dz1.append(dh * (1.0 - h1[k] * h1[k]))
+        g1 = [dz1[o] * x for o in range(4)
+              for x in [dg, self.eb] + self.extra] + dz1
+        dh_eb = dz1[0] * self.w1[0][1]
+        for o in range(1, 4):
+            dh_eb = dh_eb + dz1[o] * self.w1[o][1]
+        return torch.stack(g1 + g2 + g3, dim=-1), dh_eb
+
+
 def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
-                                kinetics, timepoints, substeps: int = 8):
+                                kinetics, timepoints, substeps: int = 8,
+                                magnitudes: bool = False):
     """Plain PyTorch version of the kernel over ``[R, N]`` lanes: per-lane
     ``(sse[R, N], gnn[R, N, P], gb[R, N])``, the sums over the evaluation
-    points taken first to last as the kernel takes them."""
+    points taken first to last as the kernel takes them.  It follows the
+    dtype of its tensors, so float64 inputs give a witness for the float32
+    routes.  With ``magnitudes`` it also returns the sums of the absolute
+    per-point terms of both gradients (``[R, N, P]``, ``[R, N]``): the scale
+    of a route's rounding error where the terms cancel."""
     consts = grid_constants(timepoints, substeps)
     _, j0, _, _ = _segments(timepoints, substeps)
     one_minus_w0, w0, inv_2s = consts[:3].tolist()
     n_seg = len(timepoints) - 1
     q_seg = 2 * substeps + 1
-    (w1, b1), (w2, b2), (w3, b3) = _mlp_columns(nn_params, net)
     eb = torch.exp(betas)                                         # [R, N]
     k0, k1, k2, c0 = (kinetics[:, i] for i in range(4))
     extra = [kinetics[:, 4]] if kinetics.shape[1] == 5 else []     # the age
+    mlp = PointNetwork(_mlp_columns(nn_params, net), eb, extra)
     g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
 
     # ΔG of every evaluation point [QT][N]; row 0 is the baseline ΔG = 0
@@ -155,30 +220,7 @@ def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
             wq = np.float32(q) * np.float32(inv_2s)
             dgs.append(f32(np.float32(1.0) - wq) * gl + f32(wq) * gr - g_at0)
 
-    def layer1(o, dg):
-        acc = w1[o][0] * dg + w1[o][1] * eb
-        for w, x in zip(w1[o][2:], extra):
-            acc = acc + w * x
-        return acc + b1[o]
-
-    def forward(dg):
-        h1 = [torch.tanh(layer1(o, dg)) for o in range(4)]
-        h2 = []
-        for o in range(4):
-            acc = w2[o][0] * h1[0]
-            for k in range(1, 4):
-                acc = acc + w2[o][k] * h1[k]
-            h2.append(torch.tanh(acc + b2[o]))
-        acc = w3[0][0] * h2[0]
-        for k in range(1, 4):
-            acc = acc + w3[0][k] * h2[k]
-        z3 = acc + b3[0]
-        return h1, h2, z3
-
-    def softplus(z):
-        return torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z)))
-
-    out = [softplus(forward(dg)[2]) for dg in dgs]
+    out = [mlp(dg) for dg in dgs]
     base = out[0]
     kc = k0 * c0
 
@@ -207,27 +249,17 @@ def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
 
     # backward: adjoint weights, then one hand VJP per point
     wts = _adjoint_weights(consts, k0, k1, k2, res, n_seg, substeps)
-    grads = None
-    deb = None
+    grads = deb = None
+    mag = mag_b = 0.0
     for dg, wq in zip(dgs, wts):
-        h1, h2, z3 = forward(dg)
-        dz3 = wq * (1.0 / (1.0 + torch.exp(-z3)))
-        g3 = [dz3 * h2[k] for k in range(4)] + [dz3]
-        dz2 = [dz3 * w3[0][k] * (1.0 - h2[k] * h2[k]) for k in range(4)]
-        g2 = [dz2[o] * h1[k] for o in range(4) for k in range(4)] + dz2
-        dz1 = []
-        for k in range(4):
-            dh = dz2[0] * w2[0][k]
-            for o in range(1, 4):
-                dh = dh + dz2[o] * w2[o][k]
-            dz1.append(dh * (1.0 - h1[k] * h1[k]))
-        g1 = [dz1[o] * x for o in range(4) for x in [dg, eb] + extra] + dz1
-        dh_eb = dz1[0] * w1[0][1]
-        for o in range(1, 4):
-            dh_eb = dh_eb + dz1[o] * w1[o][1]
-        contrib = torch.stack(g1 + g2 + g3, dim=-1)
+        contrib, dh_eb = mlp.vjp(dg, wq)
         grads = contrib if grads is None else grads + contrib
         deb = dh_eb if deb is None else deb + dh_eb
+        if magnitudes:
+            mag = mag + contrib.abs()
+            mag_b = mag_b + dh_eb.abs()
+    if magnitudes:
+        return sse, grads, deb * eb, mag, mag_b * eb
     return sse, grads, deb * eb
 
 
@@ -284,21 +316,49 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
     return sse, gnn, gb
 
 
+def packed_sse_and_grad(net: MLP, nn_params: torch.Tensor,
+                        betas: torch.Tensor, glucose: torch.Tensor,
+                        data: torch.Tensor, kinetics: torch.Tensor,
+                        timepoints, substeps: int = 8):
+    """``(f[R], gnn[R, P], gb[R, N])`` by the packed route: one launch of
+    the lane kernel over the (restart × individual) lanes, then the mean
+    over individuals, ``inf`` where it is not finite
+    (``pallas_grad.py:651-663``)."""
+    sse, gnn, gb = lane_sse_and_grad(net, nn_params, betas, glucose, data,
+                                     kinetics, timepoints, substeps)
+    inv_n = f32(1.0 / betas.shape[1])
+    mean = sse.sum(1) * inv_n
+    f = torch.where(torch.isfinite(mean), mean, torch.inf)
+    return f, gnn.sum(1) * inv_n, gb * inv_n
+
+
+def takes_restart_kernel(restarts: int, individuals: int) -> bool:
+    """Whether a multi-start this wide is past the packed lanes of K2, so
+    that :func:`population_sse_and_grad` takes the restart kernel K5."""
+    return restarts * individuals > PACK_MAX_LANES
+
+
 def population_sse_and_grad(net: MLP, nn_params: torch.Tensor,
                             betas: torch.Tensor, glucose: torch.Tensor,
                             data: torch.Tensor, kinetics: torch.Tensor,
                             timepoints, substeps: int = 8):
     """``(f[R], gnn[R, P], gb[R, N])``: the population mean SSE per restart
-    and its exact gradient.  One kernel launch over the (restart ×
-    individual) lanes, then the mean over individuals, ``inf`` where it is
-    not finite (``pallas_grad.py:651-663``)."""
-    sse, gnn, gb = lane_sse_and_grad(
-        net, nn_params.contiguous(), betas.contiguous(), glucose, data,
-        kinetics, timepoints, substeps)
-    inv_n = f32(1.0 / betas.shape[1])
-    mean = sse.sum(1) * inv_n
-    f = torch.where(torch.isfinite(mean), mean, torch.inf)
-    return f, gnn.sum(1) * inv_n, gb * inv_n
+    and its exact gradient, ``inf`` where the mean is not finite.
+
+    The layout follows the width of the multi-start, as in the JAX package
+    (``pallas_grad.py:651-670``): up to ``PACK_MAX_LANES`` (restart ×
+    individual) lanes :func:`packed_sse_and_grad`; above, the restart
+    kernel of ``ops/population_grad.py``, which loops over the individuals
+    itself."""
+    nn_params, betas = nn_params.contiguous(), betas.contiguous()
+    route = packed_sse_and_grad
+    if takes_restart_kernel(*betas.shape):
+        # imported here: that module builds on this one
+        from conditional_ude_tpu_torch.ops.population_grad import (
+            restart_sse_and_grad as route,
+        )
+    return route(net, nn_params, betas, glucose, data, kinetics, timepoints,
+                 substeps)
 
 
 class PopulationSSE(torch.autograd.Function):

@@ -1,6 +1,7 @@
-"""The flagship experiment and its covariate variant end to end
-(counterpart of ``experiments/common.py:119-256``,
-``experiments/exp02_conditional.py`` and ``experiments/exp07_covariate.py``).
+"""The flagship experiment, its covariate variant and its enlarged
+multi-start end to end (counterpart of ``experiments/common.py:119-256``,
+``experiments/exp02_conditional.py``, ``experiments/exp07_covariate.py`` and
+``experiments/exp02_xl.py``).
 
 Two paths share the stages after training:
 
@@ -14,7 +15,15 @@ Two paths share the stages after training:
 
 exp07 is exp02 with the age as the network's third input
 (``kind="conditional_covariate"``); its test census uses the Raue-95
-threshold, and it has no census over all subjects.
+threshold, and it has no census over all subjects.  exp02_xl (``xl=True``)
+is exp02 on a wider multi-start (400,000 designs and 96 restarts by default,
+candidates in ``cude_neural_parameters_xl.npz``).  With that many candidates
+the least validation objective can belong to an underfit restart, so it
+also reports a guarded selection: the least validation objective within the
+better half by training objective, and that candidate's own (β, σ) refit.
+That refit covers the training subjects too, though only its test SSEs are
+reported: the guarded candidate's first-phase Spearman
+(``guarded_spearman``) is taken over all subjects, as the selected one's is.
 
 The stages, given candidate networks and their training β's:
 
@@ -45,7 +54,11 @@ from conditional_ude_tpu_torch.analysis.profiles import (
     cohort_beta_profiles,
     find_confidence_intervals,
 )
-from conditional_ude_tpu_torch.convert import load_candidates, params_from_jax
+from conditional_ude_tpu_torch.convert import (
+    candidate_objectives,
+    load_candidates,
+    params_from_jax,
+)
 from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
 from conditional_ude_tpu_torch.fit.train import (
     TrainConfig,
@@ -69,12 +82,13 @@ SEED = 270523   # the flagship's seed (experiments/exp02_conditional.py)
 
 @dataclasses.dataclass(frozen=True)
 class Experiment:
-    """What exp02 and exp07 differ in."""
+    """What exp02, exp07 and exp02_xl differ in."""
 
     kind: str              # the CPeptideModel's production head
     candidates: str        # the JAX package's trained candidates (artifacts)
     ci_method: str         # threshold of the test-profile census
     census_all: bool       # whether the census over all subjects runs
+    guarded: bool = False  # whether the guarded selection is reported too
 
     def model(self) -> CPeptideModel:
         net = chain(4, 2, "tanh", input_dims=KINDS[self.kind])
@@ -86,6 +100,24 @@ EXP02 = Experiment("conditional", "cude_neural_parameters.npz", "cantelli95",
 EXP07 = Experiment("conditional_covariate",
                    "cude_covariate_neural_parameters.npz", "raue95",
                    census_all=False)
+EXP02_XL = dataclasses.replace(EXP02,
+                               candidates="cude_neural_parameters_xl.npz",
+                               guarded=True)
+
+
+def _experiment(covariate: bool, xl: bool) -> Experiment:
+    if covariate and xl:
+        raise ValueError("the enlarged multi-start is exp02's: it has no "
+                         "covariate variant")
+    return EXP07 if covariate else EXP02_XL if xl else EXP02
+
+
+def guarded_best(objectives: np.ndarray) -> int:
+    """argmin of the summed validation objectives ``[R, N_val]`` within the
+    better half of the candidates, which are sorted best first by training
+    objective (``experiments/exp02_xl.py:70-72``)."""
+    sums = np.asarray(objectives).sum(axis=1)
+    return int(np.argmin(sums[:max(1, len(sums) // 2)]))
 
 
 @dataclasses.dataclass
@@ -107,19 +139,33 @@ class PipelineResult:
     census_all: dict[str, int]
     seconds: dict[str, float]     # wall-clock per stage
     training: TrainResult | None = None   # the retrain path's candidates
+    # the guarded selection (exp02_xl): the candidate, its test SSEs from its
+    # own refit, and the first-phase Spearman of its oriented β's
+    guarded_best: int | None = None
+    guarded_sse_test: np.ndarray | None = None
+    guarded_spearman: float | None = None
 
     def metrics(self) -> dict:
         """The exp02 metrics this path computes, as JSON-ready values."""
+        guarded = {}
+        if self.guarded_best is not None:
+            fin = self.guarded_sse_test[np.isfinite(self.guarded_sse_test)]
+            guarded = {"guarded_best_model_index": self.guarded_best,
+                       "guarded_test_sse_mean": float(np.mean(fin)),
+                       "guarded_test_sse_median": float(np.median(fin)),
+                       "guarded_spearman_first_phase": self.guarded_spearman}
         return {
             "best_model_index": self.best,
             "beta_bounds": list(self.bounds),
             "train_sse_mean": float(np.mean(self.sse_train)),
             "test_sse_mean": float(np.mean(self.sse_test)),
+            "test_sse_median": float(np.median(self.sse_test)),
             "spearman": self.spearman,
             "beta_orientation": self.orientation,
             "identifiability_census_test": self.census_test,
             "identifiability_census_all": self.census_all,
             "stage_seconds": self.seconds,
+            **guarded,
             **({"train_timings": self.training.timings}
                if self.training is not None else {}),
         }
@@ -155,18 +201,24 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
                         subjects: int | None = None,
                         profile_steps: int = 10_000,
                         census_steps: int = 1_000,
-                        covariate: bool = False) -> PipelineResult:
-    """Run the frozen path of exp02 (exp07 with ``covariate``) on ``device``.
+                        covariate: bool = False,
+                        xl: bool = False) -> PipelineResult:
+    """Run the frozen path of exp02 (exp07 with ``covariate``, exp02_xl with
+    ``xl``) on ``device``.
 
     ``candidates`` keeps the first candidates only and ``subjects`` the first
     subjects of the validation, training and test sets (reduced runs).
     """
-    exp = EXP07 if covariate else EXP02
+    exp = _experiment(covariate, xl)
     dev = torch.device(device)
     artifacts_dir = Path(artifacts_dir)
     train, test = load_npz(artifacts_dir / "ohashi.npz")
     nn_np, betas_np, idx_fit, orientations = load_candidates(
         artifacts_dir / exp.candidates)
+    if exp.guarded and np.any(np.diff(candidate_objectives(
+            artifacts_dir / exp.candidates)) < 0):
+        raise ValueError(f"{exp.candidates}: the guarded selection needs "
+                         "the candidates sorted best first")
     val = train.subset(np.setdiff1d(np.arange(len(train.ages)), idx_fit))
     if candidates is not None:
         nn_np, betas_np = nn_np[:candidates], betas_np[:candidates]
@@ -187,13 +239,15 @@ def run_training_pipeline(device: torch.device | str,
                           lbfgs_iters: int = 1000,
                           profile_steps: int = 10_000,
                           census_steps: int = 1_000,
-                          covariate: bool = False) -> PipelineResult:
-    """Run the retrain path of exp02 (exp07 with ``covariate``) on
+                          covariate: bool = False,
+                          xl: bool = False) -> PipelineResult:
+    """Run the retrain path of exp02 (exp07 with ``covariate``, exp02_xl
+    with ``xl``, whose ``config`` carries the wider multi-start) on
     ``device``: the fit/validation split and the training designs from
     ``seed``, ``train_conditional`` with ``config`` on the fit split, then
-    the shared stages on the trained candidates (a step count of 0 skips
-    that profile scan)."""
-    exp = EXP07 if covariate else EXP02
+    the shared stages on the trained candidates, which training returns
+    best first (a step count of 0 skips that profile scan)."""
+    exp = _experiment(covariate, xl)
     dev = torch.device(device)
     train, test = load_npz(Path(artifacts_dir) / "ohashi.npz")
     idx_fit, idx_val = stratified_split(np.random.default_rng(seed),
@@ -226,29 +280,33 @@ def _select_and_analyse(dev, exp: Experiment, model: CPeptideModel,
             model, cand, torch.as_tensor(betas_np, device=dev),
             _cohort(val, dev), lbfgs_iters=lbfgs_iters)
         best = select_best(objectives)
-    nn_best = cand[best]
-    betas_best = np.asarray(betas_np[best], np.float32).ravel()
-    if orientations.size:
-        orientation = float(orientations[best])
-    else:
-        orientation = production_orientation(model, nn_best,
-                                             age=float(np.mean(train.ages)))
-
-    # bounds: the training-β range ±10%
-    lb = betas_best.min() - 0.1 * abs(betas_best.min())
-    ub = betas_best.max() + 0.1 * abs(betas_best.max())
-    # training and test subjects in one batch: every individual is its own
-    # L-BFGS row, so this equals two separate fits
     both = OhashiSplit.concatenate(train, test)
     cohort_both = _cohort(both, dev)
-    with stage("refit"):
-        b_all, s_all, o_all = (t.cpu().numpy() for t in fit_betas_sigma(
-            model, nn_best, cohort_both, initial_beta=-1.0,
-            bounds=(float(lb), float(ub)), lbfgs_iters=lbfgs_iters))
-    # σ-NLL objectives back to SSE
     n_t = train.timepoints.shape[0]
-    sse_all = (o_all - (n_t / 2) * np.log(s_all**2)) * (2 * s_all**2)
     n_train = len(train.ages)
+
+    def refit(i: int, name: str):
+        """(β, σ) re-estimation of all subjects on candidate ``i``: its
+        gauge, its bounds (the training-β range ±10%), β, σ and the SSE
+        back-converted from the σ-NLL.  Training and test subjects go in
+        one batch: every individual is its own L-BFGS row, so this equals
+        two separate fits."""
+        if orientations.size:
+            gauge = float(orientations[i])
+        else:
+            gauge = production_orientation(model, cand[i],
+                                           age=float(np.mean(train.ages)))
+        bb = np.asarray(betas_np[i], np.float32).ravel()
+        lb = bb.min() - 0.1 * abs(bb.min())
+        ub = bb.max() + 0.1 * abs(bb.max())
+        with stage(name):
+            b, s, o = (t.cpu().numpy() for t in fit_betas_sigma(
+                model, cand[i], cohort_both, initial_beta=-1.0,
+                bounds=(float(lb), float(ub)), lbfgs_iters=lbfgs_iters))
+        return gauge, lb, ub, b, s, (o - (n_t / 2) * np.log(s**2)) * (2 * s**2)
+
+    nn_best = cand[best]
+    orientation, lb, ub, b_all, s_all, sse_all = refit(best, "refit")
     b_train, b_test = b_all[:n_train], b_all[n_train:]
     s_train, s_test = s_all[:n_train], s_all[n_train:]
     sse_train, sse_test = sse_all[:n_train], sse_all[n_train:]
@@ -257,6 +315,17 @@ def _select_and_analyse(dev, exp: Experiment, model: CPeptideModel,
     corr = {"first_phase": spearman(b_idx, both.first_phase),
             "age": spearman(b_idx, both.ages),
             "insulin_sensitivity": spearman(b_idx, both.insulin_sensitivity)}
+
+    guarded = {}
+    if exp.guarded:
+        guard = guarded_best(objectives.cpu().numpy())
+        if guard != best:
+            gauge, _, _, b_g, _, sse_g = refit(guard, "guarded_refit")
+        else:
+            gauge, b_g, sse_g = orientation, b_all, sse_all
+        guarded = dict(guarded_best=guard, guarded_sse_test=sse_g[n_train:],
+                       guarded_spearman=spearman(gauge * b_g,
+                                                 both.first_phase))
 
     prof, census_test, prof_all, census_all = None, {}, None, {}
     if profile_steps:
@@ -282,4 +351,4 @@ def _select_and_analyse(dev, exp: Experiment, model: CPeptideModel,
         b_train=b_train, s_train=s_train, sse_train=sse_train,
         b_test=b_test, s_test=s_test, sse_test=sse_test, spearman=corr,
         profile=prof, census_test=census_test, delta_profile=prof_all,
-        census_all=census_all, seconds=stage.seconds)
+        census_all=census_all, seconds=stage.seconds, **guarded)

@@ -1,4 +1,4 @@
-"""PyTorch port on the card: the CUDA kernels K1-K4, each with its 2-input
+"""PyTorch port on the card: the CUDA kernels K1-K5, each with its 2-input
 body and its covariate (3-input) body, against their plain versions.
 
 These tests need an NVIDIA card and skip without one.  The file imports no
@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from conditional_ude_tpu_torch.models.cpeptide import build_cohort
+from conditional_ude_tpu_torch.analysis.profiles import cohort_beta_profiles
+from conditional_ude_tpu_torch.models.cpeptide import CPeptideModel, build_cohort
 from conditional_ude_tpu_torch.nn import chain
 from conditional_ude_tpu_torch.ops import (
     lane_grad,
+    population_grad,
     rk4_cohort,
     rk4_population,
     tsit5_cohort,
@@ -86,6 +88,25 @@ def test_shared_weights_stride0(card):
     dense = rk4_cohort.cohort_sse(net, shared.contiguous(), *rest, TP, 8)
     torch.cuda.synchronize()
     assert torch.equal(out, dense)
+
+
+def test_profile_scan_takes_a_row_of_a_column_major_table(card):
+    """The xl candidates are stored column-major, so a candidate's row has a
+    stride: the profile scan makes it contiguous and launches K4."""
+    rng = np.random.default_rng(11)
+    cohort = build_cohort(5.0 + rng.uniform(0, 5, (6, 5)), np.asarray(TP),
+                          0.5 + rng.uniform(0, 1.5, (6, 5)),
+                          rng.uniform(30, 70, 6), rng.uniform(size=6) > 0.5,
+                          card)
+    model = CPeptideModel(chain(4, 2), "conditional")
+    table = torch.as_tensor(rng.uniform(-0.5, 0.5, (37, 9)),
+                            dtype=torch.float32, device=card).t()
+    assert table[4].stride() == (9,)
+    before = rk4_cohort.launches
+    strided = cohort_beta_profiles(model, table[4], cohort, steps=40)
+    assert rk4_cohort.launches == before + 1
+    dense = cohort_beta_profiles(model, table[4].clone(), cohort, steps=40)
+    assert torch.equal(strided.values, dense.values)
 
 
 def test_wrapper_raises_instead_of_falling_back(card):
@@ -255,3 +276,63 @@ def test_covariate_kernels_read_the_age(card):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert not torch.equal(a, b)
+
+
+@pytest.mark.parametrize("input_dims", [2, 3])
+@pytest.mark.parametrize("r,n", [(1, 1), (37, 8), (130, 13), (600, 57)])
+def test_restart_value_and_grad_kernel_matches_plain(card, r, n, input_dims):
+    """K5 and K5c: value rtol 1e-4, gradients within 2e-4 of each row's
+    largest, inf and non-finite rows in the same places."""
+    net, args = _restarts(r, n, card, input_dims=input_dims)
+    before = (population_grad.launches, population_grad.launches_age)
+    f, gnn, gb = population_grad.restart_sse_and_grad(net, *args, 8)
+    assert (population_grad.launches, population_grad.launches_age) == (
+        before[0] + (input_dims == 2), before[1] + (input_dims == 3))
+    assert gnn.shape == (r, net.num_params) and gb.shape == (r, n)
+    r_f, r_gnn, r_gb = population_grad.restart_sse_and_grad_reference(
+        net, *args, 8)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(f[-1]))
+    assert torch.equal(torch.isinf(f), torch.isinf(r_f))
+    fin = torch.isfinite(r_f)
+    torch.testing.assert_close(f[fin], r_f[fin], rtol=1e-4, atol=0)
+    for got, ref in ((gnn, r_gnn), (gb, r_gb)):
+        rows = torch.isfinite(ref).all(-1)
+        assert torch.equal(torch.isfinite(got).all(-1), rows)
+        scale = ref[rows].abs().amax(-1, keepdim=True).clamp_min(1e-6)
+        if rows.any():
+            assert float(((got[rows] - ref[rows]) / scale).abs().max()) <= 2e-4
+
+
+@pytest.mark.parametrize("input_dims", [2, 3])
+def test_restart_kernel_matches_the_packed_route(card, input_dims):
+    """K5 against K2 and the sum outside it: two layouts of one function,
+    equal up to the order of the sum over individuals.  The age is scaled
+    by 1/100: raw ages saturate the first layer, and a saturated network's
+    gradient terms cancel far below the magnitude float32 sums them at."""
+    net, args = _restarts(300, 57, card, input_dims=input_dims)
+    args = [args[0][:-1].contiguous(), args[1][:-1].contiguous(), *args[2:]]
+    if input_dims == 3:
+        args[4] = args[4].clone()
+        args[4][:, 4] /= 100.0
+    f, gnn, gb = population_grad.restart_sse_and_grad(net, *args, 8)
+    p_f, p_gnn, p_gb = lane_grad.packed_sse_and_grad(net, *args, 8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(f, p_f, rtol=1e-4, atol=0)
+    for got, ref in ((gnn, p_gnn), (gb, p_gb)):
+        scale = ref.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+        assert float(((got - ref) / scale).abs().max()) <= 2e-4
+
+
+def test_switch_takes_the_restart_kernel_above_the_lane_limit(card,
+                                                              monkeypatch):
+    """``population_sse_and_grad`` launches K2 up to ``PACK_MAX_LANES``
+    lanes and K5 above, and nothing else."""
+    net, args = _restarts(6, 5, card)
+    counts = lambda: (lane_grad.launches, population_grad.launches)  # noqa: E731
+    before = counts()
+    lane_grad.population_sse_and_grad(net, *args, 8)
+    assert counts() == (before[0] + 1, before[1])
+    monkeypatch.setattr(lane_grad, "PACK_MAX_LANES", 29)
+    lane_grad.population_sse_and_grad(net, *args, 8)
+    assert counts() == (before[0] + 1, before[1] + 1)

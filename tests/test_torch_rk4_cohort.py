@@ -147,12 +147,17 @@ def test_build_command_targets_hopper_without_fast_math():
     from conditional_ude_tpu_torch.ops import (
         cuda_build,
         lane_grad,
+        population_grad,
         rk4_population,
         tsit5_cohort,
     )
 
-    for mod in (rk4_cohort, rk4_population, lane_grad, tsit5_cohort):
+    mods = (rk4_cohort, rk4_population, lane_grad, tsit5_cohort,
+            population_grad)
+    assert len({m.kernel.source for m in mods}) == 5
+    for mod in mods:
         src = mod.kernel.source
+        assert mod.kernel_age.source == src
         cmd = cuda_build.nvcc_command(src, cuda_build.BUILD_DIR / "x.so")
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert "-fmad=false" in cmd and "-shared" in cmd
