@@ -12,25 +12,29 @@
    main path's shape and at a ragged shape with random per-lane weights and
    one lane of huge weights (the covariate bodies with real ages):
    K4 (cohort RK4) and K1 (population screen) at rtol 1e-5 / atol 1e-6,
-   K2 (value + gradient on packed lanes) and K5 (value + gradient on
-   restart lanes) at rtol 1e-4 with gradients within 2e-4 of each row's
-   largest, K3 (adaptive Tsit5) with the same ``ok`` mask and rtol 2e-2 /
-   atol 1e-3; K1c-K5c are the covariate bodies, held alike, and K1c-K4c
-   must read the age: two cohorts that differ only in the age column give
-   different results.  K1 and K3 are also held at the enlarged
-   multi-start's shapes (400,000 x 57 designs, 131,328 lanes).  K5 is also
-   held against K2's packed route on the same inputs, at 2,304 x 57 and at
-   the ragged shape: two layouts of one function, equal up to the order of
-   the sums.  On real ages a random network is saturated and its weight
+   K2 (value + gradient on packed lanes, a warp a lane) and K5 (value +
+   gradient per restart, a block a restart) bit for bit, K3 (adaptive
+   Tsit5) with the same ``ok`` mask and rtol 2e-2 / atol 1e-3; K1c-K5c are
+   the covariate bodies, held alike, and K1c-K4c must read the age: two
+   cohorts that differ only in the age column give different results.  K1
+   and K3 are also held at the enlarged multi-start's shapes (400,000 x 57
+   designs, 131,328 lanes).  K5 is held bit for bit against K2's lanes
+   summed over the individuals in order, at 2,304 x 57 and at the ragged
+   shape, and against K2's packed route (``Tensor.sum`` over the
+   individuals): two layouts of one function, equal up to the order of the
+   sums.  On real ages a random network is saturated and its weight
    gradient is what float32 leaves of cancelling terms, so there (and on
    the committed trained candidates, for both bodies) the weight gradient
    of each layout is held to a float64 witness, within 256 float32
    roundings of the row's largest sum of absolute terms;
-3. times each body and its plain version at the path's shape (CUDA events),
-   K2 also at K5's shape, and works out the bound of each from its inputs;
+3. times each body and its plain version at the path's shape (CUDA events
+   around calls of the wrapper, the ``ms`` of the kernels line; K2 and K5
+   also on the device alone, ``device_ms``, by replaying a CUDA graph of
+   their calls), K2 also at K5's shape, and works out the bound of each
+   from its inputs;
 4. runs the frozen path of exp02 (``run_frozen_pipeline``) at full width
-   and checks it against the committed results; K4's launches are counted
-   over it;
+   and checks it against the committed results, the SSE per NGT/IGT/T2DM
+   class included; K4's launches are counted over it;
 5. runs the retrain path of exp02 (``run_training_pipeline``) at full
    width: 25,000 designs screened on the 57-subject fit split, 25 restarts
    of 1000 Adam and 1000 L-BFGS steps, the Tsit5 re-rank, selection and the
@@ -156,6 +160,16 @@ def compare(out: torch.Tensor, ref: torch.Tensor, what: str,
     return max_abs
 
 
+def same(outs, refs, what: str) -> None:
+    """Bit for bit: each output equals its reference, non-finite entries in
+    the same places."""
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        torch.testing.assert_close(
+            o, r, rtol=0, atol=0, equal_nan=True,
+            msg=lambda m, i=i: f"{what}: output {i} is not bit for bit: {m}")
+    log(f"[kernel] {what}: bit for bit")
+
+
 def compare_scaled(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     """Gradient rows divided by each row's largest |reference| entry
     (``tests/test_pallas_grad.py:61-64``), within atol 2e-4; rows with a
@@ -188,6 +202,27 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call: one replay of a CUDA graph of
+    ``reps`` calls, timed by CUDA events, so the wrapper's host work is out
+    of it (``cuda_ms`` is bound by that work for a kernel of ~0.1 ms)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -467,6 +502,7 @@ def main() -> None:
             e = compare(sse, r_sse, f"{what} value", GRAD_RTOL, 0.0)
             e = max(e, compare_scaled(gnn.reshape(-1, p), r_gnn.reshape(-1, p),
                                       f"{what} grad nn"))
+            same((sse, gnn, gb), (r_sse, r_gnn, r_gb), what)
             return max(e, compare_scaled(gb, r_gb, f"{what} grad beta"))
 
         r_path = 25
@@ -478,6 +514,8 @@ def main() -> None:
                                   f"K2{sfx} ragged (7 x 13)"))
         ms = cuda_ms(lambda: lane_grad.lane_sse_and_grad(net, *k2_path, 8),
                      reps=50)
+        device = graph_ms(lambda: lane_grad.lane_sse_and_grad(
+            net, *k2_path, 8), reps=50)
         plain = cuda_ms(lambda: lane_grad.lane_sse_and_grad_reference(
             net, *k2_path, 8), reps=3)
         lanes = r_path * n_fit
@@ -487,7 +525,8 @@ def main() -> None:
         # own cost.  A 3rd input adds its 4 weight gradients.
         per_point = mlp_flops(d) + 95 + 38 + 8 * (d - 2)
         results["K2" + sfx] = dict(
-            err=err, ms=ms, plain=plain, shape=f"{r_path} x {n_fit}",
+            err=err, ms=ms, device=device, plain=plain,
+            shape=f"{r_path} x {n_fit}",
             bound=bound(4 * (r_path * p + lanes * (1 + 1 + p + 1)
                              + n_fit * (10 + n_kin)),
                         lanes * (69 * per_point + 32 * 47 + 480),
@@ -525,15 +564,31 @@ def main() -> None:
 
         # -- K5: value + gradient with restarts as threads --------------------
         def k5_compare(args, what, ref=None, grad_nn=True):
-            """K5 against its plain version, or against ``ref``."""
+            """K5 against its plain version (bit for bit), or against
+            ``ref`` at the repository's tolerances."""
             f, gnn, gb = population_grad.restart_sse_and_grad(net, *args, 8)
+            exact = ref is None or ref[3]
             if ref is None:
                 ref = population_grad.restart_sse_and_grad_reference(
                     net, *args, 8)
             e = compare(f, ref[0], f"{what} value", GRAD_RTOL, 0.0)
             if grad_nn:
                 e = max(e, compare_scaled(gnn, ref[1], f"{what} grad nn"))
+            if exact:
+                same((f, gnn, gb), ref[:3], what)
             return max(e, compare_scaled(gb, ref[2], f"{what} grad beta"))
+
+        def k5_against_lanes(args, what):
+            """K5 against K2's lanes on the same inputs, summed over the
+            individuals 0..N-1 in order and times 1/N: the sums K5's block
+            takes, so bit for bit."""
+            sse, gnn, gb = lane_grad.lane_sse_and_grad(net, *args, 8)
+            inv_n = np.float32(1.0 / args[1].shape[1])
+            mean = population_grad.sum_in_order(sse) * inv_n
+            same(population_grad.restart_sse_and_grad(net, *args, 8),
+                 (torch.where(torch.isfinite(mean), mean, torch.inf),
+                  population_grad.sum_in_order(gnn) * inv_n, gb * inv_n),
+                 what)
 
         def k5_against_packed(args, what, grad_nn=True):
             """K5 against K2's packed route on the same inputs: the other
@@ -542,7 +597,8 @@ def main() -> None:
             ``grad_nn`` the value and the beta gradient only, which no sum
             over individuals enters."""
             k5_compare(args, what,
-                       lane_grad.packed_sse_and_grad(net, *args, 8), grad_nn)
+                       (*lane_grad.packed_sse_and_grad(net, *args, 8), False),
+                       grad_nn)
 
         def against_float64(args, what):
             """The weight gradient of both layouts against a float64 witness
@@ -591,6 +647,8 @@ def main() -> None:
             raise AssertionError(f"K5{sfx}: the huge-weight restart's mean "
                                  "is not inf")
         err = k5_compare(r_args, f"K5{sfx} ragged (130 x 13)")
+        k5_against_lanes(r_args, f"K5{sfx} against K2{sfx}'s lanes summed in "
+                         "order, ragged (130 x 13)")
         # on the real ages the two layouts' weight gradients are held to
         # the float64 witness only (see the wide shape below)
         k5_against_packed(r_args, f"K5{sfx} against K2{sfx}'s packed route, "
@@ -605,7 +663,10 @@ def main() -> None:
             lambda: population_grad.restart_sse_and_grad_reference(
                 net, *k5_path, 8))
         err = max(err, k5_compare(
-            k5_path, f"K5{sfx} wide shape ({r_wide} x {n_fit})", ref))
+            k5_path, f"K5{sfx} wide shape ({r_wide} x {n_fit})",
+            (*ref, True)))
+        k5_against_lanes(k5_path, f"K5{sfx} against K2{sfx}'s lanes summed in "
+                         f"order ({r_wide} x {n_fit})")
         k5_against_packed(k5_path, f"K5{sfx} against K2{sfx}'s packed route "
                           f"({r_wide} x {n_fit})", grad_nn=not with_age)
         if with_age:
@@ -641,18 +702,23 @@ def main() -> None:
                         f"{c.n})")
         ms = cuda_ms(lambda: population_grad.restart_sse_and_grad(
             net, *k5_path, 8), reps=5)
+        device = graph_ms(lambda: population_grad.restart_sse_and_grad(
+            net, *k5_path, 8), reps=10)
         # the least work is K2's, on every (restart, individual) pair; the
         # outputs are per restart
         results["K5" + sfx] = dict(
-            err=err, ms=ms, plain=plain, shape=f"{r_wide} x {n_fit}",
+            err=err, ms=ms, device=device, plain=plain,
+            shape=f"{r_wide} x {n_fit}",
             bound=bound(4 * (r_wide * (p + n_fit) + n_fit * (10 + n_kin)
                              + r_wide * (1 + p + n_fit)),
                         lanes * (69 * per_point + 32 * 47 + 480),
                         lanes * (69 * (MLP_SFU + 1) + 1)))
         ms = cuda_ms(lambda: lane_grad.lane_sse_and_grad(net, *k5_path, 8),
                      reps=20)
+        device = graph_ms(lambda: lane_grad.lane_sse_and_grad(
+            net, *k5_path, 8), reps=20)
         wide["K2" + sfx] = dict(
-            ms=ms, shape=f"{r_wide} x {n_fit}, {lanes} lanes",
+            ms=ms, device=device, shape=f"{r_wide} x {n_fit}, {lanes} lanes",
             bound=bound(4 * (r_wide * p + lanes * (1 + 1 + p + 1)
                              + n_fit * (10 + n_kin)),
                         lanes * (69 * per_point + 32 * 47 + 480),
@@ -714,12 +780,18 @@ def main() -> None:
     kernel_phase(2)
     kernel_phase(3)
     live_age_check()
+
+    def device_note(r) -> str:
+        return (f" ({r['device']:.4f} ms on the device, CUDA graph)"
+                if "device" in r else "")
+
     for kid, r in results.items():
-        log(f"[time] {kid} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain']:.3f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]})  [{card}]")
+        log(f"[time] {kid} at {r['shape']}: kernel {r['ms']:.4f} ms"
+            f"{device_note(r)}, plain {r['plain']:.3f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]})  [{card}]")
     for kid, r in wide.items():
         log(f"[time] {kid} at {r['shape']}: kernel {r['ms']:.4f} ms"
+            + device_note(r)
             + (f", bound {r['bound'][0]:.4f} ms ({r['bound'][1]})"
                if r["bound"] else "") + f"  [{card}]")
     if args.kernels_only:
@@ -873,6 +945,7 @@ def main() -> None:
         "launches": r["launches"],
         "max_abs_err": r["err"],
         "ms": r["ms"],
+        "device_ms": r.get("device"),
         "plain_ms": r["plain"],
         "bound_ms": r["bound"][0],
         "bound_by": r["bound"][1],
@@ -944,6 +1017,14 @@ def check_frozen(res, fit: dict, metrics: dict) -> list[str]:
                              metrics["spearman"]["first_phase"],
                              metrics["test_sse_mean"])
     failures += check_fits(res, fit, 1e-2, 2e-2)
+    got = res.metrics()
+    for split in ("train", "test"):
+        key = f"{split}_sse_per_type"
+        log(f"[check] {split} SSE per type {got[key]} (committed "
+            f"{metrics[key]})")
+        for kind, want in metrics[key].items():
+            if abs(got[key][kind] / want - 1.0) > 0.03:
+                failures.append(f"{split} SSE of {kind} {got[key][kind]}")
     for name, key in (("test", "identifiability_census_test"),
                       ("all", "identifiability_census_all")):
         failures += check_census(getattr(res, f"census_{name}"), metrics[key],

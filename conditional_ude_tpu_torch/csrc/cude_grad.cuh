@@ -1,7 +1,8 @@
 // Device code shared by the two value+gradient kernels (lane_grad.cu, one
-// thread per (restart, individual) lane; population_grad.cu, one thread per
-// restart): the matrix form of an RK4 step, the grid constants, and the hand
-// VJP of the network at one evaluation point.
+// warp per (restart, individual) lane; population_grad.cu, one block per
+// restart and a warp per individual): the matrix form of an RK4 step, the
+// grid constants, the hand VJP of the network at one evaluation point, and
+// warp_lane, which computes one lane with one warp.
 //
 // The production term does not depend on the state, so the c-peptide ODE is
 // affine in it and one RK4 step is
@@ -16,6 +17,7 @@
 namespace cude {
 
 constexpr int kMaxSubsteps = 16;
+constexpr int kWarp = 32;
 
 struct GradSegment {
   float dt;         // RK4 step
@@ -150,6 +152,193 @@ __device__ __forceinline__ float point_vjp(const Mlp<In>& mlp, float x,
     if (o > 0) dh_eb = dh_eb + dz1[o] * mlp.w1[o][1];
   }
   return dh_eb;
+}
+
+// -- one lane per warp -----------------------------------------------------
+//
+// warp_lane computes the SSE of one (restart, individual) lane, the gradient
+// of its 37 (41) weights and the cotangent of its e^beta with the 32 threads
+// of a warp.  The lane's 1 + n_seg (2 substeps + 1) evaluation points (69 on
+// the OGTT grid) do not depend on the state, so they are spread across the
+// threads; only the two 2x2 affine recursions are sequential.
+//   1. Thread t < n_seg computes segment t's stage matrices; thread t
+//      evaluates the network at points q = t, t + 32, t + 64, ... (point 0
+//      is the dG = 0 baseline, point 1 + s q_seg + j point j of segment s).
+//   2. Every thread runs the forward recursion from shared memory, in the
+//      arithmetic and order of the one-thread kernel (ra = kc + out_a - base;
+//      the SSE summed over the residuals first to last).
+//   3. Every thread runs the adjoint recursion; the point weights overwrite
+//      the network outputs in shared memory, w_tot sums them first to last,
+//      and the baseline's weight is -w_tot.
+//   4. Thread t runs the recomputing hand VJP at its own points, summing its
+//      contributions in increasing q into registers that start at 0.
+//   5. The warp sums the 32 partial rows of the P weights and the e^beta
+//      cotangent in one fixed order: each thread writes its row to shared
+//      memory, and thread c sums column c over the rows 0..31 one after
+//      another (ops/lane_grad.py::lane_sum follows this order).  On the
+//      H100 this beat a butterfly of __shfl_xor_sync on every shape timed.
+// Every thread takes part in every step, so a caller never lets a part of a
+// warp leave early.
+
+constexpr int kStageFloats = 13;  // r, ma, mmid (4 each) and c
+
+// columns of a partial row: the P weights and the e^beta cotangent; rows
+// are an odd number of floats apart, so 32 threads writing one column each
+// hit 32 banks
+template <int In>
+__host__ __device__ constexpr int sum_stride() {
+  return (Mlp<In>::kParams + 1) | 1;
+}
+
+// floats of shared memory one warp_lane call needs: the residuals, the stage
+// matrices, and a row that holds the network outputs, then the point
+// weights, then the 32 partial rows of the sum
+template <int In>
+inline int warp_scratch_floats(int n_seg, int substeps) {
+  const int n_pts = 1 + n_seg * (2 * substeps + 1);
+  const int row = n_pts > kWarp * sum_stride<In>() ? n_pts : kWarp * sum_stride<In>();
+  return kMaxTimepoints + kStageFloats * n_seg + row;
+}
+
+__device__ __forceinline__ void store_stage(float* p, const Stage& st) {
+  p[0] = st.r.a, p[1] = st.r.b, p[2] = st.r.c, p[3] = st.r.d;
+  p[4] = st.ma.a, p[5] = st.ma.b, p[6] = st.ma.c, p[7] = st.ma.d;
+  p[8] = st.mmid.a, p[9] = st.mmid.b, p[10] = st.mmid.c, p[11] = st.mmid.d;
+  p[12] = st.c;
+}
+
+__device__ __forceinline__ Stage load_stage(const float* p) {
+  Stage st;
+  st.r = M2{p[0], p[1], p[2], p[3]};
+  st.ma = M2{p[4], p[5], p[6], p[7]};
+  st.mmid = M2{p[8], p[9], p[10], p[11]};
+  st.c = p[12];
+  return st;
+}
+
+// One lane with one warp (see above).  g and d are the individual's glucose
+// and data rows in shared memory, kin its kinetics row (k0, k1, k2, c0[,
+// age]), scratch the warp's warp_scratch_floats<In> floats of shared memory.
+// Returns the lane's SSE in every thread; emit(c, v) is called once for
+// each column c in 0..P, by one thread: v is the gradient of weight c, or
+// for c = P the e^beta cotangent (the beta gradient is v e^beta).
+template <int In, class Emit>
+__device__ __forceinline__ float warp_lane(const Mlp<In>& mlp, float e_beta,
+                                           const float* g, const float* d,
+                                           const float* kin,
+                                           const GradGrid& grid,
+                                           float* scratch, Emit emit) {
+  constexpr int kParams = Mlp<In>::kParams;
+  constexpr int kKin = Mlp<In>::kKin;
+  const int t = threadIdx.x & (kWarp - 1);
+  const int q_seg = 2 * grid.substeps + 1;
+  const int n_pts = 1 + grid.n_seg * q_seg;
+  float* res = scratch;                  // [kMaxTimepoints]
+  float* stages = res + kMaxTimepoints;  // [n_seg][kStageFloats]
+  float* row = stages + kStageFloats * grid.n_seg;
+  const float k0 = kin[0];
+  const float k1 = kin[1];
+  const float k2 = kin[2];
+  const float c0 = kin[3];
+  const float age = kKin == 5 ? kin[kKin - 1] : 0.0f;  // read by 3 inputs only
+  const float g_at0 = grid.one_minus_w0 * g[grid.j0] + grid.w0 * g[grid.j0 + 1];
+  const float kc = k0 * c0;
+
+  // dG of evaluation point q
+  auto dg_at = [&](int q) -> float {
+    if (q == 0) return 0.0f;
+    const int s = (q - 1) / q_seg;
+    const int j = (q - 1) - s * q_seg;
+    const float wq = static_cast<float>(j) * grid.inv_2s;
+    return (1.0f - wq) * g[s] + wq * g[s + 1] - g_at0;
+  };
+
+  // -- 1. stage matrices and the network at every point, across the warp --
+  if (t < grid.n_seg)
+    store_stage(stages + kStageFloats * t, stage_matrices(k0, k1, k2, grid.seg[t], grid));
+  for (int q = t; q < n_pts; q += kWarp) row[q] = mlp(dg_at(q), e_beta, age);
+  __syncwarp();
+
+  // -- 2. forward: matrix-form RK4 on the productions ----------------------
+  const float base = row[0];
+  float u1 = c0;
+  float u2 = (k2 / k1) * u1;
+  const float r0 = u1 - d[0];
+  float sse = r0 * r0;
+  for (int s = 0; s < grid.n_seg; ++s) {
+    const Stage st = load_stage(stages + kStageFloats * s);
+    const int bq = 1 + s * q_seg;
+    float out_a = row[bq];
+    for (int i = 0; i < grid.substeps; ++i) {
+      const float out_m = row[bq + 2 * i + 1];
+      const float out_d = row[bq + 2 * i + 2];
+      const float ra = kc + out_a - base;
+      const float rm = kc + out_m - base;
+      const float rd = kc + out_d - base;
+      const float n1 = st.r.a * u1 + st.r.b * u2 + st.ma.a * ra + st.mmid.a * rm + st.c * rd;
+      const float n2 = st.r.c * u1 + st.r.d * u2 + st.ma.c * ra + st.mmid.c * rm + 0.0f * rd;
+      u1 = n1;
+      u2 = n2;
+      out_a = out_d;
+    }
+    const float rs = u1 - d[s + 1];
+    res[s + 1] = rs;
+    sse = sse + rs * rs;
+  }
+  __syncwarp();
+
+  // -- 3. adjoint recursion: the head weight of every point ----------------
+  float l1 = 0.0f, l2 = 0.0f;
+  for (int s = grid.n_seg - 1; s >= 0; --s) {
+    const Stage st = load_stage(stages + kStageFloats * s);
+    const int bq = 1 + s * q_seg;
+    l1 = l1 + 2.0f * res[s + 1];
+    float w_a = 0.0f;  // the start weight of substep i + 1, the same point
+    for (int i = grid.substeps - 1; i >= 0; --i) {
+      const float end = st.c * l1 + 0.0f * l2;
+      row[bq + 2 * i + 2] = i == grid.substeps - 1 ? end : w_a + end;
+      row[bq + 2 * i + 1] = st.mmid.a * l1 + st.mmid.c * l2;
+      w_a = st.ma.a * l1 + st.ma.c * l2;
+      const float nl1 = st.r.a * l1 + st.r.c * l2;
+      const float nl2 = st.r.b * l1 + st.r.d * l2;
+      l1 = nl1;
+      l2 = nl2;
+    }
+    row[bq] = w_a;
+  }
+  __syncwarp();
+  float w_tot = row[1];
+  for (int q = 2; q < n_pts; ++q) w_tot = w_tot + row[q];
+
+  // -- 4. one hand VJP per point, each thread its own points ---------------
+  float acc[kParams];
+#pragma unroll
+  for (int i = 0; i < kParams; ++i) acc[i] = 0.0f;
+  float deb = 0.0f;
+  for (int q = t; q < n_pts; q += kWarp) {
+    float contrib[kParams];
+    const float wq = q == 0 ? -w_tot : row[q];
+    const float dh_eb = point_vjp<In>(mlp, dg_at(q), e_beta, age, wq, contrib);
+#pragma unroll
+    for (int i = 0; i < kParams; ++i) acc[i] = acc[i] + contrib[i];
+    deb = deb + dh_eb;
+  }
+  __syncwarp();  // every weight is read before the rows overwrite them
+
+  // -- 5. the sum across the warp, in one fixed order ----------------------
+  constexpr int kStride = sum_stride<In>();
+  float* mine = row + t * kStride;
+#pragma unroll
+  for (int i = 0; i < kParams; ++i) mine[i] = acc[i];
+  mine[kParams] = deb;
+  __syncwarp();
+  for (int c = t; c <= kParams; c += kWarp) {
+    float sum = row[c];
+    for (int k = 1; k < kWarp; ++k) sum = sum + row[k * kStride + c];
+    emit(c, sum);
+  }
+  __syncwarp();  // the scratch is free for the warp's next lane
+  return sse;
 }
 
 }  // namespace cude

@@ -83,23 +83,35 @@ struct Mlp {
   float w2[kWidth][kWidth], b2[kWidth];
   float w3[kWidth], b3;
 
+  // the weights from device memory, read-only
   __device__ __forceinline__ void load(const float* __restrict__ p) {
+    load_with([p](int i) { return __ldg(p + i); });
+  }
+
+  // the weights from shared memory
+  __device__ __forceinline__ void load_shared(const float* p) {
+    load_with([p](int i) { return p[i]; });
+  }
+
+  // the weights in the flat layout, entry i read by ld(i)
+  template <class Ld>
+  __device__ __forceinline__ void load_with(Ld ld) {
     int i = 0;
 #pragma unroll
     for (int o = 0; o < kWidth; ++o)
 #pragma unroll
-      for (int k = 0; k < kIn; ++k) w1[o][k] = __ldg(p + i++);
+      for (int k = 0; k < kIn; ++k) w1[o][k] = ld(i++);
 #pragma unroll
-    for (int o = 0; o < kWidth; ++o) b1[o] = __ldg(p + i++);
+    for (int o = 0; o < kWidth; ++o) b1[o] = ld(i++);
 #pragma unroll
     for (int o = 0; o < kWidth; ++o)
 #pragma unroll
-      for (int k = 0; k < kWidth; ++k) w2[o][k] = __ldg(p + i++);
+      for (int k = 0; k < kWidth; ++k) w2[o][k] = ld(i++);
 #pragma unroll
-    for (int o = 0; o < kWidth; ++o) b2[o] = __ldg(p + i++);
+    for (int o = 0; o < kWidth; ++o) b2[o] = ld(i++);
 #pragma unroll
-    for (int k = 0; k < kWidth; ++k) w3[k] = __ldg(p + i++);
-    b3 = __ldg(p + i);
+    for (int k = 0; k < kWidth; ++k) w3[k] = ld(i++);
+    b3 = ld(i);
   }
 
   // layer 1 pre-activation w1[o][0]*x0 + w1[o][1]*x1 (+ w1[o][2]*x2) + b1[o];

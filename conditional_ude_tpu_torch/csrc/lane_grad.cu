@@ -19,22 +19,25 @@
 // parameter: it adds sum dz1[o] * age to w1[o][2]'s gradient and leaves the
 // beta cotangent as it is (pallas_grad.py:457-471).
 //
-// Design: one thread per lane, which takes its own e^beta as the TPU kernel
-// does.  The JAX kernel keeps every layer's
-// activations at all 69 points in VMEM; one thread cannot hold ~69 x 10
-// values in registers, so the kernel keeps none of them.  The forward pass
-// evaluates the network point by point inside the matrix-form RK4 and keeps
-// only the residuals; the adjoint recursion writes the 69 weights to a small
-// local array; the VJP pass recomputes each point's forward (4 + 4 tanhf and
-// the head) and accumulates the gradient in 37 (41) registers and the beta
-// cotangent in one.  The mean over individuals runs outside the kernel.
+// Design: one warp per lane (cude_grad.cuh, warp_lane), kLaneWarps (4)
+// warps a block, each warp with its own slice of shared memory: its individual's
+// glucose and data rows, the residuals, the stage matrices and one row that
+// holds the 69 network outputs, then the 69 point weights, then the 32
+// threads' partial sums of the gradient.  The 69 forward evaluations and
+// the 69 recomputing VJPs (4 + 4 tanhf and the head each) are spread over
+// the warp's threads, three rounds of each, where one thread used to run
+// all 138 in a chain; the two 32-step 2x2 recursions run in every thread
+// of the warp from shared memory.  The weights of a lane's restart are read
+// by every thread of its warp into registers.  The warp sums the partial
+// gradients in a fixed order (cude_grad.cuh) and writes gnn[lane] in one
+// coalesced row.  The mean over individuals runs outside the kernel.
 //
-// Bound: latency.  The flagship refinement runs 25 restarts x 57
-// individuals = 1,425 lanes: 23 blocks of 64 threads, one or two warps on
-// 23 of the 132 SMs.  Each thread runs ~140 network evaluations in a
-// dependent chain, so a launch costs the chain's latency (tens of
-// microseconds), far above the card's arithmetic or memory bound; the
-// launches sit between host-side optimizer steps.
+// Bound: latency and issue.  The flagship refinement runs 25 restarts x 57
+// individuals = 1,425 lanes: 1,425 warps, ~11 on each of the 132 SMs, each
+// a chain of ~6 network evaluations and two 32-step recursions; the
+// launches sit between host-side optimizer steps.  The function's least
+// work (one forward and one VJP per point) is far below what the card
+// could do in that time.
 //
 // Numerics (cude_mlp.cuh): accurate tanhf/expf/log1pf, no contracted
 // multiply-adds; the sigmoid is 1 / (1 + expf(-z)).  The operations and
@@ -50,17 +53,21 @@
 namespace {
 
 using cude::GradGrid;
-using cude::kMaxSubsteps;
 using cude::kMaxTimepoints;
 using cude::Mlp;
-using cude::Stage;
-using cude::stage_matrices;
 
-constexpr int kBlock = 64;
-constexpr int kMaxPoints = 1 + (kMaxTimepoints - 1) * (2 * kMaxSubsteps + 1);
+// lanes (warps) a block: 4 beat 8 on the H100 at 1,425 and 131,328 lanes
+constexpr int kLaneWarps = 4;
+constexpr int kThreads = kLaneWarps * cude::kWarp;
+
+// shared floats of one warp: glucose and data rows, then warp_lane's scratch
+template <int In>
+int warp_floats(int n_seg, int substeps) {
+  return 2 * kMaxTimepoints + cude::warp_scratch_floats<In>(n_seg, substeps);
+}
 
 template <int In>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads, 1)
 lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, P]
                          const float* __restrict__ beta,     // [R * N]
                          const float* __restrict__ glucose,  // [N, K]
@@ -69,110 +76,38 @@ lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, P]
                          float* __restrict__ sse_out,        // [R * N]
                          float* __restrict__ gnn_out,        // [R * N, P]
                          float* __restrict__ gb_out,         // [R * N]
-                         long long lanes, int n_ind, const GradGrid grid) {
-  const long long lane = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (lane >= lanes) return;
+                         long long lanes, int n_ind,
+                         const __grid_constant__ GradGrid grid,
+                         int warp_stride) {
+  using Net = Mlp<In>;
+  constexpr int kParams = Net::kParams;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / cude::kWarp;
+  const int t = threadIdx.x % cude::kWarp;
+  const long long lane = blockIdx.x * static_cast<long long>(kLaneWarps) + warp;
+  if (lane >= lanes) return;  // the whole warp
   const long long r = lane / n_ind;
   const int n = static_cast<int>(lane - r * n_ind);
   const int k_pts = grid.n_seg + 1;
-  const int q_seg = 2 * grid.substeps + 1;
-  const int n_pts = 1 + grid.n_seg * q_seg;
-
-  using Net = Mlp<In>;
-  constexpr int kParams = Net::kParams;
-  constexpr int kKin = Net::kKin;
+  float* g = smem + warp * warp_stride;
+  float* d = g + kMaxTimepoints;
+  if (t < k_pts) {
+    g[t] = glucose[n * k_pts + t];
+    d[t] = data[n * k_pts + t];
+  }
   Net mlp;
   mlp.load(nn + r * kParams);
   const float e_beta = expf(beta[lane]);
-  float g[kMaxTimepoints], d[kMaxTimepoints];
-  for (int j = 0; j < k_pts; ++j) {
-    g[j] = glucose[n * k_pts + j];
-    d[j] = data[n * k_pts + j];
-  }
-  const float* kin = kinetics + kKin * n;
-  const float k0 = kin[0];
-  const float k1 = kin[1];
-  const float k2 = kin[2];
-  const float c0 = kin[3];
-  const float age = kKin == 5 ? kin[kKin - 1] : 0.0f;  // read by 3 inputs only
-  const float g_at0 = grid.one_minus_w0 * g[grid.j0] + grid.w0 * g[grid.j0 + 1];
-  const float kc = k0 * c0;
-
-  // dG of evaluation point q (0: the baseline; 1 + s q_seg + j: point j of
-  // segment s)
-  auto dg_at = [&](int q) -> float {
-    if (q == 0) return 0.0f;
-    const int s = (q - 1) / q_seg;
-    const int j = (q - 1) - s * q_seg;
-    const float wq = static_cast<float>(j) * grid.inv_2s;
-    return (1.0f - wq) * g[s] + wq * g[s + 1] - g_at0;
-  };
-  auto net = [&](float dg) -> float { return mlp(dg, e_beta, age); };
-
-  // -- forward: matrix-form RK4 on the productions --------------------------
-  const float base = net(0.0f);
-  float res[kMaxTimepoints];
-  float u1 = c0;
-  float u2 = (k2 / k1) * u1;
-  res[0] = u1 - d[0];
-  for (int s = 0; s < grid.n_seg; ++s) {
-    const Stage st = stage_matrices(k0, k1, k2, grid.seg[s], grid);
-    const int bq = 1 + s * q_seg;
-    float out_a = net(dg_at(bq));
-    for (int i = 0; i < grid.substeps; ++i) {
-      const float out_m = net(dg_at(bq + 2 * i + 1));
-      const float out_d = net(dg_at(bq + 2 * i + 2));
-      const float ra = kc + out_a - base;
-      const float rm = kc + out_m - base;
-      const float rd = kc + out_d - base;
-      const float n1 = st.r.a * u1 + st.r.b * u2 + st.ma.a * ra + st.mmid.a * rm + st.c * rd;
-      const float n2 = st.r.c * u1 + st.r.d * u2 + st.ma.c * ra + st.mmid.c * rm + 0.0f * rd;
-      u1 = n1;
-      u2 = n2;
-      out_a = out_d;
-    }
-    res[s + 1] = u1 - d[s + 1];
-  }
-  float sse = res[0] * res[0];
-  for (int s = 1; s < k_pts; ++s) sse = sse + res[s] * res[s];
-
-  // -- adjoint recursion: the head weight of every evaluation point --------
-  float w[kMaxPoints];
-  float l1 = 0.0f, l2 = 0.0f;
-  for (int s = grid.n_seg - 1; s >= 0; --s) {
-    const Stage st = stage_matrices(k0, k1, k2, grid.seg[s], grid);
-    const int bq = 1 + s * q_seg;
-    l1 = l1 + 2.0f * res[s + 1];
-    for (int i = grid.substeps - 1; i >= 0; --i) {
-      w[bq + 2 * i] = st.ma.a * l1 + st.ma.c * l2;
-      w[bq + 2 * i + 1] = st.mmid.a * l1 + st.mmid.c * l2;
-      const float end = st.c * l1 + 0.0f * l2;
-      w[bq + 2 * i + 2] = i == grid.substeps - 1 ? end : w[bq + 2 * i + 2] + end;
-      const float nl1 = st.r.a * l1 + st.r.c * l2;
-      const float nl2 = st.r.b * l1 + st.r.d * l2;
-      l1 = nl1;
-      l2 = nl2;
-    }
-  }
-  float w_tot = w[1];
-  for (int q = 2; q < n_pts; ++q) w_tot = w_tot + w[q];
-  w[0] = -w_tot;
-
-  // -- one hand VJP per point, accumulated in registers -------------------
-  float gacc[kParams];
-  float deb = 0.0f;
-  for (int q = 0; q < n_pts; ++q) {
-    float contrib[kParams];
-    const float dh_eb = cude::point_vjp<In>(mlp, dg_at(q), e_beta, age, w[q], contrib);
-#pragma unroll
-    for (int i = 0; i < kParams; ++i) gacc[i] = q == 0 ? contrib[i] : gacc[i] + contrib[i];
-    deb = q == 0 ? dh_eb : deb + dh_eb;
-  }
-
-  sse_out[lane] = sse;
-#pragma unroll
-  for (int i = 0; i < kParams; ++i) gnn_out[lane * kParams + i] = gacc[i];
-  gb_out[lane] = deb * e_beta;
+  __syncwarp();
+  const float sse = cude::warp_lane<In>(
+      mlp, e_beta, g, d, kinetics + Net::kKin * n, grid, d + kMaxTimepoints,
+      [&](int c, float v) {
+        if (c < kParams)
+          gnn_out[lane * kParams + c] = v;
+        else
+          gb_out[lane] = v * e_beta;
+      });
+  if (t == 0) sse_out[lane] = sse;
 }
 
 template <int In>
@@ -185,10 +120,14 @@ int launch(const float* nn, const float* beta, const float* glucose,
   if (!cude::make_grad_grid(consts, n_seg, substeps, j0, &grid) || n_ind < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (lanes <= 0) return 0;
-  const long long blocks = (lanes + kBlock - 1) / kBlock;
-  lane_sse_and_grad_kernel<In><<<static_cast<unsigned int>(blocks), kBlock, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      nn, beta, glucose, data, kinetics, sse, gnn, gb, lanes, n_ind, grid);
+  const int warp_stride = warp_floats<In>(n_seg, substeps);
+  // at most ~24 KB at the limits of make_grad_grid: no opt-in
+  const size_t shared = sizeof(float) * kLaneWarps * warp_stride;
+  const long long blocks = (lanes + kLaneWarps - 1) / kLaneWarps;
+  lane_sse_and_grad_kernel<In><<<static_cast<unsigned int>(blocks), kThreads,
+                                 shared, static_cast<cudaStream_t>(stream)>>>(
+      nn, beta, glucose, data, kinetics, sse, gnn, gb, lanes, n_ind, grid,
+      warp_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

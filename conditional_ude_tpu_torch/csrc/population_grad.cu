@@ -1,6 +1,7 @@
-// Population mean SSE per restart with its exact discrete gradient, restarts
-// as threads (the value+grad of joint cUDE training when the multi-start is
-// too wide for the (restart x individual) lane kernel), for Hopper (sm_90a).
+// Population mean SSE per restart with its exact discrete gradient, one
+// block per restart (the value+grad of joint cUDE training when the
+// multi-start is too wide for the (restart x individual) lane kernel), for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 // conditional_ude_tpu/ops/pallas_grad.py::_build_population_grad_kernel
@@ -14,59 +15,70 @@
 //   gb[n]  = (d sse_n / d beta_n) / N,
 // the mathematics of lane_grad.cu (cude_grad.cuh: the affine matrix-form
 // RK4, the adjoint recursion over the residuals, one hand VJP of the
-// network per evaluation point) with the loop over individuals inside.
+// network per evaluation point).
 //
-// Design: one thread per restart, as the TPU kernel has one lane per
-// restart.  The restart's weights and its 37 (41) gradient accumulators live
-// in registers across the individual loop; the cohort (glucose, data and
-// kinetics, N x (2K + 4|5) floats) is read once per block into shared
-// memory, as rk4_population.cu keeps it.  No activation is kept: per
-// individual the forward pass evaluates the network point by point and keeps
-// only the residuals; the backward pass walks the segments last to first,
-// writes a segment's 2 substeps + 1 point weights to a small local array,
-// and recomputes each point's forward inside its VJP.  beta and gb are
-// [G, N] row-major, so a thread strides by N floats: uncoalesced, but N
-// floats a thread against ~140 N network evaluations.
+// Design: one block of kRestartWarps warps per restart.  The block reads
+// the restart's weights and the cohort (glucose, data and kinetics, N x (2K
+// + 4|5) floats) into shared memory once; every thread loads the weights
+// into registers.  Warp w computes the lanes of individuals n = w, w + W,
+// ... with cude_grad.cuh's warp_lane, exactly as lane_grad.cu computes a
+// lane, writes the individual's SSE and weight gradient into a shared
+// [N][P + 1] table and its beta gradient, times 1/N, to gb[r, n].  After a
+// barrier, thread c sums column c of the table over the individuals
+// 0..N-1 one after another and multiplies by 1/N.  So K5 is K2's lanes
+// summed over the individuals in order: the two routes agree bit for bit
+// when K2's lanes are summed that way (ops/population_grad.py,
+// restart_sse_and_grad_reference, is exactly that).  The order of the sums
+// is not the JAX kernel's (one running accumulator over individuals and
+// points), so the port agrees with JAX's K5 up to reassociation, as K2
+// does with JAX's K2.
 //
-// Order of every sum (that of the JAX kernel, pallas_grad.py:273-309, and of
-// ops/population_grad.py::restart_sse_and_grad_reference): the gradient
-// accumulators start at 0 and run over the individuals 0..N-1 without a
-// per-individual partial sum; within an individual the segments last to
-// first, the points of a segment first to last, and the dG = 0 baseline
-// (weight -sum w, the weights summed in that same order) last; the SSE of an
-// individual sums its residuals first to last and is added to the running
-// total; 1/N multiplies last.
+// Shared memory: the weights, the cohort, the [N][P + 1] table and each
+// warp's scratch (block_floats); 54,116 bytes (59,368 with the age) at N =
+// 57 on the OGTT grid, so the launch opts in above the 48 KB default, once
+// for each device and larger size, and refuses a cohort beyond the card's
+// 227 KB a block.
 //
-// Bound: latency.  One thread runs N x ~140 dependent network evaluations;
-// a wide multi-start of 2,304 restarts is 72 warps on 132 SMs, so a launch
-// costs one thread's chain, far above the card's arithmetic or memory
-// bound.  Blocks are one warp, which spreads the restarts over the most
-// SMs; a block per restart with a fixed-order reduction over individuals
-// would shorten the chain N-fold and is the next step for this kernel.
+// Bound: latency and issue.  2,304 restarts are 2,304 blocks; each warp
+// runs ~N / W lanes of warp_lane one after another, a few microseconds
+// each.
 //
 // Numerics (cude_mlp.cuh): accurate tanhf/expf/log1pf, no contracted
 // multiply-adds; the sigmoid is 1 / (1 + expf(-z)).
 //
 // C interface (loaded with ctypes): population_sse_and_grad (2 inputs) and
 // population_sse_and_grad_age (3 inputs) return cudaGetLastError() after the
-// launch.  They allocate nothing and launch on the given stream.
+// launch, or minus the bytes of shared memory a block would need where the
+// card has fewer (ops/cuda_build.py raises ValueError for that).  They
+// allocate nothing and launch on the given stream.
+
+#include <atomic>
 
 #include "cude_grad.cuh"
 
 namespace {
 
 using cude::GradGrid;
-using cude::kMaxSubsteps;
-using cude::kMaxTimepoints;
 using cude::Mlp;
-using cude::Stage;
-using cude::stage_matrices;
 
-constexpr int kBlock = 32;
-constexpr int kMaxSegPoints = 2 * kMaxSubsteps + 1;
+// warps a block (a restart): 8 beat 4 on the H100 at 2,304 x 57
+constexpr int kRestartWarps = 8;
+constexpr int kThreads = kRestartWarps * cude::kWarp;
+
+// shared floats of a block: the weights, glucose, data and kinetics of N
+// individuals, the [N][P + 1] table, and each warp's scratch; the layout of
+// the kernel below
+template <int In>
+size_t block_floats(int n_ind, int n_seg, int substeps) {
+  using Net = Mlp<In>;
+  const size_t per_ind = 2 * (n_seg + 1) + Net::kKin + Net::kParams + 1;
+  return Net::kParams + static_cast<size_t>(n_ind) * per_ind +
+         static_cast<size_t>(kRestartWarps) *
+             cude::warp_scratch_floats<In>(n_seg, substeps);
+}
 
 template <int In>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads, 1)
 population_sse_and_grad_kernel(const float* __restrict__ nn,       // [G, P]
                                const float* __restrict__ beta,     // [G, N]
                                const float* __restrict__ glucose,  // [N, K]
@@ -75,16 +87,23 @@ population_sse_and_grad_kernel(const float* __restrict__ nn,       // [G, P]
                                float* __restrict__ f_out,          // [G]
                                float* __restrict__ gnn_out,        // [G, P]
                                float* __restrict__ gb_out,         // [G, N]
-                               long long restarts, int n_ind, float inv_n,
-                               const GradGrid grid) {
+                               int n_ind, float inv_n,
+                               const __grid_constant__ GradGrid grid,
+                               int warp_stride) {
   using Net = Mlp<In>;
   constexpr int kParams = Net::kParams;
   constexpr int kKin = Net::kKin;
+  constexpr int kCols = kParams + 1;  // the weight gradient, then the SSE
   extern __shared__ float smem[];
+  const long long r = blockIdx.x;
   const int k_pts = grid.n_seg + 1;
-  float* s_glucose = smem;
+  float* s_nn = smem;
+  float* s_glucose = s_nn + kParams;
   float* s_data = s_glucose + n_ind * k_pts;
   float* s_kin = s_data + n_ind * k_pts;
+  float* s_table = s_kin + n_ind * kKin;
+  float* s_scratch = s_table + n_ind * kCols;
+  for (int i = threadIdx.x; i < kParams; i += blockDim.x) s_nn[i] = nn[r * kParams + i];
   for (int i = threadIdx.x; i < n_ind * k_pts; i += blockDim.x) {
     s_glucose[i] = glucose[i];
     s_data[i] = data[i];
@@ -92,106 +111,61 @@ population_sse_and_grad_kernel(const float* __restrict__ nn,       // [G, P]
   for (int i = threadIdx.x; i < n_ind * kKin; i += blockDim.x) s_kin[i] = kinetics[i];
   __syncthreads();
 
-  const long long r = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (r >= restarts) return;
-  const int q_seg = 2 * grid.substeps + 1;
-
+  const int warp = threadIdx.x / cude::kWarp;
   Net mlp;
-  mlp.load(nn + r * kParams);
-
-  float gacc[kParams];
-#pragma unroll
-  for (int i = 0; i < kParams; ++i) gacc[i] = 0.0f;
-  float total = 0.0f;
-
-  for (int n = 0; n < n_ind; ++n) {
-    const float* g = s_glucose + n * k_pts;
-    const float* d = s_data + n * k_pts;
-    const float* kin = s_kin + kKin * n;
-    const float k0 = kin[0];
-    const float k1 = kin[1];
-    const float k2 = kin[2];
-    const float c0 = kin[3];
-    const float age = kKin == 5 ? kin[kKin - 1] : 0.0f;  // read by 3 inputs only
+  mlp.load_shared(s_nn);
+  float* scratch = s_scratch + warp * warp_stride;
+  for (int n = warp; n < n_ind; n += kRestartWarps) {
     const float e_beta = expf(beta[r * n_ind + n]);
-    const float g_at0 = grid.one_minus_w0 * g[grid.j0] + grid.w0 * g[grid.j0 + 1];
-    const float kc = k0 * c0;
-
-    // dG of point j (0..2 substeps) of segment s
-    auto dg_at = [&](int s, int j) -> float {
-      const float wq = static_cast<float>(j) * grid.inv_2s;
-      return (1.0f - wq) * g[s] + wq * g[s + 1] - g_at0;
-    };
-    auto net = [&](float dg) -> float { return mlp(dg, e_beta, age); };
-
-    // -- forward: matrix-form RK4, two fresh network points per substep ----
-    const float base = net(0.0f);
-    float res[kMaxTimepoints];
-    float u1 = c0;
-    float u2 = (k2 / k1) * u1;
-    res[0] = u1 - d[0];
-    for (int s = 0; s < grid.n_seg; ++s) {
-      const Stage st = stage_matrices(k0, k1, k2, grid.seg[s], grid);
-      float pr_a = net(dg_at(s, 0)) - base;
-      for (int i = 0; i < grid.substeps; ++i) {
-        const float pr_m = net(dg_at(s, 2 * i + 1)) - base;
-        const float pr_d = net(dg_at(s, 2 * i + 2)) - base;
-        const float ra = kc + pr_a;
-        const float rm = kc + pr_m;
-        const float rd = kc + pr_d;
-        const float n1 = st.r.a * u1 + st.r.b * u2 + st.ma.a * ra + st.mmid.a * rm + st.c * rd;
-        const float n2 = st.r.c * u1 + st.r.d * u2 + st.ma.c * ra + st.mmid.c * rm + 0.0f * rd;
-        u1 = n1;
-        u2 = n2;
-        pr_a = pr_d;
-      }
-      res[s + 1] = u1 - d[s + 1];
-    }
-    float sse = res[0] * res[0];
-    for (int s = 1; s < k_pts; ++s) sse = sse + res[s] * res[s];
-
-    // -- backward: segments last to first; a segment's point weights from
-    // the adjoint recursion, then one recomputing VJP per point ------------
-    float l1 = 0.0f, l2 = 0.0f;
-    float w_tot = 0.0f;
-    float deb = 0.0f;
-    float contrib[kParams];
-    for (int s = grid.n_seg - 1; s >= 0; --s) {
-      const Stage st = stage_matrices(k0, k1, k2, grid.seg[s], grid);
-      l1 = l1 + 2.0f * res[s + 1];
-      float w[kMaxSegPoints];
-      for (int i = grid.substeps - 1; i >= 0; --i) {
-        w[2 * i] = st.ma.a * l1 + st.ma.c * l2;
-        w[2 * i + 1] = st.mmid.a * l1 + st.mmid.c * l2;
-        const float end = st.c * l1 + 0.0f * l2;
-        w[2 * i + 2] = i == grid.substeps - 1 ? end : w[2 * i + 2] + end;
-        const float nl1 = st.r.a * l1 + st.r.c * l2;
-        const float nl2 = st.r.b * l1 + st.r.d * l2;
-        l1 = nl1;
-        l2 = nl2;
-      }
-      for (int q = 0; q < q_seg; ++q) {
-        const float dh_eb = cude::point_vjp<In>(mlp, dg_at(s, q), e_beta, age, w[q], contrib);
-#pragma unroll
-        for (int i = 0; i < kParams; ++i) gacc[i] = gacc[i] + contrib[i];
-        deb = deb + dh_eb;
-        w_tot = w_tot + w[q];
-      }
-    }
-    // the hoisted baseline: weight -sum w on the dG = 0 evaluation
-    const float dh_eb = cude::point_vjp<In>(mlp, 0.0f, e_beta, age, -w_tot, contrib);
-#pragma unroll
-    for (int i = 0; i < kParams; ++i) gacc[i] = gacc[i] + contrib[i];
-    deb = deb + dh_eb;
-
-    gb_out[r * n_ind + n] = deb * e_beta * inv_n;
-    total = total + sse;
+    float* row = s_table + n * kCols;
+    const float sse = cude::warp_lane<In>(
+        mlp, e_beta, s_glucose + n * k_pts, s_data + n * k_pts,
+        s_kin + kKin * n, grid, scratch, [&](int c, float v) {
+          if (c < kParams)
+            row[c] = v;
+          else
+            gb_out[r * n_ind + n] = v * e_beta * inv_n;
+        });
+    if (threadIdx.x % cude::kWarp == 0) row[kParams] = sse;
   }
+  __syncthreads();
 
-  const float mean = total * inv_n;
-  f_out[r] = isfinite(mean) ? mean : INFINITY;
-#pragma unroll
-  for (int i = 0; i < kParams; ++i) gnn_out[r * kParams + i] = gacc[i] * inv_n;
+  // the sums over the individuals, 0..N-1 in order, one column a thread
+  for (int c = threadIdx.x; c < kCols; c += blockDim.x) {
+    float sum = s_table[c];
+    for (int n = 1; n < n_ind; ++n) sum = sum + s_table[n * kCols + c];
+    const float mean = sum * inv_n;
+    if (c < kParams)
+      gnn_out[r * kParams + c] = mean;
+    else
+      f_out[r] = isfinite(mean) ? mean : INFINITY;
+  }
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory a block.  Above the
+// 48 KB a launch gets without asking it opts in, up to the card's maximum a
+// block, once for each device and larger size: allowed[device] is the most it
+// has asked for `kernel` (the caller's static table, zero at first).  Returns
+// 0, a CUDA error, or minus `bytes` where the card has fewer (the C entry
+// points return that as their refusal of the inputs).
+constexpr int kMaxDevices = 64;
+
+template <class Kernel>
+int allow_shared(Kernel kernel, size_t bytes,
+                 std::atomic<size_t> (&allowed)[kMaxDevices]) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kMaxDevices && bytes <= allowed[dev].load()) return 0;
+  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes > static_cast<size_t>(most)) return -static_cast<int>(bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kMaxDevices) allowed[dev].store(bytes);
+  return 0;
 }
 
 template <int In>
@@ -201,15 +175,18 @@ int launch(const float* nn, const float* beta, const float* glucose,
            const float* consts,  // host, see lane_grad.py::grid_constants
            int n_seg, int substeps, int j0, float inv_n, void* stream) {
   GradGrid grid;
-  if (!cude::make_grad_grid(consts, n_seg, substeps, j0, &grid) || n_ind < 1)
+  if (!cude::make_grad_grid(consts, n_seg, substeps, j0, &grid) || n_ind < 1 ||
+      restarts > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (restarts <= 0) return 0;
-  const size_t shared = sizeof(float) * static_cast<size_t>(n_ind) *
-                        (2 * (n_seg + 1) + Mlp<In>::kKin);
-  const long long blocks = (restarts + kBlock - 1) / kBlock;
-  population_sse_and_grad_kernel<In><<<static_cast<unsigned int>(blocks), kBlock,
+  const size_t shared = sizeof(float) * block_floats<In>(n_ind, n_seg, substeps);
+  static std::atomic<size_t> allowed[kMaxDevices];
+  const int err = allow_shared(population_sse_and_grad_kernel<In>, shared, allowed);
+  if (err != 0) return err;
+  population_sse_and_grad_kernel<In><<<static_cast<unsigned int>(restarts), kThreads,
                                        shared, static_cast<cudaStream_t>(stream)>>>(
-      nn, beta, glucose, data, kinetics, f, gnn, gb, restarts, n_ind, inv_n, grid);
+      nn, beta, glucose, data, kinetics, f, gnn, gb, n_ind, inv_n, grid,
+      cude::warp_scratch_floats<In>(n_seg, substeps));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -208,19 +208,22 @@ class CPeptideModel:
 def simulate_cohort(model: CPeptideModel, nn_params: torch.Tensor,
                     betas: torch.Tensor, cohort: Cohort, saveat=None,
                     substeps: int = 16, solver: str = "rk4",
-                    max_steps: int = 256) -> SolveResult:
+                    max_steps: int = 256, rtol: float = 1e-3,
+                    atol: float = 1e-6) -> SolveResult:
     """Every lane from ``timepoints[0]``: fixed-step RK4 (``substeps`` per
     save segment) or adaptive Tsit5 (``solver="tsit5"``, at most
-    ``max_steps`` steps, rtol 1e-3, atol 1e-6); ``ys[..., N, T, 2]``."""
+    ``max_steps`` steps, tolerances ``rtol``, ``atol``); ``ys[..., N, T,
+    2]`` in the dtype of ``nn_params``."""
     saveat = cohort.timepoints if saveat is None else saveat
-    betas = torch.as_tensor(betas, dtype=torch.float32, device=cohort.device)
+    betas = torch.as_tensor(betas, dtype=nn_params.dtype,
+                            device=cohort.device)
     t0 = cohort.timepoints[0]
     batch = torch.broadcast_shapes(betas.shape, (cohort.n,))
     y0 = cohort.u0.expand(*batch, 2)
     if solver == "tsit5":
         f = model.vector_field_lanes(nn_params, betas, cohort)
         res = solve_tsit5(f, y0, t0, np.asarray(saveat)[-1], saveat,
-                          max_steps=max_steps)
+                          max_steps=max_steps, rtol=rtol, atol=atol)
         return SolveResult(ys=res.ys, success=res.success)
     if solver != "rk4":
         raise ValueError(f"unknown solver {solver!r}")

@@ -74,7 +74,9 @@ class KernelLibrary:
 
     ``name`` and ``argtypes`` declare its C entry point, which launches on
     the stream it is given and returns ``cudaGetLastError()``; a call
-    raises when that is not 0.
+    raises ``RuntimeError`` when that is not 0.  A negative return is the
+    entry point's refusal of inputs that need more shared memory a block
+    than the card has (minus the bytes) and raises ``ValueError``.
     """
 
     def __init__(self, source: str, name: str, argtypes: list):
@@ -93,6 +95,10 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
             self._fn = fn
         err = self._fn(*args)
+        if err < 0:
+            raise ValueError(f"{self.name}: these inputs need {-err} bytes "
+                             "of shared memory a block, more than the card "
+                             "has")
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
 

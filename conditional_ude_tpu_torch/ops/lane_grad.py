@@ -9,11 +9,15 @@ so the c-peptide ODE is affine in the state and one RK4 step is
     v ← R·v + M_a·r(t) + M_mid·r(t + dt/2) + M_d·r(t + dt)
 
 with 2×2 stage matrices of the kinetics (``_stage_matrices``).  A lane is
-one (restart, individual) pair.  Its forward pass needs the network at
-1 + n_seg·(2·substeps + 1) points (69 on the OGTT grid; row 0 is the ΔG = 0
-baseline); an adjoint recursion over the five residuals gives each point's
+one (restart, individual) pair, and the kernel gives it one warp.  Its
+forward pass needs the network at 1 + n_seg·(2·substeps + 1) points (69 on
+the OGTT grid; row 0 is the ΔG = 0 baseline), spread over the warp's 32
+threads; an adjoint recursion over the five residuals gives each point's
 weight (the baseline's is −Σw), and one hand VJP per point gives ∇nn[37]
-and ∇β = (Σ_q ∂/∂e^β)·e^β.  The covariate model's network takes the age as
+and ∇β = (Σ_q ∂/∂e^β)·e^β, each thread summing its own points and the warp
+then summing its threads in a fixed order (:func:`lane_sum`).  That order
+is not the JAX kernel's, so the port agrees with JAX's K2 to float32
+reassociation.  The covariate model's network takes the age as
 a third input (the kinetics' 5th column): ∇nn has 41 entries, w1[o][2]'s
 being Σ_q dz1[o]·age, and ∇β is unchanged (``pallas_grad.py:457-471``).  The
 sum over individuals runs outside the kernel
@@ -50,6 +54,7 @@ from conditional_ude_tpu_torch.ops.rk4_cohort import (
 from conditional_ude_tpu_torch.ops.tsit5 import f32
 
 MAX_SUBSTEPS = 16
+WARP = 32          # threads that share a lane's evaluation points
 # above this many (restart × individual) lanes the restart kernel takes over
 # (``pallas_grad.py:550-553``)
 PACK_MAX_LANES = 131072
@@ -191,16 +196,29 @@ class PointNetwork:
         return torch.stack(g1 + g2 + g3, dim=-1), dh_eb
 
 
-def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
-                                kinetics, timepoints, substeps: int = 8,
-                                magnitudes: bool = False):
-    """Plain PyTorch version of the kernel over ``[R, N]`` lanes: per-lane
-    ``(sse[R, N], gnn[R, N, P], gb[R, N])``, the sums over the evaluation
-    points taken first to last as the kernel takes them.  It follows the
-    dtype of its tensors, so float64 inputs give a witness for the float32
-    routes.  With ``magnitudes`` it also returns the sums of the absolute
-    per-point terms of both gradients (``[R, N, P]``, ``[R, N]``): the scale
-    of a route's rounding error where the terms cancel."""
+def lane_sum(terms: list[torch.Tensor]) -> torch.Tensor:
+    """Σ of a lane's per-point terms ``terms[q][..., C]`` in the kernels'
+    order (``csrc/cude_grad.cuh``, ``warp_lane`` steps 4 and 5): thread t
+    adds points t, t + 32, t + 64, ... in increasing order to a sum that
+    starts at 0 (zero rows pad the points to a multiple of 32), then column
+    c of the 32 threads' sums is added over the threads 0..31 one after
+    another."""
+    acc = 0.0
+    for first in range(0, len(terms), WARP):
+        rows = torch.stack(terms[first:first + WARP], dim=-2)
+        acc = acc + torch.nn.functional.pad(
+            rows, (0, 0, 0, WARP - rows.shape[-2]))
+    total = acc[..., 0, :]
+    for k in range(1, WARP):
+        total = total + acc[..., k, :]
+    return total
+
+
+def lane_terms(net: MLP, nn_params, betas, glucose, data, kinetics,
+               timepoints, substeps: int = 8):
+    """The plain version's work before its sums over the evaluation points:
+    ``(sse[R, N], e^β[R, N], terms)``, where ``terms[q][R, N, P + 1]`` is
+    point q's hand VJP, ∇nn then the e^β cotangent."""
     consts = grid_constants(timepoints, substeps)
     _, j0, _, _ = _segments(timepoints, substeps)
     one_minus_w0, w0, inv_2s = consts[:3].tolist()
@@ -247,20 +265,33 @@ def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
     for r in res[1:]:
         sse = sse + r * r
 
-    # backward: adjoint weights, then one hand VJP per point
+    # backward: the adjoint weights, then one hand VJP per point
     wts = _adjoint_weights(consts, k0, k1, k2, res, n_seg, substeps)
-    grads = deb = None
-    mag = mag_b = 0.0
+    terms = []
     for dg, wq in zip(dgs, wts):
         contrib, dh_eb = mlp.vjp(dg, wq)
-        grads = contrib if grads is None else grads + contrib
-        deb = dh_eb if deb is None else deb + dh_eb
-        if magnitudes:
-            mag = mag + contrib.abs()
-            mag_b = mag_b + dh_eb.abs()
+        terms.append(torch.cat([contrib, dh_eb[..., None]], dim=-1))
+    return sse, eb, terms
+
+
+def lane_sse_and_grad_reference(net: MLP, nn_params, betas, glucose, data,
+                                kinetics, timepoints, substeps: int = 8,
+                                magnitudes: bool = False):
+    """Plain PyTorch version of the kernel over ``[R, N]`` lanes: per-lane
+    ``(sse[R, N], gnn[R, N, P], gb[R, N])`` with every sum in the kernel's
+    order; the sums over the evaluation points are :func:`lane_sum`'s.  It
+    follows the dtype of its tensors, so float64 inputs give a witness for
+    the float32 routes.  With ``magnitudes`` it also returns the sums of the
+    absolute per-point terms of both gradients (``[R, N, P]``, ``[R, N]``):
+    the scale of a route's rounding error where the terms cancel."""
+    sse, eb, terms = lane_terms(net, nn_params, betas, glucose, data,
+                                kinetics, timepoints, substeps)
+    total = lane_sum(terms)
     if magnitudes:
-        return sse, grads, deb * eb, mag, mag_b * eb
-    return sse, grads, deb * eb
+        mag = lane_sum([t.abs() for t in terms])
+        return (sse, total[..., :-1], total[..., -1] * eb, mag[..., :-1],
+                mag[..., -1] * eb)
+    return sse, total[..., :-1], total[..., -1] * eb
 
 
 def lane_sse_and_grad(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,

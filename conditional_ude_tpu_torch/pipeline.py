@@ -132,6 +132,8 @@ class PipelineResult:
     b_test: np.ndarray
     s_test: np.ndarray
     sse_test: np.ndarray
+    types_train: np.ndarray       # NGT / IGT / T2DM of each subject
+    types_test: np.ndarray
     spearman: dict[str, float]
     profile: Profile | None       # test cohort, [35, steps]
     census_test: dict[str, int]
@@ -159,6 +161,10 @@ class PipelineResult:
             "beta_bounds": list(self.bounds),
             "train_sse_mean": float(np.mean(self.sse_train)),
             "test_sse_mean": float(np.mean(self.sse_test)),
+            "train_sse_per_type": sse_per_type(self.types_train,
+                                               self.sse_train),
+            "test_sse_per_type": sse_per_type(self.types_test,
+                                              self.sse_test),
             "test_sse_median": float(np.median(self.sse_test)),
             "spearman": self.spearman,
             "beta_orientation": self.orientation,
@@ -169,6 +175,13 @@ class PipelineResult:
             **({"train_timings": self.training.timings}
                if self.training is not None else {}),
         }
+
+
+def sse_per_type(types: np.ndarray, sse: np.ndarray) -> dict[str, float]:
+    """Mean SSE of each NGT / IGT / T2DM class present
+    (``experiments/common.py:259-262``)."""
+    return {t: float(np.mean(sse[types == t])) for t in ("NGT", "IGT", "T2DM")
+            if (types == t).any()}
 
 
 def _counts(census: np.ndarray) -> dict[str, int]:
@@ -349,6 +362,7 @@ def _select_and_analyse(dev, exp: Experiment, model: CPeptideModel,
         best=best, val_objectives=objectives.cpu().numpy(),
         orientation=orientation, bounds=(float(lb), float(ub)),
         b_train=b_train, s_train=s_train, sse_train=sse_train,
-        b_test=b_test, s_test=s_test, sse_test=sse_test, spearman=corr,
+        b_test=b_test, s_test=s_test, sse_test=sse_test,
+        types_train=train.types, types_test=test.types, spearman=corr,
         profile=prof, census_test=census_test, delta_profile=prof_all,
         census_all=census_all, seconds=stage.seconds, **guarded)

@@ -336,3 +336,49 @@ def test_switch_takes_the_restart_kernel_above_the_lane_limit(card,
     monkeypatch.setattr(lane_grad, "PACK_MAX_LANES", 29)
     lane_grad.population_sse_and_grad(net, *args, 8)
     assert counts() == (before[0] + 1, before[1] + 1)
+
+
+def _assert_same(got, ref):
+    """Bit for bit, non-finite entries in the same places."""
+    torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("input_dims", [2, 3])
+@pytest.mark.parametrize("r,n", [(130, 13), (2304, 57)])
+def test_grad_kernels_equal_their_plain_versions_bit_for_bit(card, r, n,
+                                                             input_dims):
+    """K2 and K5 (K2c and K5c) each equal their plain versions bit for bit,
+    and K5 equals K2's lanes summed over the individuals 0..N-1 in order,
+    times 1/N: the warp's and the block's orders are written in the sources
+    and followed by the plain versions."""
+    net, args = _restarts(r, n, card, input_dims=input_dims)
+    lanes = lane_grad.lane_sse_and_grad(net, *args, 8)
+    for got, ref in zip(lanes,
+                        lane_grad.lane_sse_and_grad_reference(net, *args, 8)):
+        _assert_same(got, ref)
+    restart = population_grad.restart_sse_and_grad(net, *args, 8)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(restart[0][-1]))
+    for got, ref in zip(restart, population_grad.restart_sse_and_grad_reference(
+            net, *args, 8)):
+        _assert_same(got, ref)
+    inv_n = np.float32(1.0 / n)
+    mean = population_grad.sum_in_order(lanes[0]) * inv_n
+    _assert_same(restart[0], torch.where(torch.isfinite(mean), mean, torch.inf))
+    _assert_same(restart[1], population_grad.sum_in_order(lanes[1]) * inv_n)
+    _assert_same(restart[2], lanes[2] * inv_n)
+
+
+def test_restart_kernel_refuses_a_cohort_beyond_shared_memory(card):
+    """K5 keeps the cohort and a table of N rows in one block's shared
+    memory: 54,116 bytes at 57 subjects (above the 48 KB default, so the
+    launch opts in); the launch refuses a cohort past the card's 227 KB,
+    which the wrapper raises as ``ValueError``, with no fallback."""
+    net, args = _restarts(3, 57, card)
+    before = population_grad.launches
+    population_grad.restart_sse_and_grad(net, *args, 8)
+    assert population_grad.launches == before + 1
+    net, args = _restarts(3, 1000, card)
+    with pytest.raises(ValueError):
+        population_grad.restart_sse_and_grad(net, *args, 8)
+    assert population_grad.launches == before + 1

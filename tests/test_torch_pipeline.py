@@ -117,6 +117,27 @@ def test_reestimation(runs):
     assert abs(port.spearman["first_phase"] - ref["rho"]) < 0.05
 
 
+def test_sse_per_type(runs):
+    """``metrics()`` carries the mean SSE of each NGT/IGT/T2DM class, as
+    ``results/exp02_metrics.json`` does (``experiments/common.py:259-262``):
+    the port's own per-class means, and the JAX fits' within the SSE's
+    tolerance."""
+    port, ref = runs
+    m = port.metrics()
+    train, test = (s.subset(np.arange(N))
+                   for s in load_npz("artifacts/ohashi.npz"))
+    for split, types, sse in (("train", train.types, port.sse_train),
+                              ("test", test.types, port.sse_test)):
+        got = m[f"{split}_sse_per_type"]
+        assert set(got) == set(np.unique(types)) <= {"NGT", "IGT", "T2DM"}
+        for kind, value in got.items():
+            assert value == float(np.mean(sse[types == kind]))
+    for kind, value in m["test_sse_per_type"].items():
+        np.testing.assert_allclose(
+            value, ref["sse_test"][test.types == kind].mean(), rtol=1e-2)
+    json.dumps(m)
+
+
 def test_retrain_split_is_the_artifacts_split():
     """The flagship's seed rebuilds the fit/validation split the committed
     candidates were trained on (57 fit and 25 validation subjects)."""
