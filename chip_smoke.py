@@ -11,9 +11,10 @@
 2. holds each body against its plain PyTorch version on the card, at the
    main path's shape and at a ragged shape with random per-lane weights and
    one lane of huge weights (the covariate bodies with real ages):
-   K4 (cohort RK4) and K1 (population screen) at rtol 1e-5 / atol 1e-6,
-   K2 (value + gradient on packed lanes, a warp a lane) and K5 (value +
-   gradient per restart, a block a restart) bit for bit, K3 (adaptive
+   K4 (cohort RK4, a thread a lane) and K1 (population screen, a thread a
+   (restart, individual) lane), K2 (value + gradient on packed lanes, a
+   warp a lane) and K5 (value + gradient per restart, a block a restart)
+   bit for bit, K3 (adaptive
    Tsit5) with the same ``ok`` mask and rtol 2e-2 / atol 1e-3; K1c-K5c are
    the covariate bodies, held alike, and K1c-K4c must read the age: two
    cohorts that differ only in the age column give different results.  K1
@@ -28,10 +29,11 @@
    of each layout is held to a float64 witness, within 256 float32
    roundings of the row's largest sum of absolute terms;
 3. times each body and its plain version at the path's shape (CUDA events
-   around calls of the wrapper, the ``ms`` of the kernels line; K2 and K5
-   also on the device alone, ``device_ms``, by replaying a CUDA graph of
-   their calls), K2 also at K5's shape, and works out the bound of each
-   from its inputs;
+   around calls of the wrapper, the ``ms`` of the kernels line, and the
+   device alone, ``device_ms``, by replaying a CUDA graph of the calls), K2
+   also at K5's shape, K1 and K3 at the enlarged multi-start's, and works
+   out the bound of each from its inputs: K1 and K4 evaluate the network
+   at 69 points a lane (``csrc/cude_rk4.cuh``);
 4. runs the frozen path of exp02 (``run_frozen_pipeline``) at full width
    and checks it against the committed results, the SSE per NGT/IGT/T2DM
    class included; K4's launches are counted over it;
@@ -124,8 +126,22 @@ def rhs_flops(d: int) -> int:
     return mlp_flops(d) + 16      # + ΔG blend and the two-state kinetics
 
 
-def rk4_step_flops(d: int) -> int:
-    return 4 * rhs_flops(d) + 30
+# the network evaluations of one RK4 lane on the OGTT grid at 8 substeps:
+# the baseline and 2 x 8 + 1 points in each of the 4 segments
+RK4_POINTS = 1 + 4 * (2 * 8 + 1)
+
+
+def rk4_lane_work(d: int) -> tuple[int, int]:
+    """(float32 operations, transcendentals) of the least work of one RK4
+    lane on the OGTT grid: the network once at each of its 69 points (the
+    products of layer 1 with e^beta and the age taken once a lane; a point
+    adds its dG blend and takes the baseline off), 32 steps of the
+    kinetics at four stages and the stage arithmetic, e^beta and the
+    residuals."""
+    lane_const = 4 * (d - 1)
+    point = mlp_flops(d) - lane_const + 6
+    flops = RK4_POINTS * point + 32 * (4 * 10 + 30) + lane_const + 10
+    return flops, RK4_POINTS * MLP_SFU + 1
 
 
 def log(msg: str) -> None:
@@ -168,6 +184,14 @@ def same(outs, refs, what: str) -> None:
             o, r, rtol=0, atol=0, equal_nan=True,
             msg=lambda m, i=i: f"{what}: output {i} is not bit for bit: {m}")
     log(f"[kernel] {what}: bit for bit")
+
+
+def exact(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """``compare`` (which logs the error), then bit for bit: K1 and K4 do
+    their plain versions' operations in the same order."""
+    err = compare(out, ref, what)
+    same((out,), (ref,), what)
+    return err
 
 
 def compare_scaled(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
@@ -425,9 +449,9 @@ def main() -> None:
                 (grid[:, None] + centre[None, :]).reshape(-1),
                 expand(prof_cohort.glucose), expand(prof_cohort.cpeptide),
                 expand(prof_cohort.kinetics(with_age=with_age)))
-        err = compare(rk4_cohort.cohort_sse(net, *prof, tp, 8),
-                      rk4_cohort.cohort_sse_reference(net, *prof, tp, 8),
-                      f"K4{sfx} {chunk}")
+        err = exact(rk4_cohort.cohort_sse(net, *prof, tp, 8),
+                    rk4_cohort.cohort_sse_reference(net, *prof, tp, 8),
+                    f"K4{sfx} {chunk}")
         # ragged lane count, per-lane random weights and subjects, one lane
         # of huge weights on a rising glucose curve
         n_lanes = 1237
@@ -446,21 +470,24 @@ def main() -> None:
         if not bool(torch.isinf(out[-1])):
             raise AssertionError(f"K4{sfx}: the huge-weight lane's SSE is "
                                  "not inf")
-        err = max(err, compare(out, rk4_cohort.cohort_sse_reference(
+        err = max(err, exact(out, rk4_cohort.cohort_sse_reference(
             net, *k4_ragged, tp, 8), f"K4{sfx} ragged (1237 lanes)"))
         ms = cuda_ms(lambda: rk4_cohort.cohort_sse(net, *prof, tp, 8),
                      reps=20)
+        device = graph_ms(lambda: rk4_cohort.cohort_sse(net, *prof, tp, 8),
+                          reps=50)
         plain = cuda_ms(lambda: rk4_cohort.cohort_sse_reference(
             net, *prof, tp, 8), reps=3)
+        flops, sfu = rk4_lane_work(d)
         results["K4" + sfx] = dict(
-            err=err, ms=ms, plain=plain, shape=f"{chunk[:-1]}, {lanes} lanes)",
-            bound=bound(4 * (p + lanes * (12 + n_kin)),
-                        lanes * (32 * rk4_step_flops(d) + mlp_flops(d) + 10),
-                        lanes * (32 * 4 * MLP_SFU + MLP_SFU)))
+            err=err, ms=ms, device=device, plain=plain,
+            shape=f"{chunk[:-1]}, {lanes} lanes)",
+            bound=bound(4 * (p + lanes * (12 + n_kin)), lanes * flops,
+                        lanes * sfu))
 
         # -- K1: population screen --------------------------------------------
         nn_s, b_s = designs(4096, n_fit)
-        err = compare(
+        err = exact(
             rk4_population.population_sse(net, nn_s, b_s, *fit_args, 8),
             rk4_population.population_sse_reference(net, nn_s, b_s,
                                                     *fit_args, 8),
@@ -470,29 +497,33 @@ def main() -> None:
         if not bool(torch.isinf(out[-1])):
             raise AssertionError(f"K1{sfx}: the huge-weight restart's mean "
                                  "is not inf")
-        err = max(err, compare(out, rk4_population.population_sse_reference(
+        err = max(err, exact(out, rk4_population.population_sse_reference(
             net, *r_args, 8), f"K1{sfx} ragged (1237 x 8)"))
         # the retrain path's own shape: all 25,000 designs on the fit split
         g_full = 25_000
         nn_s, b_s = designs(g_full, n_fit)
-        err = max(err, compare(
+        err = max(err, exact(
             rk4_population.population_sse(net, nn_s, b_s, *fit_args, 8),
             rk4_population.population_sse_reference(net, nn_s, b_s,
                                                     *fit_args, 8),
             f"K1{sfx} path shape ({g_full} x {n_fit})"))
         ms = cuda_ms(lambda: rk4_population.population_sse(
             net, nn_s, b_s, *fit_args, 8), reps=5)
+        device = graph_ms(lambda: rk4_population.population_sse(
+            net, nn_s, b_s, *fit_args, 8), reps=10)
         plain = cuda_ms(lambda: rk4_population.population_sse_reference(
             net, nn_s, b_s, *fit_args, 8), reps=1)
-        solves = g_full * n_fit
-        # β (and the age) enter layer 1 only; their partials are hoisted
-        hoisted = 8 * (d - 1)
+
+        def k1_bound(g):
+            """Every (restart, individual) lane's least work; the mean of
+            each restart."""
+            flops, sfu = rk4_lane_work(d)
+            return bound(4 * (g * (p + n_fit + 1) + n_fit * (10 + n_kin)),
+                         g * n_fit * (flops + 1) + g, g * n_fit * sfu)
+
         results["K1" + sfx] = dict(
-            err=err, ms=ms, plain=plain, shape=f"{g_full} x {n_fit}",
-            bound=bound(4 * (g_full * (p + n_fit + 1) + n_fit * (10 + n_kin)),
-                        solves * (32 * (rk4_step_flops(d) - 4 * hoisted)
-                                  + hoisted + mlp_flops(d)),
-                        solves * (32 * 4 * MLP_SFU + MLP_SFU + 1)))
+            err=err, ms=ms, device=device, plain=plain,
+            shape=f"{g_full} x {n_fit}", bound=k1_bound(g_full))
 
         # -- K2: value + gradient ---------------------------------------------
         def k2_compare(args, what):
@@ -549,13 +580,15 @@ def main() -> None:
         err = max(err, e)
         ms = cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5(net, *k2_path),
                      reps=20)
+        device = graph_ms(lambda: tsit5_cohort.cohort_sse_tsit5(
+            net, *k2_path), reps=20)
         plain = cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5_reference(
             net, *k2_path), reps=1)
         steps = int(tsit5_cohort.cohort_sse_tsit5_reference(
             net, *k2_path, return_steps=True)[2].sum())
         step_flops = 6 * (rhs_flops(d) + 32) + 200
         results["K3" + sfx] = dict(
-            err=err, ms=ms, plain=plain,
+            err=err, ms=ms, device=device, plain=plain,
             shape=f"{r_path} x {n_fit}, {steps} steps in all",
             bound=bound(4 * (r_path * p + lanes * 2 + n_fit * (10 + n_kin))
                         + lanes,
@@ -730,10 +763,12 @@ def main() -> None:
         results["K3" + sfx]["err"] = max(results["K3" + sfx]["err"], e)
         ms = cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5(net, *k5_path),
                      reps=5)
-        wide["K3" + sfx] = dict(ms=ms, shape=f"{r_wide} x {n_fit}, {lanes} "
-                                "lanes", bound=None)
+        device = graph_ms(lambda: tsit5_cohort.cohort_sse_tsit5(
+            net, *k5_path), reps=5)
+        wide["K3" + sfx] = dict(ms=ms, device=device, shape=f"{r_wide} x "
+                                f"{n_fit}, {lanes} lanes", bound=None)
         nn_s, b_s = designs(XL_INITS, n_fit)
-        e = compare(
+        e = exact(
             rk4_population.population_sse(net, nn_s, b_s, *fit_args, 8),
             rk4_population.population_sse_reference(net, nn_s, b_s,
                                                     *fit_args, 8),
@@ -741,8 +776,11 @@ def main() -> None:
         results["K1" + sfx]["err"] = max(results["K1" + sfx]["err"], e)
         ms = cuda_ms(lambda: rk4_population.population_sse(
             net, nn_s, b_s, *fit_args, 8), reps=2)
-        wide["K1" + sfx] = dict(ms=ms, shape=f"{XL_INITS} x {n_fit}",
-                                bound=None)
+        device = graph_ms(lambda: rk4_population.population_sse(
+            net, nn_s, b_s, *fit_args, 8), reps=3)
+        wide["K1" + sfx] = dict(ms=ms, device=device,
+                                shape=f"{XL_INITS} x {n_fit}",
+                                bound=k1_bound(XL_INITS))
 
     def live_age_check() -> None:
         """Each covariate body on exp07's committed candidates and training

@@ -43,6 +43,7 @@ struct Grid {
   int j0;               // glucose knot left of t = 0
   float one_minus_w0;   // blend weights of glucose(0)
   float w0;
+  float inv_2s;         // 1 / (2 substeps): the spacing of cude_rk4.cuh's points
   Segment seg[kMaxTimepoints - 1];
 };
 
@@ -58,6 +59,8 @@ inline bool make_grid(const float* segments, int n_seg, int substeps, int j0,
   grid->j0 = j0;
   grid->one_minus_w0 = one_minus_w0;
   grid->w0 = w0;
+  // rounded once from double, as ops/lane_grad.py::grid_constants rounds it
+  grid->inv_2s = static_cast<float>(1.0 / (2.0 * substeps));
   for (int s = 0; s < n_seg; ++s) {
     const float* r = segments + 5 * s;
     grid->seg[s] = Segment{r[0], r[1], r[2], r[3], r[4]};

@@ -46,9 +46,11 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     KernelLibrary,
 )
 from conditional_ude_tpu_torch.ops.rk4_cohort import (
+    PointNetwork,
     _mlp_columns,
     _segments,
     check_restart_inputs,
+    point_dgs,
     require_contiguous,
 )
 from conditional_ude_tpu_torch.ops.tsit5 import f32
@@ -141,61 +143,6 @@ def _adjoint_weights(consts, k0, k1, k2, res, n_seg, substeps):
     return rows
 
 
-class PointNetwork:
-    """The canonical network on per-lane weight columns, evaluated point by
-    point at [ΔG, e^β(, age)] in the kernels' order of operations, with its
-    hand VJP (``csrc/cude_grad.cuh``, ``point_vjp``)."""
-
-    def __init__(self, layers, eb, extra):
-        (self.w1, self.b1), (self.w2, self.b2), (self.w3, self.b3) = layers
-        self.eb, self.extra = eb, extra
-
-    def forward(self, dg):
-        """Layer outputs ``(h1[4], h2[4], z3)`` at ΔG = ``dg``."""
-        h1 = []
-        for o in range(4):
-            acc = self.w1[o][0] * dg + self.w1[o][1] * self.eb
-            for w, x in zip(self.w1[o][2:], self.extra):
-                acc = acc + w * x
-            h1.append(torch.tanh(acc + self.b1[o]))
-        h2 = []
-        for o in range(4):
-            acc = self.w2[o][0] * h1[0]
-            for k in range(1, 4):
-                acc = acc + self.w2[o][k] * h1[k]
-            h2.append(torch.tanh(acc + self.b2[o]))
-        acc = self.w3[0][0] * h2[0]
-        for k in range(1, 4):
-            acc = acc + self.w3[0][k] * h2[k]
-        return h1, h2, acc + self.b3[0]
-
-    def __call__(self, dg):
-        z = self.forward(dg)[2]
-        return torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z)))
-
-    def vjp(self, dg, weight):
-        """``weight · ∂out/∂params`` stacked on a last axis ``[..., P]`` in
-        the flat layout, and ``weight · ∂out/∂e^β``; the forward is
-        recomputed."""
-        h1, h2, z3 = self.forward(dg)
-        dz3 = weight * (1.0 / (1.0 + torch.exp(-z3)))
-        g3 = [dz3 * h2[k] for k in range(4)] + [dz3]
-        dz2 = [dz3 * self.w3[0][k] * (1.0 - h2[k] * h2[k]) for k in range(4)]
-        g2 = [dz2[o] * h1[k] for o in range(4) for k in range(4)] + dz2
-        dz1 = []
-        for k in range(4):
-            dh = dz2[0] * self.w2[0][k]
-            for o in range(1, 4):
-                dh = dh + dz2[o] * self.w2[o][k]
-            dz1.append(dh * (1.0 - h1[k] * h1[k]))
-        g1 = [dz1[o] * x for o in range(4)
-              for x in [dg, self.eb] + self.extra] + dz1
-        dh_eb = dz1[0] * self.w1[0][1]
-        for o in range(1, 4):
-            dh_eb = dh_eb + dz1[o] * self.w1[o][1]
-        return torch.stack(g1 + g2 + g3, dim=-1), dh_eb
-
-
 def lane_sum(terms: list[torch.Tensor]) -> torch.Tensor:
     """Σ of a lane's per-point terms ``terms[q][..., C]`` in the kernels'
     order (``csrc/cude_grad.cuh``, ``warp_lane`` steps 4 and 5): thread t
@@ -220,24 +167,15 @@ def lane_terms(net: MLP, nn_params, betas, glucose, data, kinetics,
     ``(sse[R, N], e^β[R, N], terms)``, where ``terms[q][R, N, P + 1]`` is
     point q's hand VJP, ∇nn then the e^β cotangent."""
     consts = grid_constants(timepoints, substeps)
-    _, j0, _, _ = _segments(timepoints, substeps)
-    one_minus_w0, w0, inv_2s = consts[:3].tolist()
     n_seg = len(timepoints) - 1
     q_seg = 2 * substeps + 1
     eb = torch.exp(betas)                                         # [R, N]
     k0, k1, k2, c0 = (kinetics[:, i] for i in range(4))
     extra = [kinetics[:, 4]] if kinetics.shape[1] == 5 else []     # the age
     mlp = PointNetwork(_mlp_columns(nn_params, net), eb, extra)
-    g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
 
     # ΔG of every evaluation point [QT][N]; row 0 is the baseline ΔG = 0
-    dgs = [torch.zeros_like(g_at0)]
-    for s in range(n_seg):
-        gl, gr = glucose[:, s], glucose[:, s + 1]
-        for q in range(q_seg):
-            wq = np.float32(q) * np.float32(inv_2s)
-            dgs.append(f32(np.float32(1.0) - wq) * gl + f32(wq) * gr - g_at0)
-
+    dgs = point_dgs(glucose, timepoints, substeps)
     out = [mlp(dg) for dg in dgs]
     base = out[0]
     kc = k0 * c0

@@ -11,11 +11,19 @@ carry the age as a 5th column.  :func:`cohort_sse` launches the CUDA kernel in
 :func:`cohort_sse_reference`, the same arithmetic as plain tensor code, for
 CPU tensors.
 
+The production term does not depend on the state, so a lane evaluates its
+network only at the 1 + n_seg·(2·substeps + 1) points of
+:func:`point_dgs` (69 on the OGTT grid), the points of K2; each RK4 step
+takes three of them (:func:`rk4_point_sse`, shared with K1's plain version
+and ``csrc/cude_rk4.cuh``).
+
 The kernel is built by ``nvcc`` for ``sm_90a`` at first use into ``build/``
 at the repository root and bound with ``ctypes`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -65,8 +73,14 @@ def _segments(timepoints, substeps: int) -> tuple[np.ndarray, int, float, float]
     the t = 0 blend (j0, 1 − w0, w0) of the glucose interpolant.
 
     Computed in float64 and rounded once to float32, as the JAX kernel's
-    Python-float constants are.
+    Python-float constants are; kept per grid, so a call of a kernel's
+    wrapper does not build them again (the array is read-only).
     """
+    return _segments_of(tuple(float(t) for t in timepoints), int(substeps))
+
+
+@functools.lru_cache(maxsize=32)
+def _segments_of(timepoints: tuple[float, ...], substeps: int):
     ts = np.asarray(timepoints, np.float64)
     n_seg = ts.shape[0] - 1
     rows = []
@@ -76,7 +90,9 @@ def _segments(timepoints, substeps: int) -> tuple[np.ndarray, int, float, float]
         rows.append((t0, dt, 0.5 * dt, dt / 6.0, 1.0 / (t1 - t0)))
     j0 = int(np.clip(np.searchsorted(ts, 0.0, side="right") - 1, 0, n_seg - 1))
     w0 = float(np.clip((0.0 - ts[j0]) / (ts[j0 + 1] - ts[j0]), 0.0, 1.0))
-    return np.asarray(rows, np.float32), j0, float(np.float32(1.0 - w0)), w0
+    segs = np.asarray(rows, np.float32)
+    segs.flags.writeable = False
+    return segs, j0, float(np.float32(1.0 - w0)), w0
 
 
 def _mlp_rows(nn_params: torch.Tensor, net: MLP):
@@ -116,6 +132,123 @@ def _mlp_forward(layers, x):
     return h[0]
 
 
+class PointNetwork:
+    """The canonical network on per-lane weight columns, evaluated point by
+    point at [ΔG, e^β(, age)] in the kernels' order of operations
+    (``csrc/cude_mlp.cuh``, ``Mlp``), with its hand VJP
+    (``csrc/cude_grad.cuh``, ``point_vjp``)."""
+
+    def __init__(self, layers, eb, extra):
+        (self.w1, self.b1), (self.w2, self.b2), (self.w3, self.b3) = layers
+        self.eb, self.extra = eb, extra
+
+    def forward(self, dg):
+        """Layer outputs ``(h1[4], h2[4], z3)`` at ΔG = ``dg``."""
+        h1 = []
+        for o in range(4):
+            acc = self.w1[o][0] * dg + self.w1[o][1] * self.eb
+            for w, x in zip(self.w1[o][2:], self.extra):
+                acc = acc + w * x
+            h1.append(torch.tanh(acc + self.b1[o]))
+        h2 = []
+        for o in range(4):
+            acc = self.w2[o][0] * h1[0]
+            for k in range(1, 4):
+                acc = acc + self.w2[o][k] * h1[k]
+            h2.append(torch.tanh(acc + self.b2[o]))
+        acc = self.w3[0][0] * h2[0]
+        for k in range(1, 4):
+            acc = acc + self.w3[0][k] * h2[k]
+        return h1, h2, acc + self.b3[0]
+
+    def __call__(self, dg):
+        z = self.forward(dg)[2]
+        return torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z)))
+
+    def vjp(self, dg, weight):
+        """``weight · ∂out/∂params`` stacked on a last axis ``[..., P]`` in
+        the flat layout, and ``weight · ∂out/∂e^β``; the forward is
+        recomputed."""
+        h1, h2, z3 = self.forward(dg)
+        dz3 = weight * (1.0 / (1.0 + torch.exp(-z3)))
+        g3 = [dz3 * h2[k] for k in range(4)] + [dz3]
+        dz2 = [dz3 * self.w3[0][k] * (1.0 - h2[k] * h2[k]) for k in range(4)]
+        g2 = [dz2[o] * h1[k] for o in range(4) for k in range(4)] + dz2
+        dz1 = []
+        for k in range(4):
+            dh = dz2[0] * self.w2[0][k]
+            for o in range(1, 4):
+                dh = dh + dz2[o] * self.w2[o][k]
+            dz1.append(dh * (1.0 - h1[k] * h1[k]))
+        g1 = [dz1[o] * x for o in range(4)
+              for x in [dg, self.eb] + self.extra] + dz1
+        dh_eb = dz1[0] * self.w1[0][1]
+        for o in range(1, 4):
+            dh_eb = dh_eb + dz1[o] * self.w1[o][1]
+        return torch.stack(g1 + g2 + g3, dim=-1), dh_eb
+
+
+def point_dgs(glucose, timepoints, substeps: int) -> list[torch.Tensor]:
+    """ΔG ``[N]`` of every evaluation point of the lanes on ``glucose[N, K]``,
+    in the kernels' order: point 0 is the baseline ΔG = 0, then point j of
+    segment s (``1 + s·(2·substeps + 1) + j``) at w = j/(2·substeps) of the
+    segment, ``(1 − w)·g[s] + w·g[s + 1] − g(0)``; 1/(2·substeps) and each
+    blend weight are rounded once to float32, as the kernels round them."""
+    _, j0, one_minus_w0, w0 = _segments(timepoints, substeps)
+    inv_2s = np.float32(1.0 / (2.0 * substeps))
+    g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
+    dgs = [torch.zeros_like(g_at0)]
+    for s in range(len(timepoints) - 1):
+        gl, gr = glucose[:, s], glucose[:, s + 1]
+        for j in range(2 * substeps + 1):
+            w = np.float32(j) * inv_2s
+            dgs.append(float(np.float32(1.0) - w) * gl + float(w) * gr - g_at0)
+    return dgs
+
+
+def rk4_point_sse(mlp: PointNetwork, glucose, data, kinetics, timepoints,
+                  substeps: int) -> torch.Tensor:
+    """SSE per lane of the explicit RK4 solve, not yet mapped to ``inf``:
+    the plain version of ``csrc/cude_rk4.cuh``'s ``rk4_sse`` and
+    ``lane_sse``, shared by K1's and K4's plain versions.  ``mlp`` is
+    called once at each of :func:`point_dgs`, in increasing order as the
+    recursion reaches it; step i of a segment takes points 2i, 2i + 1 (its
+    stages 2 and 3) and 2i + 2.  The cohort tensors have the lanes'
+    individuals on their first axis; ``mlp``'s weights and e^β may add a
+    leading restart axis."""
+    segs = _segments(timepoints, substeps)[0]
+    dgs = point_dgs(glucose, timepoints, substeps)
+    q_seg = 2 * substeps + 1
+    k0, k1, k2, c0 = (kinetics[:, i] for i in range(4))
+    decay = -(k0 + k2)
+    inflow = k0 * c0
+    neg_k1 = -k1
+
+    def rhs(v1, v2, p):
+        return decay * v1 + k1 * v2 + inflow + p, neg_k1 * v2 + k2 * v1
+
+    base = mlp(dgs[0])
+    u1 = c0.expand_as(base)
+    u2 = (k2 / k1) * u1
+    sse = torch.square(u1 - data[:, 0])
+    for s, (_, dt, half, sixth, _) in enumerate(segs):
+        h, d_t, sx = float(half), float(dt), float(sixth)
+        bq = 1 + s * q_seg
+        pa = mlp(dgs[bq]) - base
+        for i in range(substeps):
+            pm = mlp(dgs[bq + 2 * i + 1]) - base
+            pe = mlp(dgs[bq + 2 * i + 2]) - base
+            a1, a2 = rhs(u1, u2, pa)
+            b1, b2 = rhs(u1 + h * a1, u2 + h * a2, pm)
+            c1, c2 = rhs(u1 + h * b1, u2 + h * b2, pm)
+            e1, e2 = rhs(u1 + d_t * c1, u2 + d_t * c2, pe)
+            u1 = u1 + sx * (a1 + 2.0 * b1 + 2.0 * c1 + e1)
+            u2 = u2 + sx * (a2 + 2.0 * b2 + 2.0 * c2 + e2)
+            pa = pe
+        sse = sse + torch.square(u1 - data[:, s + 1])
+    return sse
+
+
 def cohort_sse_reference(net: MLP, nn_params, betas, glucose, data, kinetics,
                          timepoints, substeps: int = 8) -> torch.Tensor:
     """Plain PyTorch version of the kernel, batched over lanes.
@@ -123,42 +256,9 @@ def cohort_sse_reference(net: MLP, nn_params, betas, glucose, data, kinetics,
     ``kinetics[L, 5]`` with an age column feeds age as the network's third
     input (the covariate model).
     """
-    with_age = kinetics.shape[-1] == 5
-    segs, j0, one_minus_w0, w0 = _segments(timepoints, substeps)
-    layers = _mlp_rows(nn_params, net)
-    eb = torch.exp(betas)
-    k0, k1, k2, c0 = (kinetics[:, i] for i in range(4))
-    extra = [kinetics[:, 4]] if with_age else []
-
-    base = _mlp_forward(layers, [torch.zeros_like(eb), eb] + extra)
-    g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
-    decay = -(k0 + k2)
-    inflow = k0 * c0
-    neg_k1 = -k1
-
-    u1 = c0
-    u2 = (k2 / k1) * c0
-    sse = torch.square(u1 - data[:, 0])
-    for s, (t0, dt, half, sixth, inv_span) in enumerate(segs):
-        gl, gr = glucose[:, s], glucose[:, s + 1]
-
-        def rhs(t, v1, v2):
-            w = (t - t0) * inv_span
-            dg = float(np.float32(1.0) - w) * gl + float(w) * gr - g_at0
-            prod = _mlp_forward(layers, [dg, eb] + extra) - base
-            return (decay * v1 + k1 * v2 + inflow + prod,
-                    neg_k1 * v2 + k2 * v1)
-
-        h, d_t, sx = float(half), float(dt), float(sixth)
-        for i in range(substeps):
-            t = t0 + np.float32(i) * dt
-            a1, a2 = rhs(t, u1, u2)
-            b1, b2 = rhs(t + half, u1 + h * a1, u2 + h * a2)
-            c1, c2 = rhs(t + half, u1 + h * b1, u2 + h * b2)
-            e1, e2 = rhs(t + dt, u1 + d_t * c1, u2 + d_t * c2)
-            u1 = u1 + sx * (a1 + 2.0 * b1 + 2.0 * c1 + e1)
-            u2 = u2 + sx * (a2 + 2.0 * b2 + 2.0 * c2 + e2)
-        sse = sse + torch.square(u1 - data[:, s + 1])
+    extra = [kinetics[:, 4]] if kinetics.shape[-1] == 5 else []
+    mlp = PointNetwork(_mlp_rows(nn_params, net), torch.exp(betas), extra)
+    sse = rk4_point_sse(mlp, glucose, data, kinetics, timepoints, substeps)
     return torch.where(torch.isfinite(sse), sse, torch.inf)
 
 
@@ -273,10 +373,9 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
     segs, j0, one_minus_w0, w0 = _segments(timepoints, substeps)
     lane_stride = nn_params.stride(0) if n_lanes > 1 else nn_params.shape[1]
     with torch.cuda.device(betas.device):
-        eb = torch.exp(betas)
         stream = torch.cuda.current_stream(betas.device).cuda_stream
         lib = kernel_age if net.input_dims == 3 else kernel
-        lib(nn_params.data_ptr(), lane_stride, eb.data_ptr(),
+        lib(nn_params.data_ptr(), lane_stride, betas.data_ptr(),
             glucose.data_ptr(), data.data_ptr(), kinetics.data_ptr(),
             out.data_ptr(), n_lanes, segs.ctypes.data_as(F32_PTR),
             segs.shape[0], substeps, j0, one_minus_w0, w0, stream)

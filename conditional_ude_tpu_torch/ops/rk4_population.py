@@ -5,13 +5,11 @@
 A restart is one network ``nn[P]`` and one β per individual.  For each
 restart the kernel solves every individual's c-peptide ODE with fixed-step
 RK4 over the shared observation grid, sums the SSEs over the individuals
-and returns their mean, ``inf`` where it is not finite.  β (and, for the
-covariate model's 3-input network, the age) enter only layer 1 of the
-network and do not change in time, so the partial pre-activations
-``(w1[o][1]·e^β + b1[o]) + w1[o][2]·age`` and the baseline network are
-computed once per individual (the JAX kernel's hoisting,
-``pallas_rk4.py:290-299``; the plain version hoists at the same place, so
-the two agree bit for bit).
+and returns their mean, ``inf`` where it is not finite.  Each (restart,
+individual) lane is K4's lane (``ops/rk4_cohort.py::rk4_point_sse``: the
+network at the 69 points of K2, the baseline ΔG = 0 once), and the sum over
+individuals runs first to last, so K1 is exactly the in-order mean of K4's
+lanes on the same inputs.
 
 :func:`population_sse` launches ``csrc/rk4_population.cu`` for CUDA
 tensors and runs :func:`population_sse_reference` for CPU tensors.
@@ -32,15 +30,20 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     KernelLibrary,
 )
 from conditional_ude_tpu_torch.ops.rk4_cohort import (
+    PointNetwork,
     _mlp_columns,
-    _mlp_forward,
     _segments,
     check_restart_inputs,
     kinetics_columns,
     require_contiguous,
+    rk4_point_sse,
 )
 
 SHARED_BYTES = 48 * 1024    # the cohort lives in static-limit shared memory
+# a block holds max(1, BLOCK_LANES // N) whole restarts: a copy of
+# csrc/rk4_population.cu's kRounds·kBlock, whose launch refuses the same
+# cohorts; the check below says so before the library is built
+BLOCK_LANES = 768
 
 # kernel launches since import (or since a caller reset them to 0): the
 # 2-input body and the 3-input (covariate) body
@@ -59,48 +62,11 @@ def population_sse_reference(net: MLP, nn_params, betas, glucose, data,
                              ) -> torch.Tensor:
     """Plain PyTorch version of the kernel over ``[G, N]`` lanes; the sum
     over individuals runs in the kernel's order, first to last."""
-    segs, j0, one_minus_w0, w0 = _segments(timepoints, substeps)
     n = betas.shape[1]
+    extra = [kinetics[:, 4]] if kinetics.shape[1] == 5 else []
     # per-restart weight columns [G, 1], broadcast over the individuals
-    (w1, b1), *rest = _mlp_columns(nn_params, net)
-    eb = torch.exp(betas)
-    k0, k1, k2, c0 = (kinetics[:, i] for i in range(4))
-
-    # hoisted: layer-1 β (and age) partials and the baseline network
-    s1 = [w1[o][1] * eb + b1[o] for o in range(len(w1))]
-    if kinetics.shape[1] == 5:
-        s1 = [s1[o] + w1[o][2] * kinetics[:, 4] for o in range(len(w1))]
-    base = _mlp_forward(rest, [torch.tanh(v) for v in s1])
-    g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
-    decay = -(k0 + k2)
-    inflow = k0 * c0
-
-    def production(dg):
-        return _mlp_forward(rest, [torch.tanh(w1[o][0] * dg + s1[o])
-                                   for o in range(len(w1))]) - base
-
-    u1 = c0.expand_as(eb)
-    u2 = (k2 / k1) * u1
-    sse = torch.square(u1 - data[:, 0])
-    for s, (t0, dt, half, sixth, inv_span) in enumerate(segs):
-        gl, gr = glucose[:, s], glucose[:, s + 1]
-
-        def rhs(t, v1, v2):
-            w = (t - t0) * inv_span
-            dg = float(np.float32(1.0) - w) * gl + float(w) * gr - g_at0
-            return (decay * v1 + k1 * v2 + inflow + production(dg),
-                    -k1 * v2 + k2 * v1)
-
-        h, d_t, sx = float(half), float(dt), float(sixth)
-        for i in range(substeps):
-            t = t0 + np.float32(i) * dt
-            a1, a2 = rhs(t, u1, u2)
-            b1_, b2_ = rhs(t + half, u1 + h * a1, u2 + h * a2)
-            c1, c2 = rhs(t + half, u1 + h * b1_, u2 + h * b2_)
-            e1, e2 = rhs(t + dt, u1 + d_t * c1, u2 + d_t * c2)
-            u1 = u1 + sx * (a1 + 2.0 * b1_ + 2.0 * c1 + e1)
-            u2 = u2 + sx * (a2 + 2.0 * b2_ + 2.0 * c2 + e2)
-        sse = sse + torch.square(u1 - data[:, s + 1])
+    mlp = PointNetwork(_mlp_columns(nn_params, net), torch.exp(betas), extra)
+    sse = rk4_point_sse(mlp, glucose, data, kinetics, timepoints, substeps)
     total = sse[:, 0]
     for i in range(1, n):
         total = total + sse[:, i]
@@ -138,7 +104,9 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
                        data=data, kinetics=kinetics)
     g, n = betas.shape
     k = glucose.shape[1]
-    if 4 * n * (2 * k + kinetics_columns(net)) > SHARED_BYTES:
+    # a block's shared memory: the cohort, then the SSE of each of its lanes
+    lanes = max(1, BLOCK_LANES // n) * n
+    if 4 * (n * (2 * k + kinetics_columns(net)) + lanes) > SHARED_BYTES:
         raise ValueError(f"a cohort of {n} individuals x {k} times does not "
                          f"fit the kernel's {SHARED_BYTES} bytes of shared "
                          "memory")

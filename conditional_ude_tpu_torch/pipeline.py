@@ -31,7 +31,11 @@ The stages, given candidate networks and their training β's:
    validation subject, and the candidate with the least summed objective;
 2. (β, σ) re-estimation on all training and all test subjects, bounds the
    selected candidate's training-β range ±10%, and the SSE back-converted
-   from the σ-NLL;
+   from the σ-NLL; the training and the test subjects are two fits, as in
+   the JAX experiment scripts (``experiments/common.py:227-228``,
+   ``experiments/exp02_xl.py:75-83``): one batch of both is not the same
+   fit in float32, since a row's gradient depends on the batch it is
+   computed in (``tests/test_torch_refit.py``);
 3. Spearman correlations of the oriented β with the clamp indices;
 4. the test-cohort likelihood profiles over [lb − 1, ub + 1] and their
    identifiability census (Cantelli-95 for exp02, Raue-95 for exp07);
@@ -70,6 +74,7 @@ from conditional_ude_tpu_torch.fit.train import (
 )
 from conditional_ude_tpu_torch.models.cpeptide import (
     KINDS,
+    Cohort,
     CPeptideModel,
     build_cohort,
     production_orientation,
@@ -279,6 +284,19 @@ def run_training_pipeline(device: torch.device | str,
     return dataclasses.replace(result, training=trained)
 
 
+def refit_split(model: CPeptideModel, nn_params: torch.Tensor,
+                cohorts: tuple[Cohort, ...], bounds: tuple[float, float],
+                lbfgs_iters: int) -> tuple[np.ndarray, ...]:
+    """``fit_betas_sigma`` from β = −1 within ``bounds`` on each cohort
+    apart, as the JAX experiment scripts re-estimate the training and the
+    test subjects; ``(β, σ, objective)`` of all of them, in the cohorts'
+    order."""
+    fits = [fit_betas_sigma(model, nn_params, c, initial_beta=-1.0,
+                            bounds=(float(bounds[0]), float(bounds[1])),
+                            lbfgs_iters=lbfgs_iters) for c in cohorts]
+    return tuple(torch.cat(parts).cpu().numpy() for parts in zip(*fits))
+
+
 def _select_and_analyse(dev, exp: Experiment, model: CPeptideModel,
                         cand: torch.Tensor,
                         betas_np: np.ndarray, orientations: np.ndarray,
@@ -295,15 +313,14 @@ def _select_and_analyse(dev, exp: Experiment, model: CPeptideModel,
         best = select_best(objectives)
     both = OhashiSplit.concatenate(train, test)
     cohort_both = _cohort(both, dev)
+    split_cohorts = (_cohort(train, dev), _cohort(test, dev))
     n_t = train.timepoints.shape[0]
     n_train = len(train.ages)
 
     def refit(i: int, name: str):
         """(β, σ) re-estimation of all subjects on candidate ``i``: its
         gauge, its bounds (the training-β range ±10%), β, σ and the SSE
-        back-converted from the σ-NLL.  Training and test subjects go in
-        one batch: every individual is its own L-BFGS row, so this equals
-        two separate fits."""
+        back-converted from the σ-NLL, training subjects first."""
         if orientations.size:
             gauge = float(orientations[i])
         else:
@@ -313,9 +330,8 @@ def _select_and_analyse(dev, exp: Experiment, model: CPeptideModel,
         lb = bb.min() - 0.1 * abs(bb.min())
         ub = bb.max() + 0.1 * abs(bb.max())
         with stage(name):
-            b, s, o = (t.cpu().numpy() for t in fit_betas_sigma(
-                model, cand[i], cohort_both, initial_beta=-1.0,
-                bounds=(float(lb), float(ub)), lbfgs_iters=lbfgs_iters))
+            b, s, o = refit_split(model, cand[i], split_cohorts, (lb, ub),
+                                  lbfgs_iters)
         return gauge, lb, ub, b, s, (o - (n_t / 2) * np.log(s**2)) * (2 * s**2)
 
     nn_best = cand[best]

@@ -76,9 +76,7 @@ def test_kernel_matches_plain(card, n_lanes):
     ref = rk4_cohort.cohort_sse_reference(net, *args, TP, 8)
     torch.cuda.synchronize()
     assert bool(torch.isinf(out[-1]))
-    assert torch.equal(torch.isinf(out), torch.isinf(ref))
-    fin = torch.isfinite(ref)
-    torch.testing.assert_close(out[fin], ref[fin], rtol=1e-5, atol=1e-6)
+    _assert_same(out, ref)
 
 
 def test_shared_weights_stride0(card):
@@ -140,7 +138,7 @@ def _restarts(r, n, device, seed=5, input_dims=2):
                  kin[-n:].contiguous(), TP)
 
 
-@pytest.mark.parametrize("r,n", [(1, 1), (37, 8), (4096, 57)])
+@pytest.mark.parametrize("r,n", [(1, 1), (37, 8), (37, 57), (4096, 57)])
 def test_population_kernel_matches_plain(card, r, n):
     net, args = _restarts(r, n, card)
     before = rk4_population.launches
@@ -149,9 +147,27 @@ def test_population_kernel_matches_plain(card, r, n):
     ref = rk4_population.population_sse_reference(net, *args, 8)
     torch.cuda.synchronize()
     assert bool(torch.isinf(out[-1]))
-    assert torch.equal(torch.isinf(out), torch.isinf(ref))
-    fin = torch.isfinite(ref)
-    torch.testing.assert_close(out[fin], ref[fin], rtol=1e-5, atol=1e-6)
+    _assert_same(out, ref)
+
+
+@pytest.mark.parametrize("input_dims", [2, 3])
+def test_population_kernel_is_the_in_order_mean_of_cohort_lanes(card,
+                                                                input_dims):
+    """K1 (K1c) equals K4's (K4c's) lanes on the same (restart, individual)
+    pairs, summed over the individuals 0..N-1 in order and times 1/N, bit
+    for bit: both evaluate the network at the same 69 points."""
+    r, n = 37, 57
+    net, args = _restarts(r, n, card, input_dims=input_dims)
+    nn, betas, glucose, data, kin, _ = args
+    out = rk4_population.population_sse(net, *args, 8)
+    lanes = rk4_cohort.cohort_sse(
+        net, nn.repeat_interleave(n, 0), betas.reshape(-1),
+        glucose.repeat(r, 1), data.repeat(r, 1), kin.repeat(r, 1), TP, 8)
+    mean = population_grad.sum_in_order(lanes.reshape(r, n)) \
+        * np.float32(1.0 / n)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(out[-1]))
+    _assert_same(out, torch.where(torch.isfinite(mean), mean, torch.inf))
 
 
 @pytest.mark.parametrize("r,n", [(3, 5), (25, 57)])
@@ -206,12 +222,10 @@ def test_covariate_cohort_kernel_matches_plain(card, n_lanes):
     ref = rk4_cohort.cohort_sse_reference(net, *args, TP, 8)
     torch.cuda.synchronize()
     assert bool(torch.isinf(out[-1]))
-    assert torch.equal(torch.isinf(out), torch.isinf(ref))
-    fin = torch.isfinite(ref)
-    torch.testing.assert_close(out[fin], ref[fin], rtol=1e-5, atol=1e-6)
+    _assert_same(out, ref)
 
 
-@pytest.mark.parametrize("r,n", [(37, 8), (4096, 57)])
+@pytest.mark.parametrize("r,n", [(37, 8), (37, 57), (4096, 57)])
 def test_covariate_population_kernel_matches_plain(card, r, n):
     net, args = _restarts(r, n, card, input_dims=3)
     before = rk4_population.launches_age
@@ -220,9 +234,7 @@ def test_covariate_population_kernel_matches_plain(card, r, n):
     ref = rk4_population.population_sse_reference(net, *args, 8)
     torch.cuda.synchronize()
     assert bool(torch.isinf(out[-1]))
-    assert torch.equal(torch.isinf(out), torch.isinf(ref))
-    fin = torch.isfinite(ref)
-    torch.testing.assert_close(out[fin], ref[fin], rtol=1e-5, atol=1e-6)
+    _assert_same(out, ref)
 
 
 @pytest.mark.parametrize("r,n", [(3, 5), (25, 57)])

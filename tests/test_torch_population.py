@@ -80,9 +80,11 @@ def test_plain_matches_xla_population_loss(case):
 
 
 def test_mean_of_the_cohort_kernel_lanes(case):
-    """K1 is K4 over (restart × individual) lanes reduced by the mean, with
-    layer 1's β partials hoisted: the two agree to rounding."""
-    from conditional_ude_tpu_torch.ops import rk4_cohort
+    """K1 is K4 over (restart × individual) lanes reduced by the mean: the
+    two evaluate the network at the same points in the same order, so K1
+    equals K4's lanes summed over the individuals in order, times 1/N, bit
+    for bit."""
+    from conditional_ude_tpu_torch.ops import population_grad, rk4_cohort
 
     _, _, _, _, (nn, betas, glucose, data, kin) = case
     out = rk4_population.population_sse(chain(4, 2), nn, betas, glucose,
@@ -90,8 +92,9 @@ def test_mean_of_the_cohort_kernel_lanes(case):
     lanes = rk4_cohort.cohort_sse(
         chain(4, 2), nn[:, None].expand(G, N, 37).reshape(-1, 37),
         betas.reshape(-1), glucose.repeat(G, 1), data.repeat(G, 1),
-        kin.repeat(G, 1), TP, 8).reshape(G, N).mean(1)
-    torch.testing.assert_close(out[:-1], lanes[:-1], rtol=RTOL, atol=ATOL)
+        kin.repeat(G, 1), TP, 8).reshape(G, N)
+    mean = population_grad.sum_in_order(lanes) * np.float32(1.0 / N)
+    torch.testing.assert_close(out[:-1], mean[:-1], rtol=0, atol=0)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
