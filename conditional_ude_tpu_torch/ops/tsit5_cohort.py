@@ -13,12 +13,22 @@ differ in small ways from ``ops/tsit5.py`` (the glucose interpolant, the
 2-state error norm, the save-time test).  The covariate model's network
 takes the age (the kinetics' 5th column) as a third input at every stage.
 
+The production term does not depend on the state, so a step evaluates the
+network at its five stage times before it runs the stages (stage 7 takes
+stage 6's production: both are at t + dtc), and the glucose at a time comes
+from its one segment (:func:`glucose_at`).  Neither changes an operation:
+the SSE, ``ok`` and the steps equal the formulation they replaced (six
+right-hand sides in a chain, kept in ``tests/test_torch_tsit5_stages.py``)
+bit for bit, and agree with the JAX kernel within the JAX suite's rtol
+2e-2 (``tests/test_torch_tsit5.py``).
+
 :func:`cohort_sse_tsit5` launches ``csrc/tsit5_cohort.cu`` for CUDA tensors
 and runs :func:`cohort_sse_tsit5_reference` for CPU tensors.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -59,7 +69,16 @@ def constants(timepoints, rtol: float, atol: float) -> np.ndarray:
     as the JAX kernel's Python floats are: the tableau (c[7], a[7][6]
     lower-triangular, btilde[7]), the interpolant's 22 constants, the knots
     and spans of the glucose grid (padded to ``MAX_TIMEPOINTS``), then the
-    scalars below, in the order of ``struct Tsit5Consts`` in the kernel."""
+    scalars below, in the order of ``struct Tsit5Consts`` in the kernel.
+    Kept per (grid, rtol, atol), so a call of the wrapper does not build
+    them again (the array is read-only)."""
+    return _constants_of(tuple(float(t) for t in timepoints), float(rtol),
+                         float(atol))
+
+
+@functools.lru_cache(maxsize=32)
+def _constants_of(timepoints: tuple[float, ...], rtol: float,
+                  atol: float) -> np.ndarray:
     ts = np.asarray(timepoints, np.float64)
     k = ts.shape[0]
     t0, t1 = float(ts[0]), float(ts[-1])
@@ -81,9 +100,42 @@ def constants(timepoints, rtol: float, atol: float) -> np.ndarray:
         neg_beta1=-tableau.BETA1, beta2=tableau.BETA2,
         neg_inv_order=-1.0 / tableau.ORDER, h1_exp=1.0 / (tableau.ORDER + 1.0),
         fmin=tableau.FACTOR_MIN, fmax=tableau.FACTOR_MAX)
-    return np.concatenate([
+    out = np.concatenate([
         tableau._C, a.ravel(), tableau._BTILDE, tableau._INTERP, knots, spans,
         list(scalars.values())]).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+def glucose_grid(timepoints, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The glucose grid as float32 tensors on ``device``: the knots
+    ``[K - 1]`` (each segment's start) and spans ``[K - 1]``, each rounded
+    once from float64 (the kernel's ``knot`` and ``span``)."""
+    ts = np.asarray(timepoints, np.float64)
+    return (torch.as_tensor(ts[:-1].astype(np.float32), device=device),
+            torch.as_tensor(np.diff(ts).astype(np.float32), device=device))
+
+
+def glucose_at(t: torch.Tensor, glucose: torch.Tensor, knots: torch.Tensor,
+               spans: torch.Tensor) -> torch.Tensor:
+    """Glucose ``[R, N]`` of individuals ``glucose[N, K]`` at lane times
+    ``t[R, N]``, from one segment: j, the last with ``t >= knots[j]``,
+    blended as ``(1 - w)·g[j] + w·g[j + 1]`` with ``w = clip((t -
+    knots[j]) / spans[j], 0, 1)``, and ``g[0]`` below the first knot (or
+    at a NaN time).  This is the segment the JAX kernel's chain of
+    ``where(t >= knot[j], segment j, value)`` keeps, by the same
+    operations, so the value is the chain's bit for bit
+    (``tests/test_torch_tsit5_stages.py``); the kernel looks up the same
+    segment."""
+    j = torch.zeros(t.shape, dtype=torch.long, device=t.device)
+    for i in range(1, knots.shape[0]):
+        j = torch.where(t >= knots[i], i, j)
+    rows = glucose.expand(*t.shape, glucose.shape[-1])
+    g_lo = rows.gather(-1, j[..., None])[..., 0]
+    g_hi = rows.gather(-1, (j + 1)[..., None])[..., 0]
+    w = torch.clamp((t - knots[j]) / spans[j], 0.0, 1.0)
+    return torch.where(t >= knots[0], (1.0 - w) * g_lo + w * g_hi,
+                       glucose[:, 0])
 
 
 def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
@@ -91,8 +143,16 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
                                rtol: float = 1e-3, atol: float = 1e-6,
                                return_steps: bool = False):
     """Plain PyTorch version of the kernel over ``[R, N]`` lanes:
-    ``(sse[R, N], ok[R, N])``, and with ``return_steps`` the steps each
-    lane attempted (the work the kernel does on these inputs)."""
+    ``(sse[R, N], ok[R, N])``, and with ``return_steps`` also the steps
+    each lane attempted and the steps it accepted (the work the kernel
+    does on these inputs).
+
+    The network's input does not depend on the state, so an attempted step
+    first evaluates the production at its five stage times t + c_s·dtc,
+    s = 2..6, then runs the stages' 2-state recurrence on them: stage 7's
+    time t + dtc equals stage 6's (c6 = c7 = 1), so it takes stage 6's
+    production.  A lane evaluates the network 1 + 2 + 5·(attempted steps)
+    times: the baseline, Hairer's initial step, the steps."""
     ts = np.asarray(timepoints, np.float64)
     n_save = ts.shape[0]
     t0_f, t1_f = float(ts[0]), float(ts[-1])
@@ -106,25 +166,16 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
     A = [[f32(a) for a in row] for row in tableau._A]
     C = [f32(c) for c in tableau._C]
     BT = [f32(b) for b in tableau._BTILDE]
-
     # divisors as tensors: PyTorch on the card multiplies by the reciprocal
     # of a Python-number divisor, the kernel (and JAX) divide
-    spans = [torch.tensor(f32(ts[j + 1] - ts[j]), device=eb.device)
-             for j in range(n_save - 1)]
-
-    def g_at(t):
-        val = glucose[:, 0].expand_as(t)
-        for j in range(n_save - 1):
-            lo = f32(ts[j])
-            w = torch.clamp((t - lo) / spans[j], 0.0, 1.0)
-            seg = (1.0 - w) * glucose[:, j] + w * glucose[:, j + 1]
-            val = torch.where(t >= lo, seg, val)
-        return val
-
+    knots, spans = glucose_grid(timepoints, eb.device)
     g_at0 = one_minus_w0 * glucose[:, j0] + w0 * glucose[:, j0 + 1]
 
-    def rhs(t, v1, v2):
-        prod = _mlp_forward(layers, [g_at(t) - g_at0, eb] + extra) - base
+    def production(t):
+        dg = glucose_at(t, glucose, knots, spans) - g_at0
+        return _mlp_forward(layers, [dg, eb] + extra) - base
+
+    def kinetics_rhs(v1, v2, prod):
         return (-(k0 + k2) * v1 + k1 * v2 + k0 * c0 + prod,
                 -k1 * v2 + k2 * v1)
 
@@ -135,7 +186,7 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
     u1 = c0.expand_as(eb)
     u2 = (k2 / k1) * c0.expand_as(eb)
     t = torch.full_like(eb, f32(t0_f))
-    f1a, f1b = rhs(t, u1, u2)
+    f1a, f1b = kinetics_rhs(u1, u2, production(t))
     s1 = f32(atol) + f32(rtol) * torch.abs(u1)
     s2 = f32(atol) + f32(rtol) * torch.abs(u2)
     d0 = rms2(u1, u2, s1, s2)
@@ -144,7 +195,7 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
     h0 = torch.where(small, f32(1e-6),
                      f32(0.01) * d0 / torch.where(d1 == 0, 1.0, d1))
     h0 = torch.clamp_max(h0, f32(0.1 * span))
-    f2a, f2b = rhs(t + h0, u1 + h0 * f1a, u2 + h0 * f1b)
+    f2a, f2b = kinetics_rhs(u1 + h0 * f1a, u2 + h0 * f1b, production(t + h0))
     d2 = rms2(f2a - f1a, f2b - f1b, s1, s2) / h0
     dmax = torch.maximum(d1, d2)
     h1 = torch.where(dmax <= f32(1e-15),
@@ -159,6 +210,7 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
     done = torch.zeros_like(eb, dtype=torch.bool)
     failed = torch.zeros_like(done)
     steps = torch.zeros_like(eb, dtype=torch.int32)
+    accepted = torch.zeros_like(steps)
     dt_min = f32(1e-10 * span)
     save = [(si, f32(ts[si])) for si in range(n_save)
             if not math.isclose(float(ts[si]), t0_f)]
@@ -169,20 +221,21 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
             break
         steps = steps + active.int()
         dtc = torch.clamp_min(torch.minimum(dt, f32(t1_f) - t), f32(1e-12 * span))
+        prods = [production(t + C[s] * dtc) for s in range(1, 6)]
         ka, kb = [f1a], [f1b]
         for s in range(1, 6):
             va, vb = u1, u2
             for j in range(s):
                 va = va + dtc * A[s][j] * ka[j]
                 vb = vb + dtc * A[s][j] * kb[j]
-            ra, rb = rhs(t + C[s] * dtc, va, vb)
+            ra, rb = kinetics_rhs(va, vb, prods[s - 1])
             ka.append(ra)
             kb.append(rb)
         ya, yb = u1, u2
         for j in range(6):
             ya = ya + dtc * A[6][j] * ka[j]
             yb = yb + dtc * A[6][j] * kb[j]
-        k7a, k7b = rhs(t + dtc, ya, yb)
+        k7a, k7b = kinetics_rhs(ya, yb, prods[4])
         ka.append(k7a)
         kb.append(k7b)
 
@@ -222,6 +275,7 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
                 yi = yi + dtc * bs[j] * ka[j]
             sse = torch.where(hit, sse + torch.square(yi - data[:, si]), sse)
 
+        accepted = accepted + upd.int()
         failed = failed | (active & ~accept & (dt_next < dt_min))
         done = done | (upd & reached_end)
         t = torch.where(upd, t_new, t)
@@ -234,7 +288,7 @@ def cohort_sse_tsit5_reference(net: MLP, nn_params, betas, glucose, data,
 
     ok = done & ~failed
     sse = torch.where(ok & torch.isfinite(sse), sse, torch.inf)
-    return (sse, ok, steps) if return_steps else (sse, ok)
+    return (sse, ok, steps, accepted) if return_steps else (sse, ok)
 
 
 def cohort_sse_tsit5(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
@@ -273,10 +327,9 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
     consts = constants(timepoints, rtol, atol)
     _, j0, _, _ = _segments(timepoints, 1)
     with torch.cuda.device(betas.device):
-        eb = torch.exp(betas)
         stream = torch.cuda.current_stream(betas.device).cuda_stream
         lib = kernel_age if net.input_dims == 3 else kernel
-        lib(nn_params.data_ptr(), eb.data_ptr(), glucose.data_ptr(),
+        lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
             data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
             ok.data_ptr(), r * n, n, consts.ctypes.data_as(F32_PTR),
             len(timepoints), j0, max_steps, stream)

@@ -3,7 +3,7 @@ shapes the paths give them:
 
     python3 scripts/time_kernels.py                # this repository
     python3 scripts/time_kernels.py --root DIR     # the package in DIR
-    python3 scripts/time_kernels.py --sass DIR     # + SASS counts of K1, K4
+    python3 scripts/time_kernels.py --sass DIR     # + SASS counts of K1, K3, K4
 
 ``--root`` imports ``conditional_ude_tpu_torch`` from DIR (for example an
 earlier commit unpacked with ``git archive``), which builds its own
@@ -17,8 +17,9 @@ subjects, real ages), both bodies (2 and 3 inputs) of:
   25 restarts, 5,472 the enlarged multi-start's default of 96, 131,328 the
   2,304 restarts at which the refinement switches to K5) and K5 at 2,304 ×
   57;
-- K1 at ``SCREENS`` × 57 (exp02's and exp02_xl's screens) and K3 at 25 × 57
-  (1,425 lanes, exp02's re-rank);
+- K1 at ``SCREENS`` × 57 (exp02's and exp02_xl's screens) and K3 at
+  ``RERANKS`` × 57 (1,425 lanes, exp02's re-rank; 5,472, the enlarged
+  multi-start's default of 96 restarts; 131,328, its re-rank at 2,304);
 - K4 at a census chunk (500 Δβ points × 117 subjects on the committed exp02
   network, 58,500 lanes) and a test-profile chunk (500 β points × 35
   subjects, 17,500 lanes), K4c at exp07's test-profile chunk on exp07's
@@ -29,13 +30,15 @@ subjects, real ages), both bodies (2 and 3 inputs) of:
 (the ``ms`` of ``chip_smoke.py``), ``device`` one replay of a CUDA graph of
 the same calls (its ``device_ms``), so the host's work is out of it.  The
 inputs come from fixed seeds, so two trees time the same work.  ``--sass
-DIR`` writes the SASS (``cuobjdump -sass``) of K1's and K4's libraries
-into DIR and counts, for each kernel body, its instructions, its MUFU
-(special-function unit) instructions, and the instructions of each loop
-that holds a MUFU instruction, innermost first (with a thread a lane, the
-innermost is an RK4 step: two network evaluations).  It checks nothing:
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the kernels to
-their plain versions.  The last line is a JSON object of the times.
+DIR`` writes the SASS (``cuobjdump -sass``) of K1's, K3's and K4's
+libraries into DIR and counts, for each kernel body, its instructions, its
+MUFU (special-function unit) instructions, and the instructions of each
+loop that holds a MUFU instruction, innermost first (with a thread a lane,
+K1's and K4's innermost is an RK4 step: two network evaluations; K3's are
+the save times an accepted step crosses, one division each, then an
+attempted step: five evaluations, the stages and the controller).  It
+checks nothing: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold
+the kernels to their plain versions.  The last line is a JSON object of the times.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ import torch
 RESTARTS = (25, 96, 225, 450, 900, 1152, 2304)   # × 57 lanes for K2
 K5_RESTARTS = 2304
 SCREENS = (25_000, 400_000)      # K1: exp02's and exp02_xl's designs
-REFINE = 25                      # K3: restarts of exp02's re-rank
+RERANKS = (25, 96, 2304)         # K3: restarts of the re-ranks
 CHUNK = 500                      # K4: grid points of a profile chunk
 
 
@@ -125,8 +128,9 @@ def main() -> None:
                         default=Path(__file__).resolve().parents[1],
                         help="the tree whose package is timed")
     parser.add_argument("--sass", type=Path, default=None,
-                        help="write the SASS of K1's and K4's libraries here "
-                             "and print its instruction counts")
+                        help="write the SASS of K1's, K3's and K4's "
+                             "libraries here and print its instruction "
+                             "counts")
     args = parser.parse_args()
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -236,9 +240,12 @@ def main() -> None:
             timed(f"K1{sfx} at {g} x {fit.n}",
                   lambda: rk4_population.population_sse(net, *a, 8),
                   10 if g < 100_000 else 3)
-        a = designs(REFINE, rng)
-        timed(f"K3{sfx} at {REFINE} x {fit.n} ({REFINE * fit.n} lanes)",
-              lambda: tsit5_cohort.cohort_sse_tsit5(net, *a), 20)
+        rng = np.random.default_rng(2709 + d)
+        for r in RERANKS:
+            a = designs(r, rng)
+            timed(f"K3{sfx} at {r} x {fit.n} ({r * fit.n} lanes)",
+                  lambda: tsit5_cohort.cohort_sse_tsit5(net, *a),
+                  20 if r < 500 else 5)
         for what in ("census chunk", "test profile chunk")[d - 2:]:
             a = profile_chunk(d, what == "census chunk")
             timed(f"K4{sfx} at the {what} ({a[1].shape[0]} lanes)",
@@ -249,7 +256,8 @@ def main() -> None:
 
         args.sass.mkdir(parents=True, exist_ok=True)
         tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
-        for kid, mod in (("K1", rk4_population), ("K4", rk4_cohort)):
+        for kid, mod in (("K1", rk4_population), ("K3", tsit5_cohort),
+                         ("K4", rk4_cohort)):
             path = mod.kernel.build()
             sass = subprocess.run([str(tool), "-sass", str(path)],
                                   capture_output=True, text=True,

@@ -134,7 +134,7 @@ def test_screen_population_is_the_mean_with_inf_for_failed_lanes(case):
 
 def test_steps_are_counted_and_capped(case):
     _, _, _, _, _, args = case
-    _, ok, steps = tsit5_cohort.cohort_sse_tsit5_reference(
+    _, ok, steps, _ = tsit5_cohort.cohort_sse_tsit5_reference(
         chain(4, 2), *args, max_steps=40, return_steps=True)
     assert int(steps.max()) <= 40 and bool((steps[ok] > 4).all())
 
