@@ -1,16 +1,30 @@
-"""Run the flagship experiment and print its metrics as one JSON line.
+"""Run one experiment of the package and print its metrics as one JSON line.
 
-    python -m conditional_ude_tpu_torch                 # frozen candidates, on the card
+    python -m conditional_ude_tpu_torch                 # exp02, frozen candidates, on the card
     python -m conditional_ude_tpu_torch --retrain       # train anew, then the same stages
     python -m conditional_ude_tpu_torch --covariate     # exp07: age as a third input
     python -m conditional_ude_tpu_torch --xl            # exp02_xl: 96 candidates, guarded selection
     python -m conditional_ude_tpu_torch --xl --retrain --inits 400000 --restarts 2304
+    python -m conditional_ude_tpu_torch --experiment exp01 [--retrain]   # the non-conditional UDE
+    python -m conditional_ude_tpu_torch --experiment exp03               # symbolic refits, Ohashi
+    python -m conditional_ude_tpu_torch --experiment exp04               # symbolic refits, Fujita
+    python -m conditional_ude_tpu_torch --experiment symreg_production   # the discovered equation
+    python -m conditional_ude_tpu_torch --out runs/exp02   # also write the metrics and outputs there
     python -m conditional_ude_tpu_torch --device cpu    # the plain versions, on the CPU
+
+With ``--out DIR`` the run writes its metrics (``<experiment>_metrics.json``)
+and its outputs into DIR: exp02's dose-response table
+(``ohashi_production.csv``), exp01's retrained networks
+(``ude_neural_parameters.npz``) and the symbolic fits (``symreg_fit.npz``,
+``symreg_external_fit.npz``, ``discovered_fit.npz``), in the JAX package's
+formats.  It never writes into the artifacts directory or ``results/``,
+which hold the JAX package's reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 from pathlib import Path
 
@@ -19,25 +33,65 @@ from conditional_ude_tpu_torch.pipeline import (
     SEED,
     run_frozen_pipeline,
     run_training_pipeline,
+    run_ude_pipeline,
 )
+from conditional_ude_tpu_torch.symbolic_pipeline import (
+    run_exp03,
+    run_exp04,
+    run_symreg_production,
+)
+from conditional_ude_tpu_torch.utils.checkpoint import save_checkpoint
 
-ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
+REPO = Path(__file__).resolve().parent.parent
+ARTIFACTS = REPO / "artifacts"
+SYMBOLIC = {"exp03": run_exp03, "exp04": run_exp04,
+            "symreg_production": run_symreg_production}
+
+
+def _out_dir(out: Path | None, artifacts: Path) -> Path | None:
+    """``out``, made, unless it is the reference's artifacts or results."""
+    if out is None:
+        return None
+    out = out.resolve()
+    if out in (artifacts.resolve(), (REPO / "results").resolve()):
+        raise SystemExit(f"--out {out}: that directory holds the JAX "
+                         "package's reference; name another")
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
+def _write_csv(path: Path, header: list[str], rows) -> None:
+    with path.open("w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        w.writerows([float(v) for v in row] for row in rows)
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--experiment", default="exp02",
+                   choices=["exp01", "exp02", *SYMBOLIC],
+                   help="exp02 (default; --covariate and --xl select exp07 "
+                        "and exp02_xl), exp01 (the non-conditional UDE), "
+                        "exp03, exp04 or symreg_production (the symbolic "
+                        "refits)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "kernels' plain versions)")
     p.add_argument("--artifacts", type=Path, default=ARTIFACTS,
-                   help="directory holding ohashi.npz and the trained "
-                        "candidates (cude_neural_parameters.npz, "
+                   help="directory holding ohashi.npz, fujita.npz and the "
+                        "trained candidates (cude_neural_parameters.npz, "
                         "cude_covariate_neural_parameters.npz, "
-                        "cude_neural_parameters_xl.npz)")
+                        "cude_neural_parameters_xl.npz, "
+                        "ude_neural_parameters.npz)")
+    p.add_argument("--out", type=Path, default=None,
+                   help="directory for the metrics and the outputs (none "
+                        "written without it)")
     p.add_argument("--lbfgs-iters", type=int, default=1000)
     p.add_argument("--retrain", action="store_true",
-                   help="train the candidates with train_conditional on the "
-                        "seed's fit split instead of loading them")
+                   help="train the candidates (exp02: train_conditional on "
+                        "the seed's fit split; exp01: train_ude on the mean "
+                        "training curve) instead of loading them")
     p.add_argument("--covariate", action="store_true",
                    help="the covariate model of experiment 07: the age as "
                         "the network's third input (combines with "
@@ -54,22 +108,57 @@ def main(argv=None) -> None:
                         "restart kernel")
     p.add_argument("--seed", type=int, default=SEED,
                    help="seed of the fit/validation split and the training "
-                        "designs (--retrain)")
+                        "designs (--retrain) and of exp02's sampled bands")
     args = p.parse_args(argv)
-    if args.retrain:
-        config = TrainConfig()
-        if args.xl:
-            config = TrainConfig(initial_guesses=args.inits,
-                                 selected_initials=args.restarts)
-        result = run_training_pipeline(args.device, args.artifacts,
-                                       seed=args.seed, config=config,
-                                       lbfgs_iters=args.lbfgs_iters,
-                                       covariate=args.covariate, xl=args.xl)
+    if args.experiment != "exp02" and (args.covariate or args.xl):
+        p.error("--covariate and --xl select variants of exp02")
+    if args.experiment in SYMBOLIC and args.retrain:
+        p.error(f"{args.experiment} has no --retrain: it fits every subject")
+    out = _out_dir(args.out, args.artifacts)
+
+    if args.experiment in SYMBOLIC:
+        res = SYMBOLIC[args.experiment](args.device, args.artifacts,
+                                        lbfgs_iters=args.lbfgs_iters)
+        metrics, name = res.metrics, args.experiment
+        if out is not None:
+            save_checkpoint(out / res.checkpoint, res.fits,
+                            metadata={"script": name})
+    elif args.experiment == "exp01":
+        res = run_ude_pipeline(args.device, args.artifacts,
+                               retrain=args.retrain, seed=args.seed,
+                               lbfgs_iters=args.lbfgs_iters)
+        metrics, name = res.metrics(), "exp01"
+        if out is not None and args.retrain:
+            save_checkpoint(out / "ude_neural_parameters.npz",
+                            {"nn_params": res.nn_params,
+                             "objectives": res.objectives},
+                            metadata={"script": "exp01",
+                                      "guesses": 10_000, "seed": args.seed})
     else:
-        result = run_frozen_pipeline(args.device, args.artifacts,
-                                     lbfgs_iters=args.lbfgs_iters,
-                                     covariate=args.covariate, xl=args.xl)
-    print(json.dumps(result.metrics()))
+        if args.retrain:
+            config = TrainConfig()
+            if args.xl:
+                config = TrainConfig(initial_guesses=args.inits,
+                                     selected_initials=args.restarts)
+            res = run_training_pipeline(args.device, args.artifacts,
+                                        seed=args.seed, config=config,
+                                        lbfgs_iters=args.lbfgs_iters,
+                                        covariate=args.covariate, xl=args.xl)
+        else:
+            res = run_frozen_pipeline(args.device, args.artifacts,
+                                      lbfgs_iters=args.lbfgs_iters,
+                                      covariate=args.covariate, xl=args.xl,
+                                      seed=args.seed)
+        metrics = res.metrics()
+        name = "exp07" if args.covariate else "exp02_xl" if args.xl \
+            else "exp02"
+        if out is not None and res.dose_response is not None:
+            _write_csv(out / "ohashi_production.csv",
+                       ["Beta", "Glucose", "Production"], res.dose_response)
+    if out is not None:
+        (out / f"{name}_metrics.json").write_text(
+            json.dumps(metrics, indent=2))
+    print(json.dumps(metrics))
 
 
 if __name__ == "__main__":

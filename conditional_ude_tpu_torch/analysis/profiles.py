@@ -1,6 +1,8 @@
 """Likelihood profiles, confidence intervals, identifiability classification
 (counterpart of ``conditional_ude_tpu/analysis/profiles.py:46-242``).
 
+* ``likelihood_profile`` scans one scalar parameter of any batched loss
+  over a uniform grid: NLL = loss / (2σ²);
 * ``cohort_beta_profiles`` scans every individual's β over a uniform grid
   (or a shared Δβ axis around per-individual centres) and evaluates
   NLL = SSE / (2σ²); lanes are (grid point × individual) pairs, in grid
@@ -42,6 +44,8 @@ class Profile(NamedTuple):
 def fused_kernel_eligible(model: CPeptideModel) -> bool:
     """Whether K4 computes this model: the canonical network on [ΔG, e^β]
     or, for the covariate model, on [ΔG, e^β, age]."""
+    if model.kind not in ("conditional", "conditional_covariate"):
+        return False
     try:
         rk4_cohort.check_net_canonical(model.net)
     except ValueError:
@@ -49,16 +53,31 @@ def fused_kernel_eligible(model: CPeptideModel) -> bool:
     return True
 
 
-def cohort_beta_profiles(model: CPeptideModel, nn_params: torch.Tensor,
-                         cohort: Cohort, sigmas=1.0, lower: float = -4.0,
+def likelihood_profile(loss_fn, lower: float, upper: float,
+                       steps: int = 10_000, sigma=1.0,
+                       device: torch.device | str = "cpu") -> Profile:
+    """``loss_fn(grid[S]) -> [S]`` over ``linspace(lower, upper, steps)``
+    on ``device``, as NLL = loss / (2σ²) (``src/likelihood-profiles.jl
+    :19-32``); ``minimum`` is the least value of the scan."""
+    grid = torch.as_tensor(linspace(lower, upper, steps), device=device)
+    sig = torch.as_tensor(sigma, dtype=torch.float32, device=device)
+    values = loss_fn(grid) / (2.0 * sig**2)
+    return Profile(grid=grid, values=values, minimum=values.amin(-1))
+
+
+def cohort_beta_profiles(model: CPeptideModel,
+                         nn_params: torch.Tensor | None, cohort: Cohort,
+                         sigmas=1.0, lower: float = -4.0,
                          upper: float = 1.0, steps: int = 10_000,
                          chunk: int = 500, center=None,
-                         substeps: int = 8) -> Profile:
-    """β-profiles of every individual at once: ``values[N, S]``.
+                         substeps: int = 8, solver: str = "rk4") -> Profile:
+    """β-profiles of every individual at once: ``values[N, S]``; for the
+    analytic head (``nn_params`` None) the profiles of its θ.
 
     ``center[N]``: individual *i* is profiled at ``center[i] + grid``, so the
     grid is a shared Δβ axis (the identifiability census).  The scan runs in
-    chunks of ``chunk`` grid points.
+    chunks of ``chunk`` grid points, by RK4 at ``substeps`` or by Tsit5 at
+    the JAX defaults (``solver="tsit5"``, which K4 does not compute).
     """
     dev, n = cohort.device, cohort.n
     f32 = dict(dtype=torch.float32, device=dev)
@@ -66,7 +85,7 @@ def cohort_beta_profiles(model: CPeptideModel, nn_params: torch.Tensor,
     sig = torch.as_tensor(sigmas, **f32).expand(n)
     ctr = (torch.zeros(n, **f32) if center is None
            else torch.as_tensor(center, **f32))
-    fused = fused_kernel_eligible(model)
+    fused = solver == "rk4" and fused_kernel_eligible(model)
     if fused:
         kin = cohort.kinetics(with_age=model.with_age)
         nn_params = nn_params.contiguous()    # a row of a strided table
@@ -89,7 +108,7 @@ def cohort_beta_profiles(model: CPeptideModel, nn_params: torch.Tensor,
         else:
             with torch.no_grad():
                 sse_lanes = sse(model, nn_params, betas, cohort,
-                                substeps=substeps)
+                                substeps=substeps, solver=solver)
         parts.append(sse_lanes.T / (2.0 * sig[:, None] ** 2))
     values = torch.cat(parts, dim=1)
     return Profile(grid=grid, values=values, minimum=values.amin(1))

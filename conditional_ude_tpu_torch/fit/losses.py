@@ -1,9 +1,12 @@
 """Loss functions (counterpart of ``conditional_ude_tpu/fit/losses.py``).
 
-Batched over every lane: ``betas[..., N]`` gives losses ``[..., N]``.  A
-failed (non-finite) solve gives ``inf``.  ``solver`` is ``"rk4"`` (fixed
-steps, ``substeps`` per save segment) or ``"tsit5"`` (adaptive, at most
-``max_steps`` steps); both are plain tensor code, differentiable by autograd.
+Batched over every lane: ``betas[..., N]`` gives losses ``[..., N]``; the
+lanes are β, θ for the analytic head (``nn_params`` None), or None for the
+UDE head (``models/cpeptide.py::lanes``).  A failed (non-finite) solve
+gives ``inf``.  ``solver`` is ``"rk4"`` (fixed steps, ``substeps`` per save
+segment) or ``"tsit5"`` (adaptive, at most ``max_steps`` steps); both are
+plain tensor code, differentiable by autograd.  The JAX package's losses
+default to Tsit5 (its ``simulate``); these default to RK4.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from conditional_ude_tpu_torch.models.cpeptide import (
 )
 
 
-def sse(model: CPeptideModel, nn_params: torch.Tensor, betas: torch.Tensor,
+def sse(model: CPeptideModel, nn_params: torch.Tensor | None, betas,
         cohort: Cohort, substeps: int = 16, solver: str = "rk4",
         max_steps: int = 256) -> torch.Tensor:
     """Sum of squared errors on the plasma compartment; ``inf`` on failure."""
@@ -27,11 +30,13 @@ def sse(model: CPeptideModel, nn_params: torch.Tensor, betas: torch.Tensor,
     return torch.where(res.success, err, torch.inf)
 
 
-def sse_sigma(model: CPeptideModel, nn_params: torch.Tensor,
-              betas: torch.Tensor, sigmas: torch.Tensor, cohort: Cohort,
-              substeps: int = 16) -> torch.Tensor:
+def sse_sigma(model: CPeptideModel, nn_params: torch.Tensor | None,
+              betas, sigmas: torch.Tensor, cohort: Cohort,
+              substeps: int = 16, solver: str = "rk4",
+              max_steps: int = 256) -> torch.Tensor:
     """Gaussian NLL: (n/2)·log σ² + SSE/(2σ²)."""
-    err = sse(model, nn_params, betas, cohort, substeps=substeps)
+    err = sse(model, nn_params, betas, cohort, substeps=substeps,
+              solver=solver, max_steps=max_steps)
     n = cohort.timepoints.shape[0]
     return (n / 2.0) * torch.log(sigmas**2) + err / (2.0 * sigmas**2)
 

@@ -8,6 +8,10 @@
   ``ops/population_grad.py``, above 131,072 restart × individual lanes), and
   re-rank with adaptive Tsit5, K3 (``ops/tsit5_cohort.py``).  CUDA tensors
   launch the kernels; CPU tensors run their plain versions.
+* ``train_ude``: the non-conditional UDE on one series (experiment 01): a
+  screen of Glorot designs, the best refined by Adam then L-BFGS, every
+  restart a row; plain batched RK4 with autograd gradients, as the JAX
+  package takes them through XLA (no Pallas kernel computes this head).
 * ``fit_betas``, ``fit_betas_sigma``, ``evaluate_model``: with the network
   fixed, each individual's β (and σ) is re-estimated by the batched L-BFGS,
   every individual a row.  Gradients go through torch autograd on the plain
@@ -113,6 +117,10 @@ def _check_trainable(model: CPeptideModel, cfg: TrainConfig) -> None:
     chain(4, 2) on [ΔG, e^β] (or, for the covariate model, on [ΔG, e^β,
     age]), training with fixed-step RK4.  A kind that does not match the
     network's input count cannot be built (``CPeptideModel``)."""
+    if model.kind not in ("conditional", "conditional_covariate"):
+        raise NotImplementedError(
+            f"train_conditional trains the conditional heads, got "
+            f"{model.kind!r} (train_ude fits the 'ude' head)")
     if cfg.n_conditional != 1:
         raise NotImplementedError(
             f"train_conditional takes n_conditional=1 only, got "
@@ -239,6 +247,78 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
                        objectives=objs[order], screen_losses=screen,
                        loss_traces=adam.loss_trace[order],
                        orientations=orients[order], timings=timings)
+
+
+class UDETrainResult(NamedTuple):
+    """``train_ude``'s networks, best first (the JAX function returns the
+    first three)."""
+
+    nn_params: torch.Tensor      # [R, P]
+    objectives: torch.Tensor     # [R] SSE on the series
+    screen_losses: torch.Tensor  # [G] SSE of every design
+    timings: dict                # {"screen"/"adam"/"lbfgs": seconds}
+
+
+def train_ude(model: CPeptideModel, individual: Cohort, data,
+              initial_guesses: int = 10_000, selected_initials: int = 10,
+              adam_iters: int = 1000, lbfgs_iters: int = 1000,
+              adam_lr: float = 1e-2, substeps: int = 8,
+              screen_chunk: int = 4096,
+              generator: torch.Generator | None = None,
+              designs=None) -> UDETrainResult:
+    """The UDE head's network fitted to one series
+    (``src/parameter-estimation.jl:211-247``), on ``individual.device``.
+
+    ``individual`` is one row (``build_individual``) and ``data[T]`` its
+    c-peptide on ``individual.timepoints``.  ``initial_guesses`` Glorot
+    designs from ``generator`` (or ``designs[G, P]``, e.g. the JAX
+    package's ``init_batch``) are screened by RK4 SSE at ``substeps``; the
+    ``selected_initials`` best are refined by Adam, then L-BFGS, every
+    restart a row.
+    """
+    if model.kind != "ude":
+        raise ValueError(f"train_ude fits the 'ude' head, got {model.kind!r}")
+    dev = individual.device
+    series = dataclasses.replace(individual, cpeptide=torch.as_tensor(
+        np.asarray(data), dtype=torch.float32, device=dev).reshape(1, -1))
+    t0 = time.perf_counter()
+    if designs is None:
+        if generator is None:
+            generator = torch.Generator(device=dev)
+            generator.seed()
+        nn_inits = model.net.init_batch(initial_guesses, generator)
+    else:
+        nn_inits = torch.as_tensor(np.array(designs), dtype=torch.float32)
+    nn_inits = nn_inits.to(dev)
+
+    def loss(nn: torch.Tensor) -> torch.Tensor:
+        return sse(model, nn[:, None, :], None, series,
+                   substeps=substeps)[:, 0]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    chunk = nn_inits.shape[0] if dev.type == "cuda" else max(1, screen_chunk)
+    with torch.no_grad():
+        screen = torch.cat([loss(nn_inits[i:i + chunk])
+                            for i in range(0, nn_inits.shape[0], chunk)])
+    top = torch.argsort(torch.where(torch.isfinite(screen), screen, torch.inf),
+                        stable=True)[:selected_initials]
+    sync()
+    t1 = time.perf_counter()
+    adam = adam_minimize(lambda x: loss(x[0]), (nn_inits[top],),
+                         iters=adam_iters, lr=adam_lr)
+    sync()
+    t2 = time.perf_counter()
+    res = lbfgs_minimize(loss, adam.x[0], max_iters=lbfgs_iters)
+    sync()
+    t3 = time.perf_counter()
+    order = torch.argsort(torch.where(torch.isfinite(res.fval), res.fval,
+                                      torch.inf), stable=True)
+    return UDETrainResult(res.x[order], res.fval[order], screen,
+                          {"screen": t1 - t0, "adam": t2 - t1,
+                           "lbfgs": t3 - t2})
 
 
 def _initial(initial_beta, cohort: Cohort) -> torch.Tensor:

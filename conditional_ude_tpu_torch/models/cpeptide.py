@@ -1,24 +1,29 @@
-"""C-peptide kinetics with the conditional production head
-(counterpart of ``conditional_ude_tpu/models/cpeptide.py``).
+"""C-peptide kinetics and its four production heads (counterpart of
+``conditional_ude_tpu/models/cpeptide.py``).
 
 ODE (van Cauter two-compartment kinetics):
     du1 = -(k0 + k2)·u1 + k1·u2 + k0·c0 + production
     du2 = -k1·u2 + k2·u1
-    production = NN([ΔG(t), e^β]) − NN([0, e^β])
 with ΔG(t) = glucose(t) − glucose(0) from linear interpolation of the
-measured glucose, and the steady state u0 = [c0, (k2/k1)·c0].  The
-covariate model (``kind="conditional_covariate"``, experiment 07) feeds each
-individual's age as a third input: NN([ΔG, e^β, age]) − NN([0, e^β, age]).
+measured glucose, and the steady state u0 = [c0, (k2/k1)·c0].  The heads:
 
-A cohort is a set of tensors with the individual axis last; β may carry
-leading batch axes (candidate networks, profile grid points) in front of it.
-The port has the conditional and covariate heads; the analytic and UDE
-heads come with later slices.
+* ``"conditional"``: NN([ΔG, e^β]) − NN([0, e^β]), one β per individual;
+* ``"conditional_covariate"`` (experiment 07): the age as a third input,
+  NN([ΔG, e^β, age]) − NN([0, e^β, age]);
+* ``"ude"`` (experiment 01): NN([ΔG]) − NN([0]), nothing per individual;
+* ``"analytic"`` (the symbolic refits): ``fn(ΔG, θ)``, one scalar θ per
+  individual (the Michaelis constant k, the gate b).
+
+A cohort is a set of tensors with the individual axis last.  The lane
+tensor of a head (β, or θ) may carry leading batch axes (candidate
+networks, profile grid points) in front of it; the UDE head's lanes carry
+only the batch shape.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -52,24 +57,26 @@ class Cohort:
 
     ``timepoints`` is the shared measurement grid (host float32): glucose and
     c-peptide are both sampled on it, and the solvers step on it in lockstep.
+    An individual built from a curve (:func:`build_individual`) has no
+    c-peptide observations (``cpeptide`` is None) until a caller sets them.
     """
 
     glucose: torch.Tensor      # [N, T] mmol/L
-    cpeptide: torch.Tensor     # [N, T] nmol/L
+    cpeptide: torch.Tensor | None   # [N, T] nmol/L
     timepoints: np.ndarray     # [T] minutes
     age: torch.Tensor          # [N]
     k0: torch.Tensor           # [N]
     k1: torch.Tensor
     k2: torch.Tensor
-    c0: torch.Tensor           # [N] basal c-peptide (first sample)
+    c0: torch.Tensor           # [N] basal c-peptide
 
     @property
     def n(self) -> int:
-        return self.cpeptide.shape[0]
+        return self.glucose.shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.cpeptide.device
+        return self.glucose.device
 
     @property
     def u0(self) -> torch.Tensor:
@@ -100,51 +107,84 @@ def build_cohort(glucose, timepoints, cpeptide, ages, t2dm,
                   k0=k0, k1=k1, k2=k2, c0=cpeptide[:, 0].clone())
 
 
-# the network's input count of each production head
-KINDS = {"conditional": 2, "conditional_covariate": 3}
+def build_individual(glucose, glucose_t, age, c0, t2dm,
+                     device: torch.device | str) -> Cohort:
+    """A one-row cohort from one glucose curve ``glucose[T]`` on
+    ``glucose_t[T]``, with basal c-peptide ``c0`` as given (a mean curve or
+    a type-average individual has no c-peptide row of its own) and no
+    observations (``cpeptide`` None)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    ages = torch.as_tensor(np.float32(age), **f32).reshape(1)
+    k0, k1, k2 = van_cauter_parameters(
+        ages, torch.as_tensor([bool(t2dm)], device=device))
+    return Cohort(glucose=torch.as_tensor(np.asarray(glucose), **f32)[None],
+                  cpeptide=None,
+                  timepoints=np.asarray(glucose_t, np.float32), age=ages,
+                  k0=k0, k1=k1, k2=k2,
+                  c0=torch.as_tensor(np.float32(c0), **f32).reshape(1))
+
+
+# the network's input count of each production head (the analytic head has
+# no network)
+KINDS = {"analytic": 0, "ude": 1, "conditional": 2,
+         "conditional_covariate": 3}
 
 
 @dataclasses.dataclass(frozen=True)
 class CPeptideModel:
-    """Kinetics plus a conditional production head: ``net([ΔG, e^β])``
-    (``kind="conditional"``) or ``net([ΔG, e^β, age])``
-    (``kind="conditional_covariate"``)."""
+    """Kinetics plus a production head: ``net([ΔG, e^β])``
+    (``kind="conditional"``), ``net([ΔG, e^β, age])``
+    (``kind="conditional_covariate"``), ``net([ΔG])`` (``kind="ude"``) or
+    ``analytic_fn(ΔG, θ)`` (``kind="analytic"``, no network)."""
 
-    net: MLP
+    net: MLP | None
     kind: str = "conditional"
+    analytic_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None \
+        = None
 
     def __post_init__(self):
         if self.kind not in KINDS:
             raise ValueError(f"kind must be one of {sorted(KINDS)}, got "
                              f"{self.kind!r}")
-        if self.net.input_dims != KINDS[self.kind]:
+        if self.kind == "analytic":
+            if self.analytic_fn is None or self.net is not None:
+                raise ValueError("the analytic head takes analytic_fn and "
+                                 "no network")
+        elif self.net is None or self.net.input_dims != KINDS[self.kind]:
             raise ValueError(
                 f"a {self.kind!r} model needs a {KINDS[self.kind]}-input "
-                f"network, got input_dims={self.net.input_dims}")
+                f"network, got "
+                f"{None if self.net is None else self.net.input_dims}")
 
     @property
     def with_age(self) -> bool:
         """Whether the network takes the age as its third input."""
         return self.kind == "conditional_covariate"
 
-    def production(self, nn_params: torch.Tensor, betas: torch.Tensor,
+    def production(self, nn_params: torch.Tensor | None, betas: torch.Tensor,
                    age=None):
-        """``prod(dg)`` = NN([ΔG, e^β(, age)]) − NN([0, e^β(, age)]); the
-        baseline and e^β are computed once, outside the time loop.  ``age``
-        (broadcast against ``betas``) is required by the covariate model and
-        ignored otherwise."""
-        eb = torch.exp(betas)
+        """``prod(dg)`` of the head for the lanes ``betas[..., N]``:
+        NN([ΔG, e^β(, age)]) − NN([0, e^β(, age)]), NN([ΔG]) − NN([0]) (the
+        UDE head reads only the lanes' shape) or ``analytic_fn(ΔG, θ)`` with
+        θ the lanes.  The baseline and e^β are computed once, outside the
+        time loop.  ``age`` (broadcast against ``betas``) is required by the
+        covariate model and ignored otherwise."""
+        if self.kind == "analytic":
+            return lambda dg: self.analytic_fn(dg, betas)
         extra = []
+        if self.kind != "ude":
+            extra = [torch.exp(betas)]
         if self.with_age:
             if age is None:
                 raise ValueError("the covariate model needs the age")
-            extra = [torch.as_tensor(age, dtype=eb.dtype, device=eb.device)]
+            extra.append(torch.as_tensor(age, dtype=betas.dtype,
+                                         device=betas.device))
 
         def net(dg: torch.Tensor) -> torch.Tensor:
-            x = torch.broadcast_tensors(dg, eb, *extra)
-            return self.net.scalar(nn_params, torch.stack(x, dim=-1))
+            dg, _, *x = torch.broadcast_tensors(dg, betas, *extra)
+            return self.net.scalar(nn_params, torch.stack([dg, *x], dim=-1))
 
-        base = net(torch.zeros_like(eb))
+        base = net(torch.zeros_like(betas))
 
         def prod(dg: torch.Tensor) -> torch.Tensor:
             return net(dg) - base
@@ -205,21 +245,41 @@ class CPeptideModel:
         return self.vector_field(nn_params, betas, cohort, [t])(t, y)
 
 
-def simulate_cohort(model: CPeptideModel, nn_params: torch.Tensor,
-                    betas: torch.Tensor, cohort: Cohort, saveat=None,
+def lanes(nn_params: torch.Tensor | None, betas, cohort: Cohort) -> torch.Tensor:
+    """The lane tensor ``[..., N]`` of a solve on ``cohort``: β or θ in the
+    network's dtype (float32 for the analytic head unless θ is a tensor of
+    another), or, for the UDE head (``betas`` None), zeros of the batch
+    shape of ``nn_params[..., P]`` against the cohort."""
+    if betas is None:
+        shape = torch.broadcast_shapes(nn_params.shape[:-1], (cohort.n,))
+        return torch.zeros(shape, dtype=nn_params.dtype, device=cohort.device)
+    if nn_params is not None:
+        dtype = nn_params.dtype
+    else:
+        dtype = betas.dtype if isinstance(betas, torch.Tensor) \
+            else torch.float32
+    return torch.as_tensor(betas, dtype=dtype, device=cohort.device)
+
+
+def simulate_cohort(model: CPeptideModel, nn_params: torch.Tensor | None,
+                    betas, cohort: Cohort, saveat=None,
                     substeps: int = 16, solver: str = "rk4",
                     max_steps: int = 256, rtol: float = 1e-3,
                     atol: float = 1e-6) -> SolveResult:
     """Every lane from ``timepoints[0]``: fixed-step RK4 (``substeps`` per
     save segment) or adaptive Tsit5 (``solver="tsit5"``, at most
     ``max_steps`` steps, tolerances ``rtol``, ``atol``); ``ys[..., N, T,
-    2]`` in the dtype of ``nn_params``."""
+    2]`` in the lanes' dtype (:func:`lanes`: β, θ, or None for the UDE
+    head; ``nn_params`` None for the analytic head).
+
+    The JAX package's ``simulate_cohort`` defaults to Tsit5; this one to
+    RK4, so a caller that follows a JAX default names ``solver="tsit5"``.
+    """
     saveat = cohort.timepoints if saveat is None else saveat
-    betas = torch.as_tensor(betas, dtype=nn_params.dtype,
-                            device=cohort.device)
+    betas = lanes(nn_params, betas, cohort)
     t0 = cohort.timepoints[0]
     batch = torch.broadcast_shapes(betas.shape, (cohort.n,))
-    y0 = cohort.u0.expand(*batch, 2)
+    y0 = cohort.u0.to(betas.dtype).expand(*batch, 2)
     if solver == "tsit5":
         f = model.vector_field_lanes(nn_params, betas, cohort)
         res = solve_tsit5(f, y0, t0, np.asarray(saveat)[-1], saveat,
@@ -230,6 +290,21 @@ def simulate_cohort(model: CPeptideModel, nn_params: torch.Tensor,
     f = model.vector_field(nn_params, betas, cohort,
                            stage_times(saveat, t0, substeps))
     return solve_rk4(f, y0, saveat, t0=t0, substeps=substeps)
+
+
+def simulate(model: CPeptideModel, nn_params: torch.Tensor | None, betas,
+             individual: Cohort, saveat, solver: str = "tsit5",
+             **solver_kwargs) -> SolveResult:
+    """One individual's trajectories at ``saveat`` for the lanes
+    ``betas[...]`` (None for the UDE head): ``ys[..., T, 2]``, with the JAX
+    package's ``simulate`` default solver (Tsit5)."""
+    if individual.n != 1:
+        raise ValueError(f"simulate takes one individual, got {individual.n}")
+    if betas is not None:
+        betas = lanes(nn_params, betas, individual)[..., None]
+    res = simulate_cohort(model, nn_params, betas, individual, saveat,
+                          solver=solver, **solver_kwargs)
+    return SolveResult(ys=res.ys[..., 0, :, :], success=res.success[..., 0])
 
 
 def production_orientations(model: CPeptideModel, nn_params: torch.Tensor,

@@ -14,13 +14,37 @@ import torch
 from torch import nn
 
 
+class _Softplus(torch.autograd.Function):
+    """``max(x, 0) + log1p(exp(-|x|))`` with ``jax.nn.softplus``'s
+    derivative, ``exp(x − softplus(x))`` (``jnp.logaddexp``'s JVP): autograd
+    of the formula would give 1 at x = 0, where the derivative is 1/2, and
+    a network at a Glorot design (zero biases) evaluated at a zero input
+    has its head's pre-activation at exactly 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+
+        def finite(v):
+            return torch.where(torch.isinf(v), 0.0, v)
+
+        return grad * torch.exp(finite(x) - finite(out))
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``max(x, 0) + log1p(exp(-|x|))``, as ``jax.nn.softplus`` computes it.
+    """``max(x, 0) + log1p(exp(-|x|))``, as ``jax.nn.softplus`` computes it
+    and differentiates it.
 
     ``torch.nn.functional.softplus`` returns ``x`` itself above its threshold
     of 20, which breaks parity with the JAX head.
     """
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return _Softplus.apply(x)
 
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {

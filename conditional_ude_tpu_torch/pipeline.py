@@ -1,7 +1,8 @@
-"""The flagship experiment, its covariate variant and its enlarged
-multi-start end to end (counterpart of ``experiments/common.py:119-256``,
-``experiments/exp02_conditional.py``, ``experiments/exp07_covariate.py`` and
-``experiments/exp02_xl.py``).
+"""The flagship experiment, its covariate variant, its enlarged multi-start
+and the non-conditional baseline end to end (counterpart of
+``experiments/common.py:119-256``, ``experiments/exp02_conditional.py``,
+``experiments/exp07_covariate.py``, ``experiments/exp02_xl.py`` and
+``experiments/exp01_non_conditional.py``).
 
 Two paths share the stages after training:
 
@@ -39,13 +40,24 @@ The stages, given candidate networks and their training β's:
 3. Spearman correlations of the oriented β with the clamp indices;
 4. the test-cohort likelihood profiles over [lb − 1, ub + 1] and their
    identifiability census (Cantelli-95 for exp02, Raue-95 for exp07);
-5. exp02 only: the census over all subjects, each scanned over β̂ᵢ ± 10.
+5. exp02 only: the census over all subjects, each scanned over β̂ᵢ ± 10;
+6. exp02 only (frozen or retrained): the dose-response table of the
+   selected network for symbolic regression, the trajectories of each
+   type-average individual at β's drawn from the refit (their 5-95 % band
+   at 120 min), and the test MSE of the non-conditional UDE of exp01
+   (``ude_neural_parameters.npz``) against the cUDE's.
+
+``run_ude_pipeline`` is exp01: the UDE head's network fitted to the mean
+training curve (``train_ude`` with ``retrain``; else the committed
+``ude_neural_parameters.npz``), then every training and test subject's MSE
+with that one network, by Tsit5 at the JAX package's default tolerances.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import time
 from pathlib import Path
 
@@ -71,18 +83,28 @@ from conditional_ude_tpu_torch.fit.train import (
     fit_betas_sigma,
     select_best,
     train_conditional,
+    train_ude,
 )
 from conditional_ude_tpu_torch.models.cpeptide import (
     KINDS,
     Cohort,
     CPeptideModel,
     build_cohort,
+    build_individual,
     production_orientation,
+    simulate,
+    simulate_cohort,
 )
 from conditional_ude_tpu_torch.nn import chain
+from conditional_ude_tpu_torch.utils.checkpoint import load_checkpoint
 from conditional_ude_tpu_torch.utils.stats import spearman, stratified_split
 
 SEED = 270523   # the flagship's seed (experiments/exp02_conditional.py)
+TYPES = ("NGT", "IGT", "T2DM")
+UDE_WEIGHTS = "ude_neural_parameters.npz"   # exp01's committed candidates
+# the DOP853 scores of the reference's own UDE weights (exp01's anchor)
+UDE_GOLDEN = (Path(__file__).resolve().parent.parent / "tests" / "golden"
+              / "reference_parity_ude_golden.json")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +116,9 @@ class Experiment:
     ci_method: str         # threshold of the test-profile census
     census_all: bool       # whether the census over all subjects runs
     guarded: bool = False  # whether the guarded selection is reported too
+    # whether the dose-response table, the sampled bands and the UDE
+    # comparison are made (exp02 only)
+    outputs: bool = False
 
     def model(self) -> CPeptideModel:
         net = chain(4, 2, "tanh", input_dims=KINDS[self.kind])
@@ -101,13 +126,13 @@ class Experiment:
 
 
 EXP02 = Experiment("conditional", "cude_neural_parameters.npz", "cantelli95",
-                   census_all=True)
+                   census_all=True, outputs=True)
 EXP07 = Experiment("conditional_covariate",
                    "cude_covariate_neural_parameters.npz", "raue95",
                    census_all=False)
 EXP02_XL = dataclasses.replace(EXP02,
                                candidates="cude_neural_parameters_xl.npz",
-                               guarded=True)
+                               guarded=True, outputs=False)
 
 
 def _experiment(covariate: bool, xl: bool) -> Experiment:
@@ -151,6 +176,14 @@ class PipelineResult:
     guarded_best: int | None = None
     guarded_sse_test: np.ndarray | None = None
     guarded_spearman: float | None = None
+    # the selected candidate's training objective (from the candidates'
+    # file, or the retrain's Tsit5 re-rank)
+    objective_best: float | None = None
+    # exp02's outputs: the dose-response table [900, 3] (Beta = e^β,
+    # Glucose = ΔG, Production), the sampled bands and the UDE comparison
+    dose_response: np.ndarray | None = None
+    bands: dict | None = None
+    ude_vs_cude: dict | None = None
 
     def metrics(self) -> dict:
         """The exp02 metrics this path computes, as JSON-ready values."""
@@ -161,8 +194,15 @@ class PipelineResult:
                        "guarded_test_sse_mean": float(np.mean(fin)),
                        "guarded_test_sse_median": float(np.median(fin)),
                        "guarded_spearman_first_phase": self.guarded_spearman}
+        outputs = {}
+        if self.bands is not None:
+            outputs = {"ude_vs_cude": self.ude_vs_cude,
+                       "sampled_simulation_bands": self.bands}
         return {
             "best_model_index": self.best,
+            "objective_best": self.objective_best,
+            "train_seconds": (self.seconds.get("train")
+                              if self.training is not None else None),
             "beta_bounds": list(self.bounds),
             "train_sse_mean": float(np.mean(self.sse_train)),
             "test_sse_mean": float(np.mean(self.sse_test)),
@@ -176,16 +216,18 @@ class PipelineResult:
             "identifiability_census_test": self.census_test,
             "identifiability_census_all": self.census_all,
             "stage_seconds": self.seconds,
+            **outputs,
             **guarded,
-            **({"train_timings": self.training.timings}
-               if self.training is not None else {}),
+            # the port's own training (the frozen path trained nothing)
+            "train_timings": (self.training.timings
+                              if self.training is not None else None),
         }
 
 
 def sse_per_type(types: np.ndarray, sse: np.ndarray) -> dict[str, float]:
     """Mean SSE of each NGT / IGT / T2DM class present
     (``experiments/common.py:259-262``)."""
-    return {t: float(np.mean(sse[types == t])) for t in ("NGT", "IGT", "T2DM")
+    return {t: float(np.mean(sse[types == t])) for t in TYPES
             if (types == t).any()}
 
 
@@ -220,12 +262,14 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
                         profile_steps: int = 10_000,
                         census_steps: int = 1_000,
                         covariate: bool = False,
-                        xl: bool = False) -> PipelineResult:
+                        xl: bool = False, seed: int = SEED,
+                        band_samples: int = 500) -> PipelineResult:
     """Run the frozen path of exp02 (exp07 with ``covariate``, exp02_xl with
     ``xl``) on ``device``.
 
     ``candidates`` keeps the first candidates only and ``subjects`` the first
     subjects of the validation, training and test sets (reduced runs).
+    exp02's outputs draw ``band_samples`` β's a type from ``seed``.
     """
     exp = _experiment(covariate, xl)
     dev = torch.device(device)
@@ -233,8 +277,8 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
     train, test = load_npz(artifacts_dir / "ohashi.npz")
     nn_np, betas_np, idx_fit, orientations = load_candidates(
         artifacts_dir / exp.candidates)
-    if exp.guarded and np.any(np.diff(candidate_objectives(
-            artifacts_dir / exp.candidates)) < 0):
+    objectives = candidate_objectives(artifacts_dir / exp.candidates)
+    if exp.guarded and np.any(np.diff(objectives) < 0):
         raise ValueError(f"{exp.candidates}: the guarded selection needs "
                          "the candidates sorted best first")
     val = train.subset(np.setdiff1d(np.arange(len(train.ages)), idx_fit))
@@ -245,10 +289,16 @@ def run_frozen_pipeline(device: torch.device | str, artifacts_dir: str | Path,
         train, val, test = (s.subset(np.arange(min(subjects, len(s.ages))))
                             for s in (train, val, test))
     model = exp.model()
-    return _select_and_analyse(
-        dev, exp, model, params_from_jax(nn_np, model.net, dev), betas_np,
-        orientations, train, val, test, _Stages(dev), lbfgs_iters,
-        profile_steps, census_steps)
+    stage = _Stages(dev)
+    cand = params_from_jax(nn_np, model.net, dev)
+    result = _select_and_analyse(
+        dev, exp, model, cand, betas_np, orientations, train, val, test,
+        stage, lbfgs_iters, profile_steps, census_steps)
+    result.objective_best = float(objectives[result.best])
+    if exp.outputs:
+        _add_outputs(result, model, cand[result.best], train, test,
+                     artifacts_dir, seed, band_samples, stage)
+    return result
 
 
 def run_training_pipeline(device: torch.device | str,
@@ -258,7 +308,8 @@ def run_training_pipeline(device: torch.device | str,
                           profile_steps: int = 10_000,
                           census_steps: int = 1_000,
                           covariate: bool = False,
-                          xl: bool = False) -> PipelineResult:
+                          xl: bool = False,
+                          band_samples: int = 500) -> PipelineResult:
     """Run the retrain path of exp02 (exp07 with ``covariate``, exp02_xl
     with ``xl``, whose ``config`` carries the wider multi-start) on
     ``device``: the fit/validation split and the training designs from
@@ -281,7 +332,183 @@ def run_training_pipeline(device: torch.device | str,
         dev, exp, model, trained.nn_params, trained.betas.cpu().numpy(),
         trained.orientations.cpu().numpy(), train, train.subset(idx_val),
         test, stage, lbfgs_iters, profile_steps, census_steps)
-    return dataclasses.replace(result, training=trained)
+    result.training = trained
+    result.objective_best = float(trained.objectives[result.best])
+    if exp.outputs:
+        _add_outputs(result, model, trained.nn_params[result.best], train,
+                     test, Path(artifacts_dir), seed, band_samples, stage)
+    return result
+
+
+def dose_response(model: CPeptideModel, nn_params: torch.Tensor,
+                  b_train: np.ndarray, glucose: np.ndarray) -> np.ndarray:
+    """The network's production on a 30 × 30 grid of (β, ΔG): β at the
+    5-95 % quantiles of ``b_train``, ΔG from 0 to the largest glucose
+    excursion of ``glucose[N, T]``.  Rows ``[900, 3]`` (Beta = e^β,
+    Glucose, Production), β first (``experiments/exp02_conditional.py
+    :117-138``, the reference's ``data/ohashi_production.csv``)."""
+    beta_grid = np.quantile(b_train, np.linspace(0.05, 0.95, 30))
+    dg_grid = np.linspace(0.0, np.ptp(glucose, axis=1).max(), 30)
+    bb, gg = (a.ravel() for a in np.meshgrid(beta_grid, dg_grid,
+                                             indexing="ij"))
+    f32 = dict(dtype=torch.float32, device=nn_params.device)
+    with torch.no_grad():
+        prod = model.production(nn_params, torch.as_tensor(bb, **f32))(
+            torch.as_tensor(gg, **f32))
+    return np.stack([np.exp(bb), gg, prod.cpu().numpy()], axis=1)
+
+
+def sampled_bands(model: CPeptideModel, nn_params: torch.Tensor,
+                  betas: np.ndarray, split: OhashiSplit, seed: int,
+                  n_samples: int = 500) -> dict[str, dict[str, float]]:
+    """For each type, ``n_samples`` β's drawn with replacement from that
+    type's ``betas`` and the type-average individual simulated at each on
+    a 2-minute grid (RK4, 4 substeps): the mean, 5 % and 95 % of the
+    trajectories at the last time (``experiments/exp02_conditional.py
+    :140-198``).  One generator from ``seed`` draws for the types in
+    turn, as the JAX experiment script's does."""
+    rng = np.random.default_rng(seed)
+    tp = split.timepoints
+    dense_t = np.arange(tp[0], tp[-1] + 0.1, 2.0).astype(np.float32)
+    bands = {}
+    for t in TYPES:
+        sel = split.types == t
+        if not sel.any():
+            continue
+        ind = build_individual(split.glucose[sel].mean(axis=0), tp,
+                               float(split.ages[sel].mean()),
+                               float(split.cpeptide[sel, 0].mean()),
+                               t == "T2DM", nn_params.device)
+        sampled = rng.choice(betas[sel], size=n_samples, replace=True)
+        with torch.no_grad():
+            sols = simulate(model, nn_params, np.asarray(sampled, np.float32),
+                            ind, dense_t, solver="rk4",
+                            substeps=4).ys[..., 0].cpu().numpy()
+        bands[t] = {"mean_final": float(sols.mean(axis=0)[-1]),
+                    "p05_final": float(np.quantile(sols[:, -1], 0.05)),
+                    "p95_final": float(np.quantile(sols[:, -1], 0.95))}
+    return bands
+
+
+def ude_model() -> CPeptideModel:
+    """exp01's non-conditional UDE: chain(4, 2) on [ΔG], 33 weights."""
+    return CPeptideModel(chain(4, 2, "tanh", input_dims=1), "ude")
+
+
+def ude_mse(nn_params: torch.Tensor, split: OhashiSplit,
+            dev: torch.device) -> np.ndarray:
+    """Each subject's MSE with the UDE network ``nn_params[P]``, Tsit5 at
+    the JAX package's defaults (its ``simulate_cohort``)."""
+    with torch.no_grad():
+        res = simulate_cohort(ude_model(), nn_params, None,
+                              _cohort(split, dev), solver="tsit5")
+    return np.mean((res.ys[..., 0].cpu().numpy() - split.cpeptide) ** 2,
+                   axis=1)
+
+
+def _add_outputs(result: PipelineResult, model: CPeptideModel,
+                 nn_best: torch.Tensor, train: OhashiSplit,
+                 test: OhashiSplit, artifacts_dir: Path, seed: int,
+                 band_samples: int, stage: _Stages) -> None:
+    """exp02's outputs on the selected network: the dose-response table,
+    the sampled bands and, when exp01's weights are there, the UDE
+    comparison on the test subjects."""
+    with stage("outputs"):
+        result.dose_response = dose_response(model, nn_best, result.b_train,
+                                             train.glucose)
+        result.bands = sampled_bands(
+            model, nn_best, np.concatenate([result.b_train, result.b_test]),
+            OhashiSplit.concatenate(train, test), seed, band_samples)
+        path = artifacts_dir / UDE_WEIGHTS
+        if path.exists():
+            ude = load_checkpoint(path)[0]["nn_params"][0]
+            result.ude_vs_cude = ude_vs_cude(
+                params_from_jax(ude, ude_model().net, nn_best.device), test,
+                result.sse_test)
+
+
+def ude_vs_cude(ude_nn: torch.Tensor, test: OhashiSplit,
+                sse_test: np.ndarray) -> dict[str, float]:
+    """The test subjects' MSE with exp01's UDE network ``ude_nn[P]`` against
+    the cUDE's, from its refit SSEs (``experiments/exp02_conditional.py
+    :200-222``)."""
+    mse_ude = ude_mse(ude_nn, test, ude_nn.device)
+    mse_cude = sse_test / test.timepoints.shape[0]
+    return {"test_mse_ude_mean": float(mse_ude.mean()),
+            "test_mse_cude_mean": float(mse_cude.mean()),
+            "cude_better_fraction": float((mse_cude < mse_ude).mean())}
+
+
+@dataclasses.dataclass
+class UDEResult:
+    """exp01: the UDE network(s), best first, and each subject's MSE."""
+
+    nn_params: torch.Tensor       # [R, P]
+    objectives: np.ndarray        # [R] training SSE on the mean curve
+    mse_train: np.ndarray
+    mse_test: np.ndarray
+    types_train: np.ndarray
+    types_test: np.ndarray
+    seconds: dict[str, float]
+
+    def metrics(self) -> dict:
+        """exp01's metrics (``results/exp01_metrics.json``'s keys)."""
+        golden = None
+        if UDE_GOLDEN.exists():
+            g = json.loads(UDE_GOLDEN.read_text())
+            golden = {"mse_train_per_point": g["mse_train"],
+                      "mse_test_per_point": g["mse_test"],
+                      "source": g["source_weights"]}
+        return {
+            "objective_best": float(self.objectives[0]),
+            "train_mse_mean": float(self.mse_train.mean()),
+            "test_mse_mean": float(self.mse_test.mean()),
+            "train_mse_per_type": sse_per_type(self.types_train,
+                                               self.mse_train),
+            "test_mse_per_type": sse_per_type(self.types_test,
+                                              self.mse_test),
+            "reference_ude_weights_golden": golden,
+            "stage_seconds": self.seconds,
+        }
+
+
+def run_ude_pipeline(device: torch.device | str, artifacts_dir: str | Path,
+                     retrain: bool = False, seed: int = SEED,
+                     initial_guesses: int = 10_000,
+                     selected_initials: int = 10, adam_iters: int = 1000,
+                     lbfgs_iters: int = 1000) -> UDEResult:
+    """exp01 on ``device``: the UDE network fitted to the mean training
+    curve by ``train_ude`` (designs from ``seed``) with ``retrain``, else
+    the committed ``ude_neural_parameters.npz``; then every subject's MSE
+    with the best network."""
+    dev = torch.device(device)
+    artifacts_dir = Path(artifacts_dir)
+    train, test = load_npz(artifacts_dir / "ohashi.npz")
+    model = ude_model()
+    stage = _Stages(dev)
+    if retrain:
+        mean_c = train.cpeptide.mean(axis=0).astype(np.float32)
+        mean_ind = build_individual(train.glucose.mean(axis=0),
+                                    train.timepoints,
+                                    float(train.ages.mean()),
+                                    float(mean_c[0]), False, dev)
+        with stage("train"):
+            nn, objs, _, timings = train_ude(
+                model, mean_ind, mean_c, initial_guesses=initial_guesses,
+                selected_initials=selected_initials, adam_iters=adam_iters,
+                lbfgs_iters=lbfgs_iters,
+                generator=torch.Generator(device=dev).manual_seed(seed))
+        stage.seconds.update({f"train_{k}": v for k, v in timings.items()})
+        objs = objs.cpu().numpy()
+    else:
+        art = load_checkpoint(artifacts_dir / UDE_WEIGHTS)[0]
+        nn = params_from_jax(art["nn_params"], model.net, dev)
+        objs = np.asarray(art["objectives"])
+    with stage("evaluate"):
+        mse_train, mse_test = (ude_mse(nn[0], s, dev) for s in (train, test))
+    return UDEResult(nn_params=nn, objectives=objs, mse_train=mse_train,
+                     mse_test=mse_test, types_train=train.types,
+                     types_test=test.types, seconds=stage.seconds)
 
 
 def refit_split(model: CPeptideModel, nn_params: torch.Tensor,

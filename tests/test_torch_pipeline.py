@@ -170,7 +170,7 @@ def test_retrain_path_trains_on_the_fit_split(retrain):
     assert tr.nn_params.shape == (2, 37) and tr.betas.shape == (2, 57, 1)
     assert tr.screen_losses.shape == (64,)
     assert res.val_objectives.shape == (2, 25)
-    assert set(res.seconds) == {"train", "select", "refit"}
+    assert set(res.seconds) == {"train", "select", "refit", "outputs"}
     assert res.profile is None and res.census_all == {}
     assert res.b_train.shape == (82,) and res.b_test.shape == (35,)
     assert np.isfinite(res.sse_test).all()
@@ -200,5 +200,6 @@ def test_profiles_and_census(runs):
                                ref["delta"], rtol=2e-2)
     assert port.census_test == ref["census_test"]
     assert port.census_all == ref["census_all"]
-    assert set(port.seconds) == {"select", "refit", "profile_test", "census"}
+    assert set(port.seconds) == {"select", "refit", "profile_test", "census",
+                                 "outputs"}
     assert port.metrics()["best_model_index"] == ref["best"]
