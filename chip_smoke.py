@@ -20,7 +20,11 @@
    the covariate bodies, held alike, and K1c-K4c must read the age: two
    cohorts that differ only in the age column give different results.  K1
    and K3 are also held at the enlarged multi-start's shapes (400,000 x 57
-   designs, 131,328 lanes), where K3's bound counts that run's own steps.  K5 is held bit for bit against K2's lanes
+   designs, 131,328 lanes), where K3's bound counts that run's own steps,
+   and K1, K2 and K3 at the less-data ablation's (exp05): 10,000 designs
+   and 10 restarts on its smallest and largest cohorts (8 and 82 of the
+   committed training subjects; 80 and 820 lanes), the last design of huge
+   weights.  K5 is held bit for bit against K2's lanes
    summed over the individuals in order, at 2,304 x 57 and at the ragged
    shape, and against K2's packed route (``Tensor.sum`` over the
    individuals): two layouts of one function, equal up to the order of the
@@ -32,7 +36,8 @@
 3. times each body and its plain version at the path's shape (CUDA events
    around calls of the wrapper, the ``ms`` of the kernels line, and the
    device alone, ``device_ms``, by replaying a CUDA graph of the calls), K2
-   also at K5's shape, K1 and K3 at the enlarged multi-start's, and works
+   also at K5's shape, K1 and K3 at the enlarged multi-start's, K1, K2 and
+   K3 at exp05's, and works
    out the bound of each from its inputs: K1 and K4 evaluate the network
    at 69 points a lane (``csrc/cude_rk4.cuh``), K3 3 a lane and 5 an
    attempted step (``tsit5_evaluations``), and K3's entries add the longest
@@ -75,10 +80,19 @@
 13. runs the symbolic refits of exp03 (Ohashi), exp04 (Fujita) and
     exp_symreg_production (the discovered equation), held subject by
     subject to the committed fits.  No kernel computes these heads: 12
-    and 13 must launch none.  They are eager PyTorch, bound by the host's
-    launches, so they run in three child processes (this script with
-    ``--side``) started once the kernels are timed, beside 4-10; their
-    logs are printed after 10, and a child that fails fails the run.
+    and 13 must launch none;
+14. runs exp02_seeds at seeds 11 and 22 (exp02's retrain path at each,
+    held to exp02's retrain limits) and merges the two records;
+15. runs exp05, the less-data ablation, at ablation seed 0 and fractions
+    0.1, 0.5 and 1.0 (8, 41 and 82 training subjects), each row held to
+    the committed five-seed range of its test-SSE median widened by 10 %;
+    14 and 15 must launch K1, K2 and K3 and no other body;
+16. runs the replication runner over exp01 (frozen) at two seeds, one
+    child process a seed, held to the committed metrics.
+    12-16 are bound by the host, so they run in five child processes (this
+    script with ``--side``) started once the kernels are timed, beside
+    4-10; their logs are printed after 10, and a child that fails fails
+    the run.
 
 Every failure raises, so the exit code is non-zero; the children are
 killed when this process ends.  The last line is ``{"ok": true,
@@ -134,6 +148,8 @@ REPLACES = {"K4": "conditional_ude_tpu/ops/pallas_rk4.py:98",
 XL_INITS, XL_RESTARTS = 400_000, 2304
 XL_ADAM, XL_LBFGS = 1000, 1000     # exp02_xl retrain: the full step counts
 XLC_ADAM, XLC_LBFGS = 100, 50      # the covariate model at that width: cut
+# exp05's training: 10,000 designs screened, 10 restarts refined
+ABLATION_INITS, ABLATION_RESTARTS = 10_000, 10
 # exp01's retrain against the JAX package's own train_ude at full width on
 # the CPU at 20 seeds (``python tests/test_torch_ude.py``): best objective
 # 1.4e-14 to 1.908e-4, train MSE mean 0.5807 to 27.44, test 0.7848 to 4.003,
@@ -367,6 +383,7 @@ def main() -> None:
     if args.side:
         run_side(args.side.split(";"), Path(args.side_out))
         return
+    from conditional_ude_tpu_torch import ablation
     from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
     from conditional_ude_tpu_torch.fit.train import (
         TrainConfig,
@@ -582,12 +599,12 @@ def main() -> None:
         plain = cuda_ms(lambda: rk4_population.population_sse_reference(
             net, nn_s, b_s, *fit_args, 8), reps=1)
 
-        def k1_bound(g):
+        def k1_bound(g, n=n_fit):
             """Every (restart, individual) lane's least work; the mean of
             each restart."""
             flops, sfu = rk4_lane_work(d)
-            return bound(4 * (g * (p + n_fit + 1) + n_fit * (10 + n_kin)),
-                         g * n_fit * (flops + 1) + g, g * n_fit * sfu)
+            return bound(4 * (g * (p + n + 1) + n * (10 + n_kin)),
+                         g * n * (flops + 1) + g, g * n * sfu)
 
         results["K1" + sfx] = dict(
             err=err, ms=ms, device=device, plain=plain,
@@ -617,19 +634,22 @@ def main() -> None:
             net, *k2_path, 8), reps=50)
         plain = cuda_ms(lambda: lane_grad.lane_sse_and_grad_reference(
             net, *k2_path, 8), reps=3)
-        lanes = r_path * n_fit
         # the function's least work: one forward per point, then the VJP on
         # its stored activations (tanh' from h, one expf for the softplus'
         # sigmoid) and the accumulation; the kernel's second forward is its
         # own cost.  A 3rd input adds its 4 weight gradients.
         per_point = mlp_flops(d) + 95 + 38 + 8 * (d - 2)
+
+        def k2_bound(r, n):
+            lanes = r * n
+            return bound(4 * (r * p + lanes * (1 + 1 + p + 1)
+                              + n * (10 + n_kin)),
+                         lanes * (69 * per_point + 32 * 47 + 480),
+                         lanes * (69 * (MLP_SFU + 1) + 1))
+
         results["K2" + sfx] = dict(
             err=err, ms=ms, device=device, plain=plain,
-            shape=f"{r_path} x {n_fit}",
-            bound=bound(4 * (r_path * p + lanes * (1 + 1 + p + 1)
-                             + n_fit * (10 + n_kin)),
-                        lanes * (69 * per_point + 32 * 47 + 480),
-                        lanes * (69 * (MLP_SFU + 1) + 1)))
+            shape=f"{r_path} x {n_fit}", bound=k2_bound(r_path, n_fit))
 
         # -- K3: adaptive Tsit5 -----------------------------------------------
         def k3_compare(args, what):
@@ -665,7 +685,7 @@ def main() -> None:
                 max_lane_steps=int(steps.max()),
                 us_per_step=device * 1e3 / int(steps.max()),
                 shape=f"{r} x {n}, {lanes} lanes, {total} steps",
-                bound=bound(4 * (r * p + lanes * 2 + n_fit * (10 + n_kin))
+                bound=bound(4 * (r * p + lanes * 2 + n * (10 + n_kin))
                             + lanes,
                             *tsit5_work(d, lanes, total, int(accepted.sum()),
                                         int(ok.sum()), len(args[-1]))))
@@ -838,10 +858,7 @@ def main() -> None:
             net, *k5_path, 8), reps=20)
         wide["K2" + sfx] = dict(
             ms=ms, device=device, shape=f"{r_wide} x {n_fit}, {lanes} lanes",
-            bound=bound(4 * (r_wide * p + lanes * (1 + 1 + p + 1)
-                             + n_fit * (10 + n_kin)),
-                        lanes * (69 * per_point + 32 * 47 + 480),
-                        lanes * (69 * (MLP_SFU + 1) + 1)))
+            bound=k2_bound(r_wide, n_fit))
         # the wide paths' own shapes of K3 and K1: one launch over all
         # 131,328 lanes, one over all 400,000 designs
         e, ok, counts = k3_compare(k5_path, f"K3{sfx} wide re-rank shape "
@@ -862,6 +879,63 @@ def main() -> None:
         wide["K1" + sfx] = dict(ms=ms, device=device,
                                 shape=f"{XL_INITS} x {n_fit}",
                                 bound=k1_bound(XL_INITS))
+        if d == 2:
+            ablation_shapes(designs, k1_bound, k2_compare, k2_bound,
+                            k3_compare, k3_timed)
+
+    def ablation_shapes(designs, k1_bound, k2_compare, k2_bound, k3_compare,
+                        k3_timed) -> None:
+        """K1, K2 and K3 at exp05's shapes: its screen of 10,000 designs and
+        its 10 restarts on the smallest (8) and the largest (82) of its
+        cohorts, the subsets of ablation seed 0 from the committed rows,
+        the last design of huge weights; each bit for bit its plain
+        version, then timed."""
+        net = chain(4, 2)
+        drawn = ablation.subsets(train.types, SEED)
+        for frac in (0.1, 1.0):
+            sub = train.subset(drawn[frac][0])
+            c = build_cohort(sub.glucose, sub.timepoints, sub.cpeptide,
+                             sub.ages, sub.t2dm, dev)
+            n, c_args = c.n, (c.glucose, c.cpeptide, c.kinetics(), tp)
+            nn_s, b_s = designs(ABLATION_INITS, n)
+            nn_s[-1] = torch.as_tensor(huge_weights(2), **f32)
+            screen = (nn_s, b_s, *c_args)
+            out = rk4_population.population_sse(net, *screen, 8)
+            if not bool(torch.isinf(out[-1])):
+                raise AssertionError(f"K1 at {ABLATION_INITS} x {n}: the "
+                                     "huge-weight design's mean is not inf")
+            results["K1"]["err"] = max(results["K1"]["err"], exact(
+                out, rk4_population.population_sse_reference(net, *screen, 8),
+                f"K1 exp05 screen shape ({ABLATION_INITS} x {n})"))
+            ablation_times[f"K1 {n}"] = dict(
+                ms=cuda_ms(lambda: rk4_population.population_sse(
+                    net, *screen, 8), reps=5),
+                device=graph_ms(lambda: rk4_population.population_sse(
+                    net, *screen, 8), reps=10),
+                shape=f"{ABLATION_INITS} x {n}",
+                bound=k1_bound(ABLATION_INITS, n))
+            # the refinement's and the re-rank's 10 restarts: 9 designs and
+            # the huge one
+            r = ABLATION_RESTARTS
+            keep = torch.tensor([*range(r - 1), ABLATION_INITS - 1],
+                                device=dev)
+            refine = (nn_s[keep].contiguous(), b_s[keep].contiguous(), *c_args)
+            lanes = f"{r} x {n} = {r * n} lanes"
+            results["K2"]["err"] = max(results["K2"]["err"], k2_compare(
+                refine, f"K2 exp05 refine shape ({lanes})"))
+            ablation_times[f"K2 {n}"] = dict(
+                ms=cuda_ms(lambda: lane_grad.lane_sse_and_grad(
+                    net, *refine, 8), reps=50),
+                device=graph_ms(lambda: lane_grad.lane_sse_and_grad(
+                    net, *refine, 8), reps=50),
+                shape=lanes, bound=k2_bound(r, n))
+            e, ok, counts = k3_compare(refine,
+                                       f"K3 exp05 re-rank shape ({lanes})")
+            if bool(ok[-1].any()):
+                raise AssertionError(f"K3 at {lanes}: a subject of the "
+                                     "huge-weight restart did not fail")
+            results["K3"]["err"] = max(results["K3"]["err"], e)
+            ablation_times[f"K3 {n}"] = k3_timed(refine, ok, counts, 20)
 
     def live_age_check() -> None:
         """Each covariate body on exp07's committed candidates and training
@@ -896,6 +970,7 @@ def main() -> None:
             if differ == 0:
                 raise AssertionError(f"{kid} does not read the age")
 
+    ablation_times = {}     # K1, K2 and K3 at exp05's shapes
     kernel_phase(2)
     kernel_phase(3)
     live_age_check()
@@ -908,9 +983,10 @@ def main() -> None:
         return (f" ({r['device']:.4f} ms on the device, CUDA graph){plain}, "
                 f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}){steps}")
 
-    for kid, r in [*results.items(), *wide.items()]:
-        log(f"[time] {kid} at {r['shape']}: kernel {r['ms']:.4f} ms"
-            f"{notes(r)}  [{card}]")
+    for kid, r in [*results.items(), *wide.items(),
+                   *ablation_times.items()]:
+        log(f"[time] {kid.split()[0]} at {r['shape']}: kernel "
+            f"{r['ms']:.4f} ms{notes(r)}  [{card}]")
     if args.kernels_only:
         log(json.dumps({"ok": None, "partial": "kernels"}))
         return
@@ -1062,8 +1138,10 @@ def main() -> None:
         raise AssertionError("covariate wide training checks failed:\n  "
                              + "\n  ".join(failures))
 
-    # -- exp01 and the symbolic refits, run beside the paths above ------------
+    # -- the paths run beside the ones above ----------------------------------
     finish_side(side, t_start)
+    log(f"[time] whole script: {time.perf_counter() - t_start:.2f} s  "
+        f"[{card}]")
 
     log(json.dumps({"kernels": [{
         "name": library(kid).name,
@@ -1085,44 +1163,128 @@ def main() -> None:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
-# the paths that launch no kernel (exp01 and the symbolic refits: eager
-# PyTorch, host-bound) run in three child processes beside the main one,
-# one list each, started once the kernels are timed
+# the paths beside the main one run in child processes, one list each,
+# started once the kernels are timed: those that launch no kernel (exp01 and
+# the symbolic refits: eager PyTorch, host-bound), and the replication
+# experiments (exp02_seeds and exp05 train, so they launch K1, K2 and K3)
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04"),
         ("exp_symreg_production",),
-        tuple(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]))
+        tuple(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
+        ("exp02_seeds",),
+        ("exp05", "replicate"))
 SIDE_WAIT = 1150.0       # seconds from the start by which the children end
+SIDE_MARGIN = 100.0      # the children should end this much before SIDE_WAIT
+TRAINING_KERNELS = frozenset({"rk4_population", "lane_grad", "tsit5_cohort"})
+# exp02_seeds beside the main run: two of the JAX experiment script's five
+# seeds, then the merge of the two
+SEEDS_RUN = (11, 22)
+# exp05 beside the main run: ablation seed 0 at its smallest cohort, a
+# middle one and the fraction that holds nothing out, each held to the
+# committed five-seed range of its test-SSE median
+# (results/exp05_ablation.csv) widened by 10 %
+ABLATION_LIMITS = {0.1: (8, 0.1809, 0.3992), 0.5: (41, 0.1526, 0.2417),
+                   1.0: (82, 0.1672, 0.2732)}
+REPLICATE_SEEDS = (11, 22)
 
 
 def new_paths(dev):
-    """Name -> (run, check) of each path that launches no kernel."""
+    """Name -> (run, check, the kernels it must launch) of each path beside
+    the main one; every other kernel must launch 0 times."""
     from conditional_ude_tpu_torch.pipeline import SEED, run_ude_pipeline
     from conditional_ude_tpu_torch.symbolic_pipeline import (
         run_exp03,
         run_exp04,
         run_symreg_production,
     )
+    none = frozenset()
     retrains = {
         "exp01 retrain" + ("" if seed == SEED else f", seed {seed}"): (
             lambda seed=seed: run_ude_pipeline(dev, ARTIFACTS, retrain=True,
                                                seed=seed),
-            check_ude_retrain)
+            check_ude_retrain, none)
         for seed in UDE_SEEDS}
     return {
         "exp01 frozen": (lambda: run_ude_pipeline(dev, ARTIFACTS),
-                         check_ude_frozen),
+                         check_ude_frozen, none),
         **retrains,
-        "exp03": (lambda: run_exp03(dev, ARTIFACTS), check_exp03),
-        "exp04": (lambda: run_exp04(dev, ARTIFACTS), check_exp04),
+        "exp03": (lambda: run_exp03(dev, ARTIFACTS), check_exp03, none),
+        "exp04": (lambda: run_exp04(dev, ARTIFACTS), check_exp04, none),
         "exp_symreg_production": (
             lambda: run_symreg_production(dev, ARTIFACTS),
-            check_symreg_production)}
+            check_symreg_production, none),
+        "exp02_seeds": (lambda: run_seeds_path(dev), check_seeds_path,
+                        TRAINING_KERNELS),
+        "exp05": (lambda: run_ablation_path(dev), check_ablation_path,
+                  TRAINING_KERNELS),
+        "replicate": (lambda: run_replicate_path(dev), check_replicate_path,
+                      none)}
+
+
+def run_seeds_path(dev):
+    """exp02_seeds at ``SEEDS_RUN`` through the package's functions, as
+    ``--experiment exp02_seeds`` runs them, then the merge of their
+    records (under ``build/``)."""
+    import shutil
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch import seeds
+    from conditional_ude_tpu_torch.pipeline import run_training_pipeline
+    out = REPO / "build" / "chip_smoke_seeds"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    results, seconds = {}, {}
+    for s in SEEDS_RUN:
+        res = run_training_pipeline(dev, ARTIFACTS, seed=s, profile_steps=0,
+                                    census_steps=0)
+        record = seeds.seed_record(res, s)
+        seeds.seed_path(out, s).write_text(json.dumps(record, indent=2))
+        results[s] = (res, record)
+        seconds.update({f"seed {s} {k}": v for k, v in res.seconds.items()})
+        seconds.update({f"seed {s} train_{k}": res.training.timings[k]
+                        for k in ("screen", "adam", "lbfgs", "final_eval")})
+    return SimpleNamespace(results=results, seconds=seconds,
+                           summary=seeds.merge_directory(out))
+
+
+def run_ablation_path(dev):
+    """exp05 at ablation seed 0 and the fractions of ``ABLATION_LIMITS``,
+    each on its subset as the full sweep draws it."""
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch import ablation
+    from conditional_ude_tpu_torch.pipeline import SEED
+    fractions = tuple(ABLATION_LIMITS)
+    rows = ablation.run_ablation(dev, ARTIFACTS, SEED, n_seeds=1,
+                                 fractions=fractions)
+    return SimpleNamespace(
+        rows=rows, metrics=ablation.aggregate_ablation(rows, fractions),
+        seconds={f"fraction {r['fraction']}": r["seconds"] for r in rows})
+
+
+def run_replicate_path(dev):
+    """The replication runner over exp01 (frozen) at ``REPLICATE_SEEDS``:
+    one child process a seed, on ``dev`` (under ``build/``)."""
+    import shutil
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch import replicate
+    out = REPO / "build" / "chip_smoke_replicate"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    replicate.main(["--experiment", "exp01", "--seeds",
+                    *map(str, REPLICATE_SEEDS), "--out", str(out), "--",
+                    "--device", str(dev)])
+    return SimpleNamespace(
+        result=json.loads((out / "replicate_exp01.json").read_text()),
+        seconds={"children": time.perf_counter() - t0})
 
 
 def run_side(names: list[str], out: Path) -> None:
     """A child process: run ``names``, each with every kernel's count at 0
-    before it, and write each one's failures, kernel launches and seconds
-    to ``out`` (JSON) as it ends."""
+    before it, and write each one's failures, kernel launches, the kernels
+    it must launch, its seconds and the time it ended to ``out`` (JSON) as
+    it ends."""
+    from conditional_ude_tpu_torch.__main__ import launches
     from conditional_ude_tpu_torch.ops import (
         lane_grad,
         population_grad,
@@ -1139,7 +1301,7 @@ def run_side(names: list[str], out: Path) -> None:
     for name in names:
         for mod in mods:
             mod.launches = mod.launches_age = 0
-        run, check = paths[name]
+        run, check, kernels = paths[name]
         t0 = time.perf_counter()
         res = run()
         wall = time.perf_counter() - t0
@@ -1148,14 +1310,11 @@ def run_side(names: list[str], out: Path) -> None:
         for stage, sec in stages.items():
             log(f"[time] {name} stage {stage}: {sec:.2f} s  [{card}]")
         log(f"[time] {name} path total: {wall:.2f} s  [{card}]")
-        launched = {f"{mod.__name__.rsplit('.', 1)[1]}{tag}": count
-                    for mod in mods
-                    for tag, count in (("", mod.launches),
-                                       (" (3-input)", mod.launches_age))
-                    if count}
+        launched = launches()
         log(f"[path] kernel launches during {name}: {launched or 'none'}")
         report[name] = {"failures": check(res), "launches": launched,
-                        "seconds": wall}
+                        "must_launch": sorted(kernels), "seconds": wall,
+                        "ended": time.time()}
         if name.startswith("exp01 retrain"):
             report[name]["metrics"] = {
                 k: res.metrics()[k] for k in ("objective_best",
@@ -1175,6 +1334,8 @@ def start_side() -> list:
     """Start one child process for each list of ``SIDE``; each writes its
     log and its report under ``build/``."""
     import atexit
+    import os
+    import signal
     build = REPO / "build"
     build.mkdir(exist_ok=True)
     procs = []
@@ -1186,15 +1347,19 @@ def start_side() -> list:
             [sys.executable, str(Path(__file__).resolve()), "--side",
              ";".join(names), "--side-out", str(out)],
             cwd=REPO, stdout=logf.open("w"), stderr=subprocess.STDOUT,
-            preexec_fn=_die_with_parent)
+            preexec_fn=_die_with_parent, start_new_session=True)
         procs.append((proc, names, out, logf))
         log(f"[side] child {i} (pid {proc.pid}): {', '.join(names)}")
 
     def stop():
+        # each child leads a process group of its own, with the processes
+        # it starts (the replication runner's seeds)
         for proc, *_ in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
 
     atexit.register(stop)
     return procs
@@ -1202,15 +1367,19 @@ def start_side() -> list:
 
 def finish_side(procs: list, t_start: float) -> None:
     """Wait for the children, print their logs, and fail on any failure:
-    a child that did not end well, a path not run, a check that failed, or
-    a kernel launched."""
+    a child that did not end well, a path not run, a check that failed, a
+    kernel launched that the path must not launch, or one it must launch
+    that it did not."""
+    import os
+    import signal
     failures, retrains = [], []
+    epoch_start = time.time() - (time.perf_counter() - t_start)
     for i, (proc, names, out, logf) in enumerate(procs):
         try:
             rc = proc.wait(timeout=max(1.0, SIDE_WAIT
                                        - (time.perf_counter() - t_start)))
         except subprocess.TimeoutExpired:
-            proc.kill()
+            os.killpg(proc.pid, signal.SIGKILL)
             rc = proc.wait()
             failures.append(f"child {i} did not end in time")
         for line in logf.read_text().splitlines():
@@ -1224,8 +1393,13 @@ def finish_side(procs: list, t_start: float) -> None:
                 failures.append(f"{name} did not run to its end")
                 continue
             failures += [f"{name}: {f}" for f in got["failures"]]
-            if got["launches"]:
-                failures.append(f"{name} launched kernels: {got['launches']}")
+            ended = got["ended"] - epoch_start
+            log(f"[side] {name} ended {ended:.1f} s from the start (the "
+                f"children should end by {SIDE_WAIT - SIDE_MARGIN:.0f} s)")
+            if set(got["launches"]) != set(got["must_launch"]):
+                failures.append(f"{name} launched {got['launches'] or 'none'}"
+                                f"; it must launch {got['must_launch']} (each"
+                                " more than 0 times) and nothing else")
             if "metrics" in got:
                 retrains.append(got["metrics"])
     failures += check_ude_retrain_median(retrains)
@@ -1431,6 +1605,100 @@ def check_ude_retrain_median(draws: list[dict]) -> list[str]:
             f"(limits {lo}-{hi})")
         if not lo <= med <= hi:
             failures.append(f"exp01 retrain median {key} {med}")
+    return failures
+
+
+def check_seeds_path(res) -> list[str]:
+    """exp02_seeds at ``SEEDS_RUN``: each seed within exp02's retrain
+    limits (the JAX per-seed spread, ``check_retrain``), its record's
+    objective too, with a UDE comparison; the merge of the two records has
+    ``n_seeds`` 2, their seeds, and every ``beta_orientation`` 1.0 (the
+    gauge the records carry already gives a negative first-phase ρ)."""
+    failures = []
+    for s, (r, record) in res.results.items():
+        log(f"[check] exp02_seeds seed {s}: objective_best "
+            f"{record['objective_best']:.4f} (limit 0.30), test SSE mean "
+            f"{record['test_sse_mean']:.4f}, median "
+            f"{record['test_sse_median']:.4f}, spearman "
+            f"{record['spearman']}, best {record['best_model_index']}, "
+            f"train_seconds {record['train_seconds']:.2f}, ude_vs_cude "
+            f"{record['ude_vs_cude']}")
+        failures += [f"seed {s}: {f}" for f in check_trained(
+            r, 0.30, (0.41, 0.64), -0.77, "JAX per-seed 0.178-0.272")]
+        if not record["objective_best"] <= 0.30:
+            failures.append(f"seed {s}: objective_best "
+                            f"{record['objective_best']}")
+        if record["ude_vs_cude"] is None:
+            failures.append(f"seed {s}: no UDE comparison")
+    summary = res.summary
+    log(f"[check] exp02_seeds merge: n_seeds {summary['n_seeds']}, seeds "
+        f"{summary['seeds']}, beta_orientations "
+        f"{summary['beta_orientations']}; test SSE mean "
+        f"{summary['test_sse_mean']}; spearman first phase "
+        f"{summary['spearman.first_phase']}")
+    if (summary["n_seeds"], summary["seeds"], summary["beta_orientations"]) \
+            != (len(SEEDS_RUN), list(SEEDS_RUN), [1.0] * len(SEEDS_RUN)):
+        failures.append(f"merge {summary['n_seeds']} seeds "
+                        f"{summary['seeds']}, orientations "
+                        f"{summary['beta_orientations']}")
+    return failures
+
+
+def check_ablation_path(res) -> list[str]:
+    """exp05's rows at ``ABLATION_LIMITS``' fractions: the cohort's size,
+    a restart among the 10 (restart 0 at 1.0, which holds nothing out), a
+    finite training objective, every test subject's SSE finite, and the
+    test-SSE median inside the committed five-seed range widened by 10 %."""
+    failures = []
+    if [r["fraction"] for r in res.rows] != list(ABLATION_LIMITS):
+        failures.append(f"fractions {[r['fraction'] for r in res.rows]}")
+    for r in res.rows:
+        n, lo, hi = ABLATION_LIMITS[r["fraction"]]
+        log(f"[check] exp05 fraction {r['fraction']}: n_train {r['n_train']}"
+            f" (want {n}), selected restart {r['selected_restart']}, train "
+            f"objective {r['train_objective']:.4f}, test SSE median "
+            f"{r['test_sse_median']:.4f} (limits {lo}-{hi}), mean "
+            f"{r['test_sse_mean']:.4f}, inlier mean "
+            f"{r['test_sse_mean_inliers']:.4f}, outliers {r['n_outliers']}, "
+            f"non-finite {r['n_nonfinite']}, {r['seconds']} s")
+        if r["n_train"] != n:
+            failures.append(f"fraction {r['fraction']}: n_train "
+                            f"{r['n_train']}")
+        if not 0 <= r["selected_restart"] < ABLATION_RESTARTS or (
+                r["fraction"] == 1.0 and r["selected_restart"] != 0):
+            failures.append(f"fraction {r['fraction']}: selected restart "
+                            f"{r['selected_restart']}")
+        if not np.isfinite(r["train_objective"]) or r["n_nonfinite"]:
+            failures.append(f"fraction {r['fraction']}: train objective "
+                            f"{r['train_objective']}, {r['n_nonfinite']} "
+                            "non-finite test SSEs")
+        if not lo <= r["test_sse_median"] <= hi:
+            failures.append(f"fraction {r['fraction']}: test SSE median "
+                            f"{r['test_sse_median']}")
+    if res.metrics["n_seeds"] != 1:
+        failures.append(f"aggregate of {res.metrics['n_seeds']} seeds")
+    return failures
+
+
+def check_replicate_path(res) -> list[str]:
+    """The replication runner over exp01 (frozen): both seeds' metrics, and
+    their aggregate's train and test MSE means (min and max) within 3 % of
+    ``results/exp01_metrics.json``."""
+    rep = res.result
+    want = json.loads((REPO / "results" / "exp01_metrics.json").read_text())
+    failures = []
+    if (rep["script"], rep["seeds"], sorted(rep["per_seed"])) != (
+            "exp01", list(REPLICATE_SEEDS), sorted(map(str, REPLICATE_SEEDS))):
+        failures.append(f"replicate {rep['script']} seeds {rep['seeds']}")
+    for key in ("train_mse_mean", "test_mse_mean"):
+        agg = rep["aggregate"].get(key)
+        log(f"[check] replicate exp01 {key}: {agg}")
+        if agg is None:
+            failures.append(f"replicate exp01: no aggregate of {key}")
+            continue
+        for stat in ("min", "max"):
+            failures += within(agg[stat], want[key], 0.03,
+                               f"replicate exp01 {key} {stat}")
     return failures
 
 

@@ -9,16 +9,24 @@
     python -m conditional_ude_tpu_torch --experiment exp03               # symbolic refits, Ohashi
     python -m conditional_ude_tpu_torch --experiment exp04               # symbolic refits, Fujita
     python -m conditional_ude_tpu_torch --experiment symreg_production   # the discovered equation
+    python -m conditional_ude_tpu_torch --experiment exp02_seeds --out runs/seeds [--seeds 11 22 ...]
+    python -m conditional_ude_tpu_torch --experiment exp02_seeds --out runs/seeds --merge
+    python -m conditional_ude_tpu_torch --experiment exp05 --out runs/exp05 [--ablation-seeds 5]
     python -m conditional_ude_tpu_torch --out runs/exp02   # also write the metrics and outputs there
     python -m conditional_ude_tpu_torch --device cpu    # the plain versions, on the CPU
 
 With ``--out DIR`` the run writes its metrics (``<experiment>_metrics.json``)
 and its outputs into DIR: exp02's dose-response table
 (``ohashi_production.csv``), exp01's retrained networks
-(``ude_neural_parameters.npz``) and the symbolic fits (``symreg_fit.npz``,
-``symreg_external_fit.npz``, ``discovered_fit.npz``), in the JAX package's
-formats.  It never writes into the artifacts directory or ``results/``,
-which hold the JAX package's reference.
+(``ude_neural_parameters.npz``), the symbolic fits (``symreg_fit.npz``,
+``symreg_external_fit.npz``, ``discovered_fit.npz``), exp02_seeds' records
+(``exp02_seed_<s>.json``) and candidates
+(``seeds/cude_neural_parameters_<s>.npz``), and exp05's rows
+(``exp05_ablation.csv``), in the JAX package's formats.  It never writes
+into the artifacts directory or ``results/``, which hold the JAX package's
+reference.  exp02_seeds and exp05 always train; exp02_seeds prints one
+JSON line a seed.  Last, on the standard error, the kernels the run
+launched: ``{"launches": {module: count}}``.
 """
 
 from __future__ import annotations
@@ -26,9 +34,20 @@ from __future__ import annotations
 import argparse
 import csv
 import json
+import sys
 from pathlib import Path
 
+import torch
+
+from conditional_ude_tpu_torch import ablation, seeds
 from conditional_ude_tpu_torch.fit.train import TrainConfig
+from conditional_ude_tpu_torch.ops import (
+    lane_grad,
+    population_grad,
+    rk4_cohort,
+    rk4_population,
+    tsit5_cohort,
+)
 from conditional_ude_tpu_torch.pipeline import (
     SEED,
     run_frozen_pipeline,
@@ -46,16 +65,19 @@ REPO = Path(__file__).resolve().parent.parent
 ARTIFACTS = REPO / "artifacts"
 SYMBOLIC = {"exp03": run_exp03, "exp04": run_exp04,
             "symreg_production": run_symreg_production}
+EXPERIMENTS = ("exp01", "exp02", "exp02_seeds", "exp05", *SYMBOLIC)
 
 
-def _out_dir(out: Path | None, artifacts: Path) -> Path | None:
-    """``out``, made, unless it is the reference's artifacts or results."""
+def out_dir(out: Path | None, artifacts: Path) -> Path | None:
+    """``out``, made, unless it is, or lies in, the reference's artifacts
+    or results."""
     if out is None:
         return None
     out = out.resolve()
-    if out in (artifacts.resolve(), (REPO / "results").resolve()):
-        raise SystemExit(f"--out {out}: that directory holds the JAX "
-                         "package's reference; name another")
+    for ref in (artifacts.resolve(), (REPO / "results").resolve()):
+        if out == ref or ref in out.parents:
+            raise SystemExit(f"--out {out}: {ref} holds the JAX package's "
+                             "reference; name another directory")
     out.mkdir(parents=True, exist_ok=True)
     return out
 
@@ -67,14 +89,33 @@ def _write_csv(path: Path, header: list[str], rows) -> None:
         w.writerows([float(v) for v in row] for row in rows)
 
 
+def launches() -> dict[str, int]:
+    """The kernels launched in this process so far, by module (a 3-input
+    body apart), those launched at least once."""
+    out = {}
+    for mod in (rk4_cohort, rk4_population, lane_grad, tsit5_cohort,
+                population_grad):
+        short = mod.__name__.rsplit(".", 1)[1]
+        for tag, count in (("", mod.launches), (" (3-input)",
+                                                mod.launches_age)):
+            if count:
+                out[short + tag] = count
+    return out
+
+
 def main(argv=None) -> None:
+    _main(argv)
+    print(json.dumps({"launches": launches()}), file=sys.stderr)
+
+
+def _main(argv) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--experiment", default="exp02",
-                   choices=["exp01", "exp02", *SYMBOLIC],
+    p.add_argument("--experiment", default="exp02", choices=EXPERIMENTS,
                    help="exp02 (default; --covariate and --xl select exp07 "
                         "and exp02_xl), exp01 (the non-conditional UDE), "
-                        "exp03, exp04 or symreg_production (the symbolic "
-                        "refits)")
+                        "exp02_seeds (exp02's retrain at several seeds), "
+                        "exp05 (the less-data ablation), exp03, exp04 or "
+                        "symreg_production (the symbolic refits)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "kernels' plain versions)")
@@ -87,7 +128,9 @@ def main(argv=None) -> None:
     p.add_argument("--out", type=Path, default=None,
                    help="directory for the metrics and the outputs (none "
                         "written without it)")
-    p.add_argument("--lbfgs-iters", type=int, default=1000)
+    p.add_argument("--lbfgs-iters", type=int, default=1000,
+                   help="L-BFGS steps of the fits (exp05 keeps its own 500 "
+                        "and 1000)")
     p.add_argument("--retrain", action="store_true",
                    help="train the candidates (exp02: train_conditional on "
                         "the seed's fit split; exp01: train_ude on the mean "
@@ -108,13 +151,60 @@ def main(argv=None) -> None:
                         "restart kernel")
     p.add_argument("--seed", type=int, default=SEED,
                    help="seed of the fit/validation split and the training "
-                        "designs (--retrain) and of exp02's sampled bands")
+                        "designs (--retrain) and of exp02's sampled bands; "
+                        "exp05's first ablation seed")
+    p.add_argument("--seeds", type=int, nargs="+",
+                   default=list(seeds.DEFAULT_SEEDS),
+                   help="exp02_seeds: the seeds to run, one after another")
+    p.add_argument("--merge", action="store_true",
+                   help="exp02_seeds: merge the exp02_seed_*.json records "
+                        "under --out into exp02_seeds_metrics.json and "
+                        "exp02_seeds.csv instead of running seeds")
+    p.add_argument("--ablation-seeds", type=int, default=5,
+                   help="exp05: ablation seeds, from --seed on")
     args = p.parse_args(argv)
     if args.experiment != "exp02" and (args.covariate or args.xl):
         p.error("--covariate and --xl select variants of exp02")
     if args.experiment in SYMBOLIC and args.retrain:
         p.error(f"{args.experiment} has no --retrain: it fits every subject")
-    out = _out_dir(args.out, args.artifacts)
+    if args.merge and args.experiment != "exp02_seeds":
+        p.error("--merge merges exp02_seeds' records")
+    if args.merge:
+        if args.out is None:
+            p.error("--merge needs --out, the directory of the records")
+        print(json.dumps(seeds.merge_directory(out_dir(args.out,
+                                                       args.artifacts))))
+        return
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA card is visible "
+                         "(--device cpu runs the plain versions)")
+    out = out_dir(args.out, args.artifacts)
+
+    if args.experiment == "exp02_seeds":
+        for s in args.seeds:
+            res = run_training_pipeline(args.device, args.artifacts, seed=s,
+                                        lbfgs_iters=args.lbfgs_iters,
+                                        profile_steps=0, census_steps=0)
+            record = seeds.seed_record(res, s)
+            if out is not None:
+                arrays, meta = seeds.training_checkpoint(res)
+                save_checkpoint(
+                    out / "seeds" / f"cude_neural_parameters_{s}.npz",
+                    arrays, metadata=meta)
+                seeds.seed_path(out, s).write_text(json.dumps(record,
+                                                              indent=2))
+            print(json.dumps(record), flush=True)
+        return
+    if args.experiment == "exp05":
+        rows = ablation.run_ablation(args.device, args.artifacts, args.seed,
+                                     n_seeds=args.ablation_seeds)
+        if out is not None:
+            metrics = ablation.write_ablation(out, rows, ablation.FRACTIONS)
+        else:
+            metrics = ablation.aggregate_ablation(rows, ablation.FRACTIONS)
+        print(json.dumps(metrics))
+        return
 
     if args.experiment in SYMBOLIC:
         res = SYMBOLIC[args.experiment](args.device, args.artifacts,

@@ -171,6 +171,7 @@ class PipelineResult:
     census_all: dict[str, int]
     seconds: dict[str, float]     # wall-clock per stage
     training: TrainResult | None = None   # the retrain path's candidates
+    idx_fit: np.ndarray | None = None     # and the subjects they were fit to
     # the guarded selection (exp02_xl): the candidate, its test SSEs from its
     # own refit, and the first-phase Spearman of its oriented β's
     guarded_best: int | None = None
@@ -332,7 +333,7 @@ def run_training_pipeline(device: torch.device | str,
         dev, exp, model, trained.nn_params, trained.betas.cpu().numpy(),
         trained.orientations.cpu().numpy(), train, train.subset(idx_val),
         test, stage, lbfgs_iters, profile_steps, census_steps)
-    result.training = trained
+    result.training, result.idx_fit = trained, idx_fit
     result.objective_best = float(trained.objectives[result.best])
     if exp.outputs:
         _add_outputs(result, model, trained.nn_params[result.best], train,

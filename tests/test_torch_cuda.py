@@ -138,7 +138,10 @@ def _restarts(r, n, device, seed=5, input_dims=2):
                  kin[-n:].contiguous(), TP)
 
 
-@pytest.mark.parametrize("r,n", [(1, 1), (37, 8), (37, 57), (4096, 57)])
+# exp05's screens: 10,000 designs on its smallest (8) and largest (82)
+# cohorts, 96 and 9 restarts a block
+@pytest.mark.parametrize("r,n", [(1, 1), (37, 8), (37, 57), (4096, 57),
+                                 (10_000, 8), (10_000, 82)])
 def test_population_kernel_matches_plain(card, r, n):
     net, args = _restarts(r, n, card)
     before = rk4_population.launches
@@ -188,6 +191,21 @@ def test_value_and_grad_kernel_matches_plain(card, r, n):
     torch.testing.assert_close(gb[:-1], r_gb[:-1], rtol=1e-4, atol=1e-6)
 
 
+# exp05's refinement: 10 restarts of 8 and of 82 subjects, 80 and 820 lanes
+# (a ragged last block of 4 warps at 80)
+@pytest.mark.parametrize("r,n", [(10, 8), (10, 82)])
+def test_value_and_grad_kernel_is_its_plain_version_bit_for_bit(card, r, n):
+    net, args = _restarts(r, n, card)
+    before = lane_grad.launches
+    out = lane_grad.lane_sse_and_grad(net, *args, 8)
+    assert lane_grad.launches == before + 1
+    ref = lane_grad.lane_sse_and_grad_reference(net, *args, 8)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(out[0][-1]).all())
+    for got, want in zip(out, ref):
+        _assert_same(got, want)
+
+
 def test_population_sse_autograd_launches_once(card):
     net, (nn, betas, *cohort) = _restarts(4, 6, card)
     x = nn.clone().requires_grad_(True)
@@ -215,9 +233,10 @@ def _assert_tsit5_exact(net, args):
     torch.testing.assert_close(sse, r_sse, rtol=0, atol=0)
 
 
-# the re-rank's shapes at 25 and 2,304 restarts, a small one, and the ragged
-# 1,237 restarts of one subject
-@pytest.mark.parametrize("r,n", [(3, 6), (25, 57), (2304, 57), (1237, 1)])
+# the re-rank's shapes at 25 and 2,304 restarts, a small one, the ragged
+# 1,237 restarts of one subject, and exp05's 10 restarts of 8 and of 82
+@pytest.mark.parametrize("r,n", [(3, 6), (25, 57), (2304, 57), (1237, 1),
+                                 (10, 8), (10, 82)])
 def test_tsit5_kernel_matches_plain(card, r, n):
     _assert_tsit5_exact(*_restarts(r, n, card))
 
