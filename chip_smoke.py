@@ -24,7 +24,12 @@
    and K1, K2 and K3 at the less-data ablation's (exp05): 10,000 designs
    and 10 restarts on its smallest and largest cohorts (8 and 82 of the
    committed training subjects; 80 and 820 lanes), the last design of huge
-   weights.  K5 is held bit for bit against K2's lanes
+   weights, and K4 and K2 at SAEM's (exp06): K4 over 164, 82 and 117 lanes
+   (an MCMC step's proposals and states, an iteration's likelihood, a
+   posterior chains' step) on the committed pre-train network at β's up
+   to |β| = 5, and with a network a lane, the last of huge weights; K2 at
+   one restart on the 82 training subjects.  K5 is held bit for bit
+   against K2's lanes
    summed over the individuals in order, at 2,304 x 57 and at the ragged
    shape, and against K2's packed route (``Tensor.sum`` over the
    individuals): two layouts of one function, equal up to the order of the
@@ -38,7 +43,8 @@
    device alone, ``device_ms``, by replaying a CUDA graph of the calls), K2
    also at K5's shape, K1 and K3 at the enlarged multi-start's, K1, K2 and
    K3 at exp05's, and works
-   out the bound of each from its inputs: K1 and K4 evaluate the network
+   out the bound of each from its inputs (K4 and K2 also at SAEM's
+   shapes): K1 and K4 evaluate the network
    at 69 points a lane (``csrc/cude_rk4.cuh``), K3 3 a lane and 5 an
    attempted step (``tsit5_evaluations``), and K3's entries add the longest
    lane's attempted steps (``max_lane_steps``) and the device time per
@@ -88,8 +94,26 @@
     the committed five-seed range of its test-SSE median widened by 10 %;
     14 and 15 must launch K1, K2 and K3 and no other body;
 16. runs the replication runner over exp01 (frozen) at two seeds, one
-    child process a seed, held to the committed metrics.
-    12-16 are bound by the host, so they run in five child processes (this
+    child process a seed, held to the committed metrics;
+17. runs exp06, SAEM on the cUDE, at full depth (the committed pre-train,
+    180 iterations of 25 MCMC steps in both Ω modes, 3000-step chains,
+    the MAPs and MLEs of all 117 subjects): it must launch K4 (one launch
+    an MCMC step, an iteration and a chain step, counted exactly) and K2
+    (one an Adam step) and nothing else; its metrics are held to the
+    spread of the JAX package's own runs over 31 key pairs on the CPU
+    (``scripts/saem_reference.py``) widened by half its width on each
+    side, and MAPs and MLEs from the committed fit's fixed effects to
+    twice JAX's own miss of ``artifacts/saem_fit.npz`` (its largest and
+    median miss, subject 84's apart);
+18. runs exp06 with its pre-train retrained at seed 11, which must launch
+    K1, K2, K3 and K4, held to the spread of the JAX package's runs on the
+    CPU over 31 key pairs from that same pre-train, widened as in 17 (the
+    five-seed range of ``results/replicate_exp06_saem.json`` is printed
+    beside it);
+19. runs exp06a and exp06b (SAEM on the symbolic model and on the
+    discovered equation) at full depth: no kernel computes these heads,
+    so they must launch none; held to the JAX spread as 17.
+    12-19 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -882,6 +906,7 @@ def main() -> None:
         if d == 2:
             ablation_shapes(designs, k1_bound, k2_compare, k2_bound,
                             k3_compare, k3_timed)
+            saem_shapes(k2_compare, k2_bound)
 
     def ablation_shapes(designs, k1_bound, k2_compare, k2_bound, k3_compare,
                         k3_timed) -> None:
@@ -937,6 +962,76 @@ def main() -> None:
             results["K3"]["err"] = max(results["K3"]["err"], e)
             ablation_times[f"K3 {n}"] = k3_timed(refine, ok, counts, 20)
 
+    def saem_shapes(k2_compare, k2_bound) -> None:
+        """K4 and K2 at SAEM's shapes (exp06): K4 over a step's proposals
+        and current states (2 x 82 lanes), the iteration's likelihood (82)
+        and the posterior chains' step (117), on the committed pre-train
+        network expanded over the lanes as the path passes it, at β's of
+        an MCMC run's range (up to |β| = 5); each also with weights of
+        its own a lane, the last lane's huge on a rising glucose curve; K2
+        at one restart on the 82 training subjects.  Each bit for bit its
+        plain version, then timed."""
+        net = chain(4, 2)
+        p = net.num_params
+        nn_row = torch.as_tensor(np.load(ARTIFACTS / "saem_pretrain.npz")[
+            "nn_params"][0], **f32)
+        c_train = build_cohort(train.glucose, train.timepoints,
+                               train.cpeptide, train.ages, train.t2dm, dev)
+        flops, sfu = rk4_lane_work(2)
+        for what, c, m in (("a step's proposals and states", c_train, 2),
+                           ("an iteration's likelihood", c_train, 1),
+                           ("a posterior chains' step", cohort, 1)):
+            lanes = m * c.n
+            betas = np.clip(rng.normal(0.5, 1.5, lanes), -5.0, 5.0)
+            betas[:2] = (-5.0, 5.0)
+            rows = (c.glucose.repeat(m, 1), c.cpeptide.repeat(m, 1),
+                    c.kinetics().repeat(m, 1))
+            path = (nn_row[None].expand(lanes, -1),
+                    torch.as_tensor(betas, **f32), *rows)
+            shape = f"{what} ({lanes} lanes)"
+            err = exact(rk4_cohort.cohort_sse(net, *path, tp, 8),
+                        rk4_cohort.cohort_sse_reference(net, *path, tp, 8),
+                        f"K4 SAEM {shape}")
+            own = glorot(rng, net, lanes)
+            own[-1] = huge_weights(2)
+            glucose = rows[0].clone()
+            glucose[-1] = torch.tensor([5.0, 6.0, 7.0, 8.0, 9.0], **f32)
+            lane_args = (torch.as_tensor(own, **f32), path[1], glucose,
+                         *rows[1:])
+            out = rk4_cohort.cohort_sse(net, *lane_args, tp, 8)
+            if not bool(torch.isinf(out[-1])):
+                raise AssertionError(f"K4 SAEM {shape}: the huge-weight "
+                                     "lane's SSE is not inf")
+            err = max(err, exact(out, rk4_cohort.cohort_sse_reference(
+                net, *lane_args, tp, 8), f"K4 SAEM {shape}, a network a "
+                "lane"))
+            results["K4"]["err"] = max(results["K4"]["err"], err)
+            saem_times[f"K4 {lanes}"] = dict(
+                ms=cuda_ms(lambda: rk4_cohort.cohort_sse(net, *path, tp, 8),
+                           reps=50),
+                device=graph_ms(lambda: rk4_cohort.cohort_sse(
+                    net, *path, tp, 8), reps=50),
+                plain=cuda_ms(lambda: rk4_cohort.cohort_sse_reference(
+                    net, *path, tp, 8), reps=3),
+                shape=shape,
+                bound=bound(4 * (p + lanes * (12 + 4)), lanes * flops,
+                            lanes * sfu))
+        n = c_train.n
+        betas = np.clip(rng.normal(0.5, 1.5, (1, n)), -5.0, 5.0)
+        grad = (nn_row[None].contiguous(), torch.as_tensor(betas, **f32),
+                c_train.glucose, c_train.cpeptide, c_train.kinetics(), tp)
+        shape = f"SAEM's population gradient (1 x {n} lanes)"
+        results["K2"]["err"] = max(results["K2"]["err"],
+                                   k2_compare(grad, f"K2 {shape}"))
+        saem_times[f"K2 {n}"] = dict(
+            ms=cuda_ms(lambda: lane_grad.lane_sse_and_grad(net, *grad, 8),
+                       reps=50),
+            device=graph_ms(lambda: lane_grad.lane_sse_and_grad(
+                net, *grad, 8), reps=50),
+            plain=cuda_ms(lambda: lane_grad.lane_sse_and_grad_reference(
+                net, *grad, 8), reps=3),
+            shape=shape, bound=k2_bound(1, n))
+
     def live_age_check() -> None:
         """Each covariate body on exp07's committed candidates and training
         β's, on their fit subjects with their real ages and with every age
@@ -971,6 +1066,7 @@ def main() -> None:
                 raise AssertionError(f"{kid} does not read the age")
 
     ablation_times = {}     # K1, K2 and K3 at exp05's shapes
+    saem_times = {}         # K4 and K2 at SAEM's shapes
     kernel_phase(2)
     kernel_phase(3)
     live_age_check()
@@ -984,7 +1080,7 @@ def main() -> None:
                 f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}){steps}")
 
     for kid, r in [*results.items(), *wide.items(),
-                   *ablation_times.items()]:
+                   *ablation_times.items(), *saem_times.items()]:
         log(f"[time] {kid.split()[0]} at {r['shape']}: kernel "
             f"{r['ms']:.4f} ms{notes(r)}  [{card}]")
     if args.kernels_only:
@@ -1164,14 +1260,17 @@ def main() -> None:
 
 
 # the paths beside the main one run in child processes, one list each,
-# started once the kernels are timed: those that launch no kernel (exp01 and
-# the symbolic refits: eager PyTorch, host-bound), and the replication
-# experiments (exp02_seeds and exp05 train, so they launch K1, K2 and K3)
+# started once the kernels are timed: those that launch no kernel (exp01,
+# the symbolic refits, SAEM on the analytic heads: eager PyTorch,
+# host-bound), the replication experiments (exp02_seeds and exp05 train, so
+# they launch K1, K2 and K3) and SAEM on the cUDE (K4 and K2)
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04"),
         ("exp_symreg_production",),
         tuple(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
         ("exp02_seeds",),
-        ("exp05", "replicate"))
+        ("exp05", "replicate"),
+        ("exp06", "exp06a"),
+        ("exp06 retrain, seed 11", "exp06b"))
 SIDE_WAIT = 1150.0       # seconds from the start by which the children end
 SIDE_MARGIN = 100.0      # the children should end this much before SIDE_WAIT
 TRAINING_KERNELS = frozenset({"rk4_population", "lane_grad", "tsit5_cohort"})
@@ -1185,12 +1284,88 @@ SEEDS_RUN = (11, 22)
 ABLATION_LIMITS = {0.1: (8, 0.1809, 0.3992), 0.5: (41, 0.1526, 0.2417),
                    1.0: (82, 0.1672, 0.2732)}
 REPLICATE_SEEDS = (11, 22)
+# SAEM: the two packages' random streams differ, so each run is held to the
+# spread of the JAX package's own experiments on the CPU over their keys and 30
+# further key pairs (python scripts/saem_reference.py --keys 30: the
+# metrics' least and greatest over 31 runs each), widened by half its width
+# on each side (``widen``)
+SAEM_SPREAD = {
+    "exp06a": {"km_pop": (67.4859, 97.7738), "sigma": (0.25367, 0.254693),
+               "omega": (0.731691, 0.74891),
+               "final_nll": (-507.466, -505.592),
+               "km_map_median": (48.1755, 48.615),
+               "map_mle_correlation": (0.998218, 0.998538),
+               "posterior_acceptance_mean": (0.296115, 0.304577)},
+    "exp06b": {"b_pop": (-0.511179, 0.501692),
+               "sigma": (0.346046, 0.419735), "omega": (0.251437, 0.59162),
+               "final_nll": (-328.031, -215.284),
+               "b_map_median": (-0.503937, 0.502467),
+               "map_mle_correlation": (0.704971, 0.830647),
+               "posterior_acceptance_mean": (0.29609, 0.304496),
+               "spearman_b_map_first_phase": (-0.827885, 0.826814)},
+    "exp06": {"sigma": (0.349648, 0.763924),
+              "omega": (0.00250644, 23.6156),
+              "eta": (-3.0233, 1.31918),
+              "final_nll": (-240.103, 94.237),
+              "final_acceptance": (0.0282927, 0.622439),
+              "posterior_acceptance_mean": (0.274662, 0.303893),
+              "mse_map_per_type.NGT": (0.0771735, 0.838286),
+              "mse_map_per_type.IGT": (0.0658641, 2.41702),
+              "mse_map_per_type.T2DM": (0.0698845, 0.754328),
+              "posterior_map_spearman": (-0.403865, 0.998322),
+              "consistent_omega.sigma": (0.329206, 0.718088),
+              "consistent_omega.omega": (0.380221, 2.80447),
+              "consistent_omega.eta": (-0.778871, 1.75062),
+              "consistent_omega.final_nll": (-268.465, 61.8123),
+              "consistent_omega.posterior_acceptance_mean": (0.289098,
+                                                             0.31518),
+              "consistent_omega.mse_map_per_type.NGT": (0.0724547, 0.465439),
+              "consistent_omega.mse_map_per_type.IGT": (0.0673014, 0.931897),
+              "consistent_omega.mse_map_per_type.T2DM": (0.0683719, 0.388275),
+              "consistent_omega.posterior_map_spearman": (-0.633368, 0.952862)},
+}
+# JAX's own individual_maps and individual_mles on the CPU, from the fixed
+# effects of artifacts/saem_fit.npz, miss its beta_map and beta_mle by these
+# at the median over the 117 subjects and at most (beta_mle: over all but
+# subject 84, whose likelihood is flat and which it misses by 0.6952; the
+# same script's ``miss``); the port's are held to twice each
+SAEM_MISS = {"beta_map": {"max": 4.316e-5, "median": 1.669e-6},
+             "beta_mle": {"max": 1.003e-3, "median": 3.038e-4}}
+SAEM_FLAT_SUBJECT, SAEM_FLAT_MISS = 84, 0.6952
+# exp06 retrained at seed 11: the spread of JAX's exp06 on the CPU from the
+# pre-train the port retrains at seed 11 (``saem_pretrain.npz`` of
+# ``python -m conditional_ude_tpu_torch --experiment exp06 --retrain --seed 11
+# --out DIR`` on the card; two runs there gave the same metrics), over its
+# keys and 30 further key pairs (``scripts/saem_reference.py --pretrain FILE
+# --only exp06 --keys 30``), widened as ``SAEM_SPREAD``
+SAEM_RETRAIN_SPREAD = {
+    "sigma": (0.290044, 0.773513),
+    "omega": (0.00754627, 38.2286),
+    "eta": (-5.3094, 1.78717),
+    "final_nll": (-334.037, 97.9025),
+    "final_acceptance": (0.0370732, 0.805366),
+    "posterior_acceptance_mean": (0.284312, 0.314795),
+    "mse_map_per_type.NGT": (0.0857385, 0.835373),
+    "mse_map_per_type.IGT": (0.0611471, 1.2761),
+    "mse_map_per_type.T2DM": (0.0646251, 0.897619),
+    "posterior_map_spearman": (-0.337012, 0.99955),
+    "consistent_omega.sigma": (0.262198, 0.658235),
+    "consistent_omega.omega": (0.467878, 4.34092),
+    "consistent_omega.eta": (-3.8768, 1.43849),
+    "consistent_omega.final_nll": (-353.819, 42.9306),
+    "consistent_omega.posterior_acceptance_mean": (0.287175, 0.307799),
+    "consistent_omega.mse_map_per_type.NGT": (0.0870105, 1.15031),
+    "consistent_omega.mse_map_per_type.IGT": (0.0611852, 3.04497),
+    "consistent_omega.mse_map_per_type.T2DM": (0.0585541, 6.11564),
+    "consistent_omega.posterior_map_spearman": (-0.528496, 0.998876)}
+SAEM_KERNELS = frozenset({"rk4_cohort", "lane_grad"})
 
 
 def new_paths(dev):
     """Name -> (run, check, the kernels it must launch) of each path beside
     the main one; every other kernel must launch 0 times."""
     from conditional_ude_tpu_torch.pipeline import SEED, run_ude_pipeline
+    from conditional_ude_tpu_torch.saem_pipeline import run_exp06a, run_exp06b
     from conditional_ude_tpu_torch.symbolic_pipeline import (
         run_exp03,
         run_exp04,
@@ -1217,7 +1392,16 @@ def new_paths(dev):
         "exp05": (lambda: run_ablation_path(dev), check_ablation_path,
                   TRAINING_KERNELS),
         "replicate": (lambda: run_replicate_path(dev), check_replicate_path,
-                      none)}
+                      none),
+        "exp06": (lambda: run_saem_path(dev), check_saem_path, SAEM_KERNELS),
+        "exp06 retrain, seed 11": (
+            lambda: run_saem_path(dev, seed=11, retrain=True),
+            check_saem_retrain, SAEM_KERNELS | TRAINING_KERNELS),
+        "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
+                   lambda res: check_saem_spread(res.metrics, "exp06a"), none),
+        "exp06b": (lambda: run_exp06b(dev, ARTIFACTS),
+                   lambda res: check_saem_spread(res.metrics, "exp06b"),
+                   none)}
 
 
 def run_seeds_path(dev):
@@ -1277,6 +1461,47 @@ def run_replicate_path(dev):
     return SimpleNamespace(
         result=json.loads((out / "replicate_exp01.json").read_text()),
         seconds={"children": time.perf_counter() - t0})
+
+
+def run_saem_path(dev, seed: int | None = None, retrain: bool = False):
+    """exp06 through ``run_exp06`` (both Ω modes, the chains, MAPs and MLEs
+    of all 117 subjects), the kernels' launches over it, and, on the
+    committed pre-train, MAPs and MLEs from the fixed effects of
+    ``artifacts/saem_fit.npz``, which launch no kernel."""
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
+    from conditional_ude_tpu_torch.fit import saem
+    from conditional_ude_tpu_torch.models.cpeptide import (
+        CPeptideModel,
+        build_cohort,
+    )
+    from conditional_ude_tpu_torch.nn import chain
+    from conditional_ude_tpu_torch.ops import lane_grad, rk4_cohort
+    from conditional_ude_tpu_torch.saem_pipeline import run_exp06
+    kw = {} if seed is None else {"seed": seed}
+    run = run_exp06(dev, ARTIFACTS, retrain=retrain, **kw)
+    out = SimpleNamespace(run=run, metrics=run.metrics,
+                          seconds=dict(run.seconds),
+                          launches={"K4": rk4_cohort.launches,
+                                    "K2": lane_grad.launches})
+    if retrain:
+        return out
+    both = OhashiSplit.concatenate(*load_npz(ARTIFACTS / "ohashi.npz"))
+    ll = saem.cude_loglik(CPeptideModel(chain(4, 2)), build_cohort(
+        both.glucose, both.timepoints, both.cpeptide, both.ages, both.t2dm,
+        dev))
+    fit = np.load(ARTIFACTS / "saem_fit.npz")
+    theta, sigma, eta, omega = (torch.as_tensor(fit[k], device=dev) for k in
+                                ("nn_params", "sigma", "eta", "omega"))
+    init = torch.full((both.glucose.shape[0],), float(eta), device=dev)
+    t0 = time.perf_counter()
+    out.maps = saem.individual_maps(ll, theta, sigma, init, eta,
+                                    omega).cpu().numpy()
+    out.mles = saem.individual_mles(ll, theta, sigma, init).cpu().numpy()
+    out.seconds["estimators_at_committed_fit"] = time.perf_counter() - t0
+    out.fit = fit
+    return out
 
 
 def run_side(names: list[str], out: Path) -> None:
@@ -1700,6 +1925,91 @@ def check_replicate_path(res) -> list[str]:
             failures += within(agg[stat], want[key], 0.03,
                                f"replicate exp01 {key} {stat}")
     return failures
+
+
+def widen(lo: float, hi: float) -> tuple[float, float]:
+    """A range of a JAX spread widened by half its width on each side.
+    Over 31 runs this puts a 32nd draw of a normal metric outside with
+    odds near 6e-4, where a tenth of the width gives 3 % a metric: too many
+    false failures over the ~60 metrics held."""
+    pad = 0.5 * (hi - lo)
+    return lo - pad, hi + pad
+
+
+def check_saem_spread(metrics: dict, name: str,
+                      spread: dict | None = None) -> list[str]:
+    """Each metric of ``spread`` (default ``SAEM_SPREAD[name]``) inside
+    that JAX spread, widened."""
+    from conditional_ude_tpu_torch.replicate import flatten
+    got, failures = flatten(metrics), []
+    spread = SAEM_SPREAD[name] if spread is None else spread
+    for key, (lo, hi) in spread.items():
+        lo, hi = widen(lo, hi)
+        value = got.get(key, float("nan"))
+        log(f"[check] {name} {key} {value:.6g} (JAX on the CPU over its "
+            f"keys, widened: {lo:.6g} to {hi:.6g})")
+        if not lo <= value <= hi:
+            failures.append(f"{name} {key} {value}")
+    return failures
+
+
+def check_saem_path(res) -> list[str]:
+    """exp06 on the card: the likelihood on K4 and the population gradient
+    on K2, one K4 launch an MCMC step (its proposals and states together)
+    and one an iteration, one a chain step and one to start the chains, one
+    K2 launch an Adam step, in both Ω modes; the metrics inside the JAX
+    spread; the fit finite; and the MAPs and MLEs from the committed fit's
+    fixed effects within twice JAX's own miss of its ``beta_map`` and
+    ``beta_mle`` (``SAEM_MISS``; the flat subject's MLE on its own)."""
+    run, failures = res.run, []
+    if run.route != "cuda_k4_k2":
+        failures.append(f"route {run.route}")
+    k4 = 2 * (180 * (25 + 1) + 3000 + 1)
+    k2 = 2 * 180 * 5
+    log(f"[check] exp06 launches: K4 {res.launches['K4']} (expected {k4}), "
+        f"K2 {res.launches['K2']} (expected {k2})")
+    if (res.launches["K4"], res.launches["K2"]) != (k4, k2):
+        failures.append(f"launches {res.launches}")
+    failures += check_saem_spread(res.metrics, "exp06")
+    for k, v in run.fit.items():
+        if not np.isfinite(v).all():
+            failures.append(f"saem_fit {k} not finite")
+    if run.fit["nll_trace"].shape != (180,):
+        failures.append(f"nll_trace {run.fit['nll_trace'].shape}")
+    for name, got in (("beta_map", res.maps), ("beta_mle", res.mles)):
+        diff = np.abs(got - res.fit[name])
+        stats = {"median": np.median(diff), "max": diff.max()}
+        limits = {k: 2 * v for k, v in SAEM_MISS[name].items()}
+        if name == "beta_mle":
+            flat = f"subject {SAEM_FLAT_SUBJECT}"
+            stats["max"] = np.delete(diff, SAEM_FLAT_SUBJECT).max()
+            stats[flat] = diff[SAEM_FLAT_SUBJECT]
+            limits[flat] = 2 * SAEM_FLAT_MISS
+        for stat, value in stats.items():
+            log(f"[check] exp06 {name} from the committed fit's fixed "
+                f"effects: {stat} |diff| {value:.3e} (limit "
+                f"{limits[stat]:.3e}, twice JAX's own miss)")
+            if not value <= limits[stat]:
+                failures.append(f"{name} off the committed fit: {stat} "
+                                f"{value}")
+    return failures
+
+
+def check_saem_retrain(res) -> list[str]:
+    """exp06 with its pre-train retrained at seed 11: the metrics of
+    ``SAEM_SPREAD["exp06"]`` inside the spread of JAX's runs from that same
+    pre-train (``SAEM_RETRAIN_SPREAD``), widened; the five-seed range of
+    ``results/replicate_exp06_saem.json`` (other pre-trains) is printed
+    beside them and holds nothing."""
+    agg = json.loads((REPO / "results" / "replicate_exp06_saem.json")
+                     .read_text())["aggregate"]
+    for key in sorted(set(agg) & set(SAEM_RETRAIN_SPREAD)):
+        log(f"[report] exp06 retrain, seed 11 {key}: the committed five "
+            f"seeds {agg[key]['min']:.6g} to {agg[key]['max']:.6g}")
+    failures = ([] if res.run.route == "cuda_k4_k2"
+                else [f"route {res.run.route}"])
+    return failures + check_saem_spread(res.metrics, "exp06 retrain, seed 11",
+                                        SAEM_RETRAIN_SPREAD)
 
 
 def committed_sse(fit: dict, sigmas: str, objectives: str,

@@ -12,6 +12,9 @@
     python -m conditional_ude_tpu_torch --experiment exp02_seeds --out runs/seeds [--seeds 11 22 ...]
     python -m conditional_ude_tpu_torch --experiment exp02_seeds --out runs/seeds --merge
     python -m conditional_ude_tpu_torch --experiment exp05 --out runs/exp05 [--ablation-seeds 5]
+    python -m conditional_ude_tpu_torch --experiment exp06 [--retrain]   # SAEM, the cUDE
+    python -m conditional_ude_tpu_torch --experiment exp06a              # SAEM, the symbolic model
+    python -m conditional_ude_tpu_torch --experiment exp06b              # SAEM, the discovered equation
     python -m conditional_ude_tpu_torch --out runs/exp02   # also write the metrics and outputs there
     python -m conditional_ude_tpu_torch --device cpu    # the plain versions, on the CPU
 
@@ -21,12 +24,16 @@ and its outputs into DIR: exp02's dose-response table
 (``ude_neural_parameters.npz``), the symbolic fits (``symreg_fit.npz``,
 ``symreg_external_fit.npz``, ``discovered_fit.npz``), exp02_seeds' records
 (``exp02_seed_<s>.json``) and candidates
-(``seeds/cude_neural_parameters_<s>.npz``), and exp05's rows
-(``exp05_ablation.csv``), in the JAX package's formats.  It never writes
+(``seeds/cude_neural_parameters_<s>.npz``), exp05's rows
+(``exp05_ablation.csv``), and exp06's fit (``saem_fit.npz``), dose-response
+grid (``neural_simulations.csv``) and, with ``--retrain``, pre-train
+(``saem_pretrain.npz``), in the JAX package's formats.  It never writes
 into the artifacts directory or ``results/``, which hold the JAX package's
 reference.  exp02_seeds and exp05 always train; exp02_seeds prints one
-JSON line a seed.  Last, on the standard error, the kernels the run
-launched: ``{"launches": {module: count}}``.
+JSON line a seed.  exp06, exp06a and exp06b write their metrics with the
+JAX keys only and print their stage seconds on the standard error.  Last,
+on the standard error, the kernels the run launched: ``{"launches":
+{module: count}}``.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from pathlib import Path
 
 import torch
 
-from conditional_ude_tpu_torch import ablation, seeds
+from conditional_ude_tpu_torch import ablation, saem_pipeline, seeds
 from conditional_ude_tpu_torch.fit.train import TrainConfig
 from conditional_ude_tpu_torch.ops import (
     lane_grad,
@@ -65,7 +72,9 @@ REPO = Path(__file__).resolve().parent.parent
 ARTIFACTS = REPO / "artifacts"
 SYMBOLIC = {"exp03": run_exp03, "exp04": run_exp04,
             "symreg_production": run_symreg_production}
-EXPERIMENTS = ("exp01", "exp02", "exp02_seeds", "exp05", *SYMBOLIC)
+SAEM = {"exp06": saem_pipeline.run_exp06, "exp06a": saem_pipeline.run_exp06a,
+        "exp06b": saem_pipeline.run_exp06b}
+EXPERIMENTS = ("exp01", "exp02", "exp02_seeds", "exp05", *SAEM, *SYMBOLIC)
 
 
 def out_dir(out: Path | None, artifacts: Path) -> Path | None:
@@ -114,7 +123,9 @@ def _main(argv) -> None:
                    help="exp02 (default; --covariate and --xl select exp07 "
                         "and exp02_xl), exp01 (the non-conditional UDE), "
                         "exp02_seeds (exp02's retrain at several seeds), "
-                        "exp05 (the less-data ablation), exp03, exp04 or "
+                        "exp05 (the less-data ablation), exp06, exp06a or "
+                        "exp06b (SAEM on the cUDE, the symbolic model and "
+                        "the discovered equation), exp03, exp04 or "
                         "symreg_production (the symbolic refits)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
@@ -134,7 +145,8 @@ def _main(argv) -> None:
     p.add_argument("--retrain", action="store_true",
                    help="train the candidates (exp02: train_conditional on "
                         "the seed's fit split; exp01: train_ude on the mean "
-                        "training curve) instead of loading them")
+                        "training curve; exp06: the pre-train on 15 "
+                        "training subjects) instead of loading them")
     p.add_argument("--covariate", action="store_true",
                    help="the covariate model of experiment 07: the age as "
                         "the network's third input (combines with "
@@ -165,7 +177,7 @@ def _main(argv) -> None:
     args = p.parse_args(argv)
     if args.experiment != "exp02" and (args.covariate or args.xl):
         p.error("--covariate and --xl select variants of exp02")
-    if args.experiment in SYMBOLIC and args.retrain:
+    if args.experiment in (*SYMBOLIC, "exp06a", "exp06b") and args.retrain:
         p.error(f"{args.experiment} has no --retrain: it fits every subject")
     if args.merge and args.experiment != "exp02_seeds":
         p.error("--merge merges exp02_seeds' records")
@@ -206,6 +218,16 @@ def _main(argv) -> None:
         print(json.dumps(metrics))
         return
 
+    if args.experiment in SAEM:
+        kw = {"retrain": args.retrain} if args.experiment == "exp06" else {}
+        run = SAEM[args.experiment](args.device, args.artifacts,
+                                    seed=args.seed, **kw)
+        if out is not None:
+            saem_pipeline.write_outputs(out, args.experiment, run)
+        print(json.dumps({"stage_seconds": run.seconds, "route": run.route}),
+              file=sys.stderr)
+        print(json.dumps(run.metrics))
+        return
     if args.experiment in SYMBOLIC:
         res = SYMBOLIC[args.experiment](args.device, args.artifacts,
                                         lbfgs_iters=args.lbfgs_iters)

@@ -29,7 +29,7 @@ class AdamState(NamedTuple):
 
 class AdamResult(NamedTuple):
     x: tuple[torch.Tensor, ...]
-    fval: torch.Tensor              # [R] fun at the final x
+    fval: torch.Tensor | None       # [R] fun at the final x (None: no fun)
     loss_trace: torch.Tensor        # [R, iters] fun before each step
     opt_state: AdamState
 
@@ -62,7 +62,8 @@ def adam_minimize(
 
     ``fun(x) -> f[R]`` is differentiated by autograd unless ``fun_and_grad``
     (``x -> (f[R], grads like x)``) is given; ``fval`` is ``fun(x)`` at the
-    end (or the value of ``fun_and_grad`` when there is no ``fun``).
+    end, or None when there is no ``fun`` (no evaluation after the last
+    step).
     """
     vg = fun_and_grad if fun_and_grad is not None else _autograd_vg(fun)
     x = tuple(a.detach() for a in x0)
@@ -85,8 +86,10 @@ def adam_minimize(
                     for b in (B1, B2))
         x = tuple(a + ((m / bc1) / (torch.sqrt(v / bc2 + 0.0) + eps)) * neg_lr
                   for a, m, v in zip(x, mu, nu))
-    with torch.no_grad():
-        fval = fun(x) if fun is not None else vg(x)[0]
+    fval = None
+    if fun is not None:
+        with torch.no_grad():
+            fval = fun(x)
     dev = x[0].device
     loss_trace = (torch.stack(trace, dim=-1) if trace
                   else torch.zeros(x[0].shape[0], 0, device=dev))

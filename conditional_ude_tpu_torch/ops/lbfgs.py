@@ -17,9 +17,9 @@ iteration is a deterministic function of the state, so a row whose state
 repeats one it had ``p`` iterations before (``p ≤ CYCLE``) is in an orbit
 of period ``p`` and its state after ``max_iters`` is known at once.  Such a
 row stops there.  In float32 the β/σ fits reach fixed points (``p = 1``) or
-short orbits within a few dozen iterations and never pass ``gtol``; the JAX
-loop repeats them up to ``max_iters``.  ``num_iters`` counts the iterations
-run before the orbit was recognised.
+short orbits (up to ``p = 12`` seen) within a few dozen iterations and
+never pass ``gtol``; the JAX loop repeats them up to ``max_iters``.
+``num_iters`` counts the iterations run before the orbit was recognised.
 
 Box constraints use gradient projection.  Objectives may return ``inf`` or
 ``nan``: such trial points fail the Armijo test, and a row that cannot
@@ -34,7 +34,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
-CYCLE = 8   # longest orbit recognised
+# longest orbit recognised: row 66 of the Ohashi (b, σ) fit orbits with
+# period 12 on the H100 (scripts/fit_probe.py --trace 66)
+CYCLE = 16
 
 
 class LBFGSResult(NamedTuple):

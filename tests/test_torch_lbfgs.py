@@ -170,6 +170,22 @@ def test_orbit_end_picks_the_state_at_max_iters(max_iters):
     assert not bool(found[0]) and float(end.x[0, 0]) == 1.0
 
 
+def test_orbit_of_period_12_is_recognised():
+    """Row 66 of the Ohashi (b, σ) fit orbits with period 12 on the H100
+    (``scripts/fit_probe.py --trace 66``): the history kept holds it, and
+    the row's state after ``max_iters`` is the orbit's."""
+    from conditional_ude_tpu_torch.ops.lbfgs import CYCLE, _orbit_end
+
+    assert CYCLE >= 12
+    orbit = [_state(float(v)) for v in range(1, 13)]
+    past = (orbit * 2)[-CYCLE:]
+    it, max_iters = torch.tensor([41]), 1000
+    found, end = _orbit_end(orbit[0], past, torch.tensor([True]), it,
+                            max_iters)
+    assert bool(found[0])
+    assert float(end.x[0, 0]) == float(orbit[(max_iters - 41) % 12].x[0, 0])
+
+
 def test_orbit_shortcut_leaves_results_unchanged(monkeypatch):
     """Rows stopped at a repeated state end exactly where running on to
     max_iters ends them."""

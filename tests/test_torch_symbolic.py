@@ -17,7 +17,8 @@ exp_symreg_production fits at full size on the CPU (117 Ohashi subjects and
 the 20 of Fujita, 1000 L-BFGS steps, the 10,000-point profiles and their
 census) and prints, as one JSON line, how far they are from the committed
 fits ``artifacts/symreg_fit.npz``, ``symreg_external_fit.npz`` and
-``discovered_fit.npz``, which came from a TPU (~10 minutes):
+``discovered_fit.npz``, which came from a TPU, with every Ohashi
+subject's (b, σ, objective) of the discovered model's fit (~10 minutes):
 
     python tests/test_torch_symbolic.py
 """
@@ -149,6 +150,9 @@ def reference() -> dict:
         "committed_spearman_first_phase":
             metrics["spearman"]["first_phase"],
         "fujita_mse_mean": float((_sse(obf, sbf, 14) / 14).mean()),
+        # every Ohashi subject's (b, σ, objective), to hold a row of the
+        # port's fit on the card to
+        "ohashi_rows": np.stack([bs, sb, ob], axis=1).tolist(),
         "census": _census(jnp.linspace(1e-3, 10.0, 10_000), values),
         "committed_census": metrics["identifiability_census"],
         "seconds": time.perf_counter() - t0}
