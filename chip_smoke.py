@@ -28,7 +28,9 @@
    (an MCMC step's proposals and states, an iteration's likelihood, a
    posterior chains' step) on the committed pre-train network at β's up
    to |β| = 5, and with a network a lane, the last of huge weights; K2 at
-   one restart on the 82 training subjects.  K5 is held bit for bit
+   one restart on the 82 training subjects; and K2 at 4 substeps at
+   exp_advi's steps (280 and 5,700 lanes) and K4 at its profile chunk
+   (500 x 35).  K5 is held bit for bit
    against K2's lanes
    summed over the individuals in order, at 2,304 x 57 and at the ragged
    shape, and against K2's packed route (``Tensor.sum`` over the
@@ -43,8 +45,8 @@
    device alone, ``device_ms``, by replaying a CUDA graph of the calls), K2
    also at K5's shape, K1 and K3 at the enlarged multi-start's, K1, K2 and
    K3 at exp05's, and works
-   out the bound of each from its inputs (K4 and K2 also at SAEM's
-   shapes): K1 and K4 evaluate the network
+   out the bound of each from its inputs (K4 and K2 also at SAEM's and
+   exp_advi's shapes): K1 and K4 evaluate the network
    at 69 points a lane (``csrc/cude_rk4.cuh``), K3 3 a lane and 5 an
    attempted step (``tsit5_evaluations``), and K3's entries add the longest
    lane's attempted steps (``max_lane_steps``) and the device time per
@@ -112,8 +114,17 @@
     beside it);
 19. runs exp06a and exp06b (SAEM on the symbolic model and on the
     discovered equation) at full depth: no kernel computes these heads,
-    so they must launch none; held to the JAX spread as 17.
-    12-19 are bound by the host, so they run in seven child processes (this
+    so they must launch none; held to the JAX spread as 17;
+20. runs exp_advi: first a reduced run (2 restarts, 35 test subjects, 200
+    steps each) on the card and on the CPU (2 threads) from the same
+    draws, held to each other array by array; then the full run (25
+    restarts x 2,000 steps, 35 subjects x 1,500 steps, the profile at
+    2,000 points) through the entry point, which must launch K2 exactly
+    3,500 times and K4 4 and nothing else; its metrics and each test
+    subject's β mean and sd are held to the spread of the JAX package's
+    own runs over keys on the CPU (``scripts/advi_reference.py``) widened
+    as in 17.
+    12-20 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -635,10 +646,10 @@ def main() -> None:
             shape=f"{g_full} x {n_fit}", bound=k1_bound(g_full))
 
         # -- K2: value + gradient ---------------------------------------------
-        def k2_compare(args, what):
-            sse, gnn, gb = lane_grad.lane_sse_and_grad(net, *args, 8)
+        def k2_compare(args, what, substeps=8):
+            sse, gnn, gb = lane_grad.lane_sse_and_grad(net, *args, substeps)
             r_sse, r_gnn, r_gb = lane_grad.lane_sse_and_grad_reference(
-                net, *args, 8)
+                net, *args, substeps)
             e = compare(sse, r_sse, f"{what} value", GRAD_RTOL, 0.0)
             e = max(e, compare_scaled(gnn.reshape(-1, p), r_gnn.reshape(-1, p),
                                       f"{what} grad nn"))
@@ -664,12 +675,16 @@ def main() -> None:
         # own cost.  A 3rd input adds its 4 weight gradients.
         per_point = mlp_flops(d) + 95 + 38 + 8 * (d - 2)
 
-        def k2_bound(r, n):
-            lanes = r * n
+        def k2_bound(r, n, substeps=8):
+            """At ``substeps`` the network runs at 1 + 4 (2 substeps + 1)
+            points a lane (69 at 8, 37 at 4) and the kinetics take 4
+            substeps steps."""
+            lanes, points = r * n, 1 + 4 * (2 * substeps + 1)
             return bound(4 * (r * p + lanes * (1 + 1 + p + 1)
                               + n * (10 + n_kin)),
-                         lanes * (69 * per_point + 32 * 47 + 480),
-                         lanes * (69 * (MLP_SFU + 1) + 1))
+                         lanes * (points * per_point + 4 * substeps * 47
+                                  + 480),
+                         lanes * (points * (MLP_SFU + 1) + 1))
 
         results["K2" + sfx] = dict(
             err=err, ms=ms, device=device, plain=plain,
@@ -907,6 +922,7 @@ def main() -> None:
             ablation_shapes(designs, k1_bound, k2_compare, k2_bound,
                             k3_compare, k3_timed)
             saem_shapes(k2_compare, k2_bound)
+            advi_shapes(k2_compare, k2_bound)
 
     def ablation_shapes(designs, k1_bound, k2_compare, k2_bound, k3_compare,
                         k3_timed) -> None:
@@ -1032,6 +1048,82 @@ def main() -> None:
                 net, *grad, 8), reps=3),
             shape=shape, bound=k2_bound(1, n))
 
+    def advi_shapes(k2_compare, k2_bound) -> None:
+        """K2 at 4 substeps at exp_advi's shapes and K4 at its profile
+        chunk: the test stage's step (the selected network over 8 sample
+        rows on the 35 test subjects, 280 lanes), the joint stage's step
+        (the 25 committed candidates, each over 4 sample rows, on their 57
+        fit subjects, 5,700 lanes; weights and β's drawn as the first step
+        draws them, e^ρ = e^-2), and K4 over 500 grid points on [-6, 2]
+        times the 35 test subjects (17,500 lanes).  Each bit for bit its
+        plain version, then timed."""
+        net = chain(4, 2)
+        p = net.num_params
+        cand = np.load(ARTIFACTS / "cude_neural_parameters.npz")
+        best = json.loads((REPO / "results" / "exp02_metrics.json")
+                          .read_text())["best_model_index"]
+        nn_best = torch.as_tensor(cand["nn_params"][best], **f32)
+        c_test = build_cohort(test.glucose, test.timepoints, test.cpeptide,
+                              test.ages, test.t2dm, dev)
+        s_fit = train.subset(cand["idx_fit"])
+        c_fit = build_cohort(s_fit.glucose, s_fit.timepoints,
+                             s_fit.cpeptide, s_fit.ages, s_fit.t2dm, dev)
+        rng = np.random.default_rng(12)     # the earlier phases' draws stay
+        spread = np.exp(-2.0)
+        test_step = (nn_best[None].expand(ADVI_TEST_SAMPLES, -1).contiguous(),
+                     torch.as_tensor(rng.normal(-1.5, 1.0, (
+                         ADVI_TEST_SAMPLES, c_test.n)), **f32),
+                     c_test.glucose, c_test.cpeptide, c_test.kinetics(), tp)
+        rows = ADVI_RESTARTS * ADVI_JOINT_SAMPLES
+        nn_rows = np.repeat(cand["nn_params"], ADVI_JOINT_SAMPLES, 0)
+        b_rows = np.repeat(cand["betas"][..., 0], ADVI_JOINT_SAMPLES, 0)
+        joint_step = (
+            torch.as_tensor(nn_rows + spread * rng.normal(size=nn_rows.shape),
+                            **f32),
+            torch.as_tensor(b_rows + spread * rng.normal(size=b_rows.shape),
+                            **f32),
+            c_fit.glucose, c_fit.cpeptide, c_fit.kinetics(), tp)
+        for what, args, (r, n) in (
+                ("the test stage's step", test_step,
+                 (ADVI_TEST_SAMPLES, c_test.n)),
+                ("the joint stage's step", joint_step, (rows, c_fit.n))):
+            shape = f"exp_advi {what} ({r} x {n} = {r * n} lanes, 4 substeps)"
+            results["K2"]["err"] = max(results["K2"]["err"], k2_compare(
+                args, f"K2 {shape}", substeps=ADVI_SUBSTEPS))
+            advi_times[f"K2 {r * n}"] = dict(
+                ms=cuda_ms(lambda: lane_grad.lane_sse_and_grad(
+                    net, *args, ADVI_SUBSTEPS), reps=50),
+                device=graph_ms(lambda: lane_grad.lane_sse_and_grad(
+                    net, *args, ADVI_SUBSTEPS), reps=50),
+                plain=cuda_ms(lambda: lane_grad.lane_sse_and_grad_reference(
+                    net, *args, ADVI_SUBSTEPS), reps=3),
+                shape=shape, bound=k2_bound(r, n, ADVI_SUBSTEPS))
+        s = 500
+        lanes = s * c_test.n
+        grid = torch.as_tensor(linspace(-6.0, 2.0, 2000)[:s], device=dev)
+
+        def expand(x):
+            return x.expand(s, *x.shape).reshape(lanes, *x.shape[1:])
+
+        prof = (nn_best.expand(lanes, -1),
+                (grid[:, None] + torch.zeros(c_test.n, **f32)).reshape(-1),
+                expand(c_test.glucose), expand(c_test.cpeptide),
+                expand(c_test.kinetics()))
+        shape = f"exp_advi's profile chunk ({s} x {c_test.n} = {lanes} lanes)"
+        results["K4"]["err"] = max(results["K4"]["err"], exact(
+            rk4_cohort.cohort_sse(net, *prof, tp, 8),
+            rk4_cohort.cohort_sse_reference(net, *prof, tp, 8), f"K4 {shape}"))
+        flops, sfu = rk4_lane_work(2)
+        advi_times[f"K4 {lanes}"] = dict(
+            ms=cuda_ms(lambda: rk4_cohort.cohort_sse(net, *prof, tp, 8),
+                       reps=20),
+            device=graph_ms(lambda: rk4_cohort.cohort_sse(net, *prof, tp, 8),
+                            reps=50),
+            plain=cuda_ms(lambda: rk4_cohort.cohort_sse_reference(
+                net, *prof, tp, 8), reps=3),
+            shape=shape, bound=bound(4 * (p + lanes * (12 + 4)),
+                                     lanes * flops, lanes * sfu))
+
     def live_age_check() -> None:
         """Each covariate body on exp07's committed candidates and training
         β's, on their fit subjects with their real ages and with every age
@@ -1067,6 +1159,7 @@ def main() -> None:
 
     ablation_times = {}     # K1, K2 and K3 at exp05's shapes
     saem_times = {}         # K4 and K2 at SAEM's shapes
+    advi_times = {}         # K2 and K4 at exp_advi's shapes
     kernel_phase(2)
     kernel_phase(3)
     live_age_check()
@@ -1080,7 +1173,8 @@ def main() -> None:
                 f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}){steps}")
 
     for kid, r in [*results.items(), *wide.items(),
-                   *ablation_times.items(), *saem_times.items()]:
+                   *ablation_times.items(), *saem_times.items(),
+                   *advi_times.items()]:
         log(f"[time] {kid.split()[0]} at {r['shape']}: kernel "
             f"{r['ms']:.4f} ms{notes(r)}  [{card}]")
     if args.kernels_only:
@@ -1263,9 +1357,10 @@ def main() -> None:
 # started once the kernels are timed: those that launch no kernel (exp01,
 # the symbolic refits, SAEM on the analytic heads: eager PyTorch,
 # host-bound), the replication experiments (exp02_seeds and exp05 train, so
-# they launch K1, K2 and K3) and SAEM on the cUDE (K4 and K2)
+# they launch K1, K2 and K3), SAEM on the cUDE (K4 and K2), and exp_advi (K2
+# and K4) after exp_symreg_production, the child that ended first
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04"),
-        ("exp_symreg_production",),
+        ("exp_symreg_production", "exp_advi"),
         tuple(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
         ("exp02_seeds",),
         ("exp05", "replicate"),
@@ -1359,6 +1454,68 @@ SAEM_RETRAIN_SPREAD = {
     "consistent_omega.mse_map_per_type.T2DM": (0.0585541, 6.11564),
     "consistent_omega.posterior_map_spearman": (-0.528496, 0.998876)}
 SAEM_KERNELS = frozenset({"rk4_cohort", "lane_grad"})
+# exp_advi: K2 at 4 substeps, one launch a step of each stage (25 restarts x
+# 4 samples over 57 fit subjects, then 8 samples over 35 test subjects),
+# and K4 over the profile's 2,000 points in 4 chunks of 500
+ADVI_RESTARTS, ADVI_JOINT_SAMPLES, ADVI_TEST_SAMPLES = 25, 4, 8
+ADVI_SUBSTEPS = 4
+ADVI_JOINT_STEPS, ADVI_TEST_STEPS, ADVI_PROFILE_CHUNKS = 2000, 1500, 4
+ADVI_KERNELS = frozenset({"lane_grad", "rk4_cohort"})
+# the reduced run of both stages on the card and on the CPU from the same
+# draws: K2 is bit for bit its plain version, so only the eager float32 ops
+# differ (on the card a division by a Python number is a multiply by its
+# reciprocal; exp and log round differently), each step's rounding carried
+# into the next by Adam; held at the tolerance at which the port on the
+# CPU matches the JAX package (tests/test_torch_advi.py), whose K2 sums in
+# another order
+ADVI_REDUCED = dict(restarts=2, joint_steps=200, test_steps=200,
+                    profile_steps=200)
+ADVI_SAME_RTOL, ADVI_SAME_ATOL = 1e-4, 1e-5
+# the reduced run's CPU half takes this many threads, not the machine's
+# cores, which the main paths and the other children use beside it
+ADVI_CPU_THREADS = 2
+# the JAX package's exp_advi body on the CPU (python scripts/advi_reference.py
+# --keys 60 --only test, --keys 30 --only joint): each metric's least and
+# greatest over the script's key and 60 further keys (the test stage) or 30
+# (the joint stage), widened by half the width on each side (``widen``)
+ADVI_SPREAD = {
+    "test_spearman_first_phase": (-0.860545, -0.855782),
+    "test_beta_std_median": (0.0506728, 0.0586996),
+    "advi_sd_vs_profile_ci_corr": (0.917983, 0.929805),
+    "identifiable_fraction": (30 / 35, 30 / 35),
+    "joint_elbo_final_best": (-155.857, -119.891),
+    "joint_beta_pointfit_corr_mean": (0.781051, 0.802499),
+}
+# each test subject's least and greatest beta_mean and beta_std over the
+# same 61 test-stage runs (``per_subject``), widened as ``ADVI_SPREAD``
+ADVI_SUBJECT_SPREAD = {
+    "beta_mean": (
+        [-1.05519, -3.76813, -0.886551, -1.09525, -1.8544, -1.24428, -3.7427,
+         -0.939806, -0.770185, -1.44936, -1.12406, -0.973718, -0.91097,
+         -1.11135, -0.760989, -0.789948, -0.838881, -1.479, -0.948866,
+         -0.687597, -0.223718, -0.0432996, -0.134628, 0.180771, -0.198614,
+         -0.287604, -0.135011, -0.39991, -0.642944, -0.277926, -2.64404,
+         -0.379007, -0.121602, -0.276087, -0.0816495],
+        [-1.04486, -3.70166, -0.87714, -1.08595, -1.83325, -1.22328, -3.65021,
+         -0.904578, -0.762523, -1.43988, -1.11785, -0.97025, -0.904178,
+         -1.09665, -0.750596, -0.781919, -0.826884, -1.46318, -0.944041,
+         -0.681021, -0.218377, -0.0336401, -0.127596, 0.284703, -0.19324,
+         -0.281195, -0.129497, -0.391047, -0.638009, -0.274941, -2.57085,
+         -0.364177, -0.115458, -0.270247, -0.0763422]),
+    "beta_std": (
+        [0.0726361, 0.833166, 0.0628515, 0.0746606, 0.211143, 0.163, 0.733328,
+         0.303968, 0.0361656, 0.0843766, 0.0488006, 0.0257639, 0.0452093,
+         0.121641, 0.056814, 0.0612054, 0.107298, 0.121645, 0.0308754,
+         0.0338266, 0.0337863, 0.049923, 0.0449151, 0.0898995, 0.025397,
+         0.0461386, 0.0187735, 0.0498791, 0.0216614, 0.00810896, 0.772146,
+         0.0967415, 0.030001, 0.0265747, 0.0263272],
+        [0.0778866, 0.910065, 0.0662276, 0.077993, 0.226293, 0.171756,
+         0.80283, 0.322383, 0.0381675, 0.0890344, 0.0513543, 0.0269607,
+         0.0482635, 0.128151, 0.0603543, 0.0647054, 0.112299, 0.128155,
+         0.0322877, 0.0358353, 0.0376898, 0.0612973, 0.049779, 0.16182,
+         0.027865, 0.0491587, 0.0242041, 0.0526796, 0.0226729, 0.0103324,
+         0.830906, 0.101965, 0.0434651, 0.0300916, 0.0354498]),
+}
 
 
 def new_paths(dev):
@@ -1397,6 +1554,8 @@ def new_paths(dev):
         "exp06 retrain, seed 11": (
             lambda: run_saem_path(dev, seed=11, retrain=True),
             check_saem_retrain, SAEM_KERNELS | TRAINING_KERNELS),
+        "exp_advi": (lambda: run_advi_path(dev), check_advi_path,
+                     ADVI_KERNELS),
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
                    lambda res: check_saem_spread(res.metrics, "exp06a"), none),
         "exp06b": (lambda: run_exp06b(dev, ARTIFACTS),
@@ -1502,6 +1661,63 @@ def run_saem_path(dev, seed: int | None = None, retrain: bool = False):
     out.seconds["estimators_at_committed_fit"] = time.perf_counter() - t0
     out.fit = fit
     return out
+
+
+def run_advi_path(dev):
+    """exp_advi.  First a reduced run of both stages (``ADVI_REDUCED``) on
+    the card and on this machine's CPU (``ADVI_CPU_THREADS``), each from
+    the same draws, made on the CPU.  Then, with every kernel's count at
+    0, the full run through the entry point (``--experiment exp_advi --out
+    DIR``, in this process, DIR under ``build/``), its counts read just
+    after and its outputs read back from DIR."""
+    import contextlib
+    import io
+    import shutil
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch import __main__ as entry
+    from conditional_ude_tpu_torch import advi_pipeline
+    from conditional_ude_tpu_torch.ops import (
+        lane_grad,
+        population_grad,
+        rk4_cohort,
+        rk4_population,
+        tsit5_cohort,
+    )
+    from conditional_ude_tpu_torch.utils.checkpoint import load_checkpoint
+    seconds, reduced = {}, {}
+    threads = torch.get_num_threads()
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        if name == "cpu":
+            torch.set_num_threads(ADVI_CPU_THREADS)
+        t0 = time.perf_counter()
+        reduced[name] = advi_pipeline.run_exp_advi(where, ARTIFACTS,
+                                                   **ADVI_REDUCED)
+        seconds[f"reduced, {name}"] = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    out = REPO / "build" / "chip_smoke_advi"
+    shutil.rmtree(out, ignore_errors=True)
+    stdout, stderr = io.StringIO(), io.StringIO()
+    for mod in (rk4_cohort, rk4_population, lane_grad, tsit5_cohort,
+                population_grad):
+        mod.launches = mod.launches_age = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(
+            stderr):
+        entry.main(["--experiment", "exp_advi", "--out", str(out),
+                    "--device", str(dev)])
+    seconds["entry point"] = time.perf_counter() - t0
+    launches = {"K2": lane_grad.launches, "K4": rk4_cohort.launches}
+    for line in stderr.getvalue().strip().splitlines():
+        log(f"[exp_advi] standard error: {line}")
+    metrics = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    seconds.update({f"full {k}": v
+                    for k, v in metrics["stage_seconds"].items()})
+    return SimpleNamespace(
+        reduced=reduced, metrics=metrics, launches=launches,
+        joint=load_checkpoint(out / "advi_cude_results.npz")[0],
+        test=load_checkpoint(out / "advi_test_posteriors.npz")[0],
+        seconds=seconds)
 
 
 def run_side(names: list[str], out: Path) -> None:
@@ -2010,6 +2226,72 @@ def check_saem_retrain(res) -> list[str]:
                 else [f"route {res.run.route}"])
     return failures + check_saem_spread(res.metrics, "exp06 retrain, seed 11",
                                         SAEM_RETRAIN_SPREAD)
+
+
+def check_advi_path(res) -> list[str]:
+    """exp_advi on the card: the launches (K2 one a step of each stage, K4
+    one a profile chunk, exactly); the reduced run on the card against the
+    same on the CPU, array by array; the written posteriors finite; and
+    each metric, and each test subject's β mean and sd, inside the JAX
+    spread widened (the committed TPU values printed beside them as a
+    report)."""
+    failures = []
+    k2, k4 = ADVI_JOINT_STEPS + ADVI_TEST_STEPS, ADVI_PROFILE_CHUNKS
+    log(f"[check] exp_advi launches: K2 {res.launches['K2']} (expected {k2}),"
+        f" K4 {res.launches['K4']} (expected {k4})")
+    if (res.launches["K2"], res.launches["K4"]) != (k2, k4):
+        failures.append(f"launches {res.launches}")
+
+    card, cpu = res.reduced["card"], res.reduced["cpu"]
+    for stage in ("joint", "test"):
+        for k, want in getattr(cpu, stage).items():
+            got = getattr(card, stage)[k]
+            err = np.abs(got - want)
+            worst = float(np.max(err / (ADVI_SAME_ATOL
+                                        + ADVI_SAME_RTOL * np.abs(want))))
+            log(f"[check] exp_advi reduced, card against CPU, {stage} {k}: "
+                f"max abs diff {float(err.max()):.3e}, {worst:.3f} of the "
+                f"limit (rtol {ADVI_SAME_RTOL}, atol {ADVI_SAME_ATOL})")
+            if not worst <= 1.0:
+                failures.append(f"reduced {stage} {k}: {worst} of the limit")
+    for k, want in cpu.metrics.items():
+        if k in ("stage_seconds", "n_restarts"):
+            continue
+        got = card.metrics[k]
+        log(f"[check] exp_advi reduced {k}: card {got!r}, CPU {want!r}")
+        if not np.isclose(got, want, rtol=ADVI_SAME_RTOL, atol=0.0):
+            failures.append(f"reduced {k}: card {got}, CPU {want}")
+
+    for name, arrays in (("advi_cude_results", res.joint),
+                         ("advi_test_posteriors", res.test)):
+        failures += [f"{name}.npz {k} not finite" for k, v in arrays.items()
+                     if not np.isfinite(v).all()]
+
+    committed = json.loads((REPO / "results" / "exp_advi_metrics.json")
+                           .read_text())
+    for key, (lo, hi) in ADVI_SPREAD.items():
+        lo, hi = widen(lo, hi)
+        value = res.metrics.get(key)
+        value = float("nan") if value is None else value
+        log(f"[check] exp_advi {key} {value:.6g} (JAX on the CPU over its "
+            f"keys, widened: {lo:.6g} to {hi:.6g}; the committed TPU run "
+            f"{committed[key]:.6g})")
+        if not lo <= value <= hi:
+            failures.append(f"exp_advi {key} {value}")
+    tpu = np.load(ARTIFACTS / "advi_test_posteriors.npz")
+    for key, (lo, hi) in ADVI_SUBJECT_SPREAD.items():
+        lo, hi = widen(np.asarray(lo), np.asarray(hi))
+        got = res.test[key]
+        outside = np.flatnonzero(~((lo <= got) & (got <= hi)))
+        margin = np.minimum(got - lo, hi - got) / (hi - lo)
+        log(f"[check] exp_advi test {key}: {35 - outside.size} of 35 "
+            "subjects inside JAX's per-subject spread widened (least margin "
+            f"{float(margin.min()):.3f} of the widened width, subject "
+            f"{int(np.argmin(margin))}); max |diff| from the committed TPU "
+            f"run {float(np.abs(got - tpu[key]).max()):.4g}")
+        failures += [f"exp_advi test {key} subject {i}: {got[i]:.6g} outside "
+                     f"{lo[i]:.6g} to {hi[i]:.6g}" for i in outside]
+    return failures
 
 
 def committed_sse(fit: dict, sigmas: str, objectives: str,

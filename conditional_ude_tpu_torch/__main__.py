@@ -15,6 +15,7 @@
     python -m conditional_ude_tpu_torch --experiment exp06 [--retrain]   # SAEM, the cUDE
     python -m conditional_ude_tpu_torch --experiment exp06a              # SAEM, the symbolic model
     python -m conditional_ude_tpu_torch --experiment exp06b              # SAEM, the discovered equation
+    python -m conditional_ude_tpu_torch --experiment exp_advi [--restarts N] [--seed S]   # ADVI
     python -m conditional_ude_tpu_torch --out runs/exp02   # also write the metrics and outputs there
     python -m conditional_ude_tpu_torch --device cpu    # the plain versions, on the CPU
 
@@ -27,11 +28,15 @@ and its outputs into DIR: exp02's dose-response table
 (``seeds/cude_neural_parameters_<s>.npz``), exp05's rows
 (``exp05_ablation.csv``), and exp06's fit (``saem_fit.npz``), dose-response
 grid (``neural_simulations.csv``) and, with ``--retrain``, pre-train
-(``saem_pretrain.npz``), in the JAX package's formats.  It never writes
+(``saem_pretrain.npz``), and exp_advi's posteriors
+(``advi_cude_results.npz``, ``advi_test_posteriors.npz``), in the JAX
+package's formats.  It never writes
 into the artifacts directory or ``results/``, which hold the JAX package's
 reference.  exp02_seeds and exp05 always train; exp02_seeds prints one
 JSON line a seed.  exp06, exp06a and exp06b write their metrics with the
-JAX keys only and print their stage seconds on the standard error.  Last,
+JAX keys only and print their stage seconds on the standard error;
+exp_advi's metrics carry its ``stage_seconds`` in place of the JAX
+script's two timers.  Last,
 on the standard error, the kernels the run launched: ``{"launches":
 {module: count}}``.
 """
@@ -46,7 +51,12 @@ from pathlib import Path
 
 import torch
 
-from conditional_ude_tpu_torch import ablation, saem_pipeline, seeds
+from conditional_ude_tpu_torch import (
+    ablation,
+    advi_pipeline,
+    saem_pipeline,
+    seeds,
+)
 from conditional_ude_tpu_torch.fit.train import TrainConfig
 from conditional_ude_tpu_torch.ops import (
     lane_grad,
@@ -74,7 +84,9 @@ SYMBOLIC = {"exp03": run_exp03, "exp04": run_exp04,
             "symreg_production": run_symreg_production}
 SAEM = {"exp06": saem_pipeline.run_exp06, "exp06a": saem_pipeline.run_exp06a,
         "exp06b": saem_pipeline.run_exp06b}
-EXPERIMENTS = ("exp01", "exp02", "exp02_seeds", "exp05", *SAEM, *SYMBOLIC)
+EXPERIMENTS = ("exp01", "exp02", "exp02_seeds", "exp05", *SAEM, "exp_advi",
+               *SYMBOLIC)
+XL_RESTARTS = 96        # --xl --retrain's restarts unless --restarts says
 
 
 def out_dir(out: Path | None, artifacts: Path) -> Path | None:
@@ -125,7 +137,8 @@ def _main(argv) -> None:
                         "exp02_seeds (exp02's retrain at several seeds), "
                         "exp05 (the less-data ablation), exp06, exp06a or "
                         "exp06b (SAEM on the cUDE, the symbolic model and "
-                        "the discovered equation), exp03, exp04 or "
+                        "the discovered equation), exp_advi (ADVI "
+                        "posteriors of the cUDE), exp03, exp04 or "
                         "symreg_production (the symbolic refits)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
@@ -157,14 +170,18 @@ def _main(argv) -> None:
                         "beside the plain one (combines with --retrain)")
     p.add_argument("--inits", type=int, default=400_000,
                    help="designs screened by --xl --retrain")
-    p.add_argument("--restarts", type=int, default=96,
-                   help="restarts refined by --xl --retrain; above 131,072 / "
-                        "57 = 2,299 of them the value+grad kernel is the "
-                        "restart kernel")
+    p.add_argument("--restarts", type=int, default=None,
+                   help="restarts refined by --xl --retrain (default 96; "
+                        "above 131,072 / 57 = 2,299 of them the value+grad "
+                        "kernel is the restart kernel); exp_advi: the "
+                        "joint posteriors of the first N candidates "
+                        "(default all 25)")
     p.add_argument("--seed", type=int, default=SEED,
                    help="seed of the fit/validation split and the training "
                         "designs (--retrain) and of exp02's sampled bands; "
-                        "exp05's first ablation seed")
+                        "exp05's first ablation seed; the seed of "
+                        "exp_advi's joint-stage draws (its test stage's "
+                        "is 7)")
     p.add_argument("--seeds", type=int, nargs="+",
                    default=list(seeds.DEFAULT_SEEDS),
                    help="exp02_seeds: the seeds to run, one after another")
@@ -179,6 +196,9 @@ def _main(argv) -> None:
         p.error("--covariate and --xl select variants of exp02")
     if args.experiment in (*SYMBOLIC, "exp06a", "exp06b") and args.retrain:
         p.error(f"{args.experiment} has no --retrain: it fits every subject")
+    if args.experiment == "exp_advi" and args.retrain:
+        p.error("exp_advi has no --retrain: it starts from the committed "
+                "candidates")
     if args.merge and args.experiment != "exp02_seeds":
         p.error("--merge merges exp02_seeds' records")
     if args.merge:
@@ -218,6 +238,16 @@ def _main(argv) -> None:
         print(json.dumps(metrics))
         return
 
+    if args.experiment == "exp_advi":
+        run = advi_pipeline.run_exp_advi(args.device, args.artifacts,
+                                         seed=args.seed,
+                                         restarts=args.restarts)
+        print("[exp_advi] reference ADVI cross-check skipped (this package "
+              "reads no JLD2 file)", file=sys.stderr)
+        if out is not None:
+            advi_pipeline.write_outputs(out, run)
+        print(json.dumps(run.metrics))
+        return
     if args.experiment in SAEM:
         kw = {"retrain": args.retrain} if args.experiment == "exp06" else {}
         run = SAEM[args.experiment](args.device, args.artifacts,
@@ -250,8 +280,10 @@ def _main(argv) -> None:
         if args.retrain:
             config = TrainConfig()
             if args.xl:
-                config = TrainConfig(initial_guesses=args.inits,
-                                     selected_initials=args.restarts)
+                config = TrainConfig(
+                    initial_guesses=args.inits,
+                    selected_initials=(XL_RESTARTS if args.restarts is None
+                                       else args.restarts))
             res = run_training_pipeline(args.device, args.artifacts,
                                         seed=args.seed, config=config,
                                         lbfgs_iters=args.lbfgs_iters,

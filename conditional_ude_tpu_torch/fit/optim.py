@@ -6,7 +6,11 @@ elementwise, so the batched form here is the same update on every row.  It
 follows ``optax.adam`` operation by operation: first and second moments
 ``(1 − b)·g^k + b·m``, bias corrections ``1 − b^count`` in float32 from an
 integer step count, ``m̂ / (sqrt(v̂) + eps)`` scaled by ``−lr``.  Non-finite
-gradient entries (diverged solves) are zeroed before the update.
+gradient entries (diverged solves) are zeroed before the update by
+:func:`adam_minimize`.  :func:`adam_step` is one update on explicit state
+at a step size of the caller's, for loops that do more than step: ADVI
+records its ELBO after each update and reads its step size from
+:func:`cosine_decay` (``optax.cosine_decay_schedule``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,48 @@ def adam_init(x: Sequence[torch.Tensor]) -> AdamState:
                      tuple(torch.zeros_like(a) for a in x))
 
 
+def cosine_decay(lr: float, steps: int,
+                 alpha: float = 0.0) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule(lr, steps, alpha)``: the step size at
+    step count c (read before the update increments it),
+    ``lr·((1 − α)·½·(1 + cos(π·min(c, T)/T)) + α)``, computed in float64
+    and rounded once to float32.  XLA rewrites the expression (π/T folded
+    into one float32 constant, (1 − α)·½ into another) and its float32
+    cosine is not correctly rounded, so JAX's values on the CPU are within
+    four float32 roundings of lr of these, not equal to them."""
+    if steps <= 0:
+        raise ValueError(f"the schedule needs positive steps, got {steps}")
+
+    def schedule(count: int) -> float:
+        c = min(count, steps)
+        decayed = (1.0 - alpha) * 0.5 * (1.0 + np.cos(np.pi * c / steps)) \
+            + alpha
+        return f32(lr * decayed)
+    return schedule
+
+
+def adam_step(x: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+              state: AdamState, lr: float) -> tuple[tuple[torch.Tensor, ...],
+                                                    AdamState]:
+    """One ``optax.adam`` update of ``x`` by ``grads`` at step size ``lr``
+    (a schedule's value at ``state.count``): the new ``x`` and state.  The
+    gradients are taken as they are, non-finite entries included."""
+    c1, c2 = f32(1.0 - B1), f32(1.0 - B2)
+    b1, b2, eps, neg_lr = f32(B1), f32(B2), f32(EPS), f32(-lr)
+    count, mu, nu = state
+    mu = tuple(c1 * g + b1 * m for g, m in zip(grads, mu))
+    nu = tuple(c2 * (g * g) + b2 * v for g, v in zip(grads, nu))
+    count += 1
+    # as 0-d tensors: PyTorch on the card multiplies by the reciprocal
+    # of a Python-number divisor, optax divides
+    bc1, bc2 = (torch.tensor(np.float32(1.0) - np.float32(b)
+                             ** np.float32(count), device=x[0].device)
+                for b in (B1, B2))
+    x = tuple(a + ((m / bc1) / (torch.sqrt(v / bc2 + 0.0) + eps)) * neg_lr
+              for a, m, v in zip(x, mu, nu))
+    return x, AdamState(count, mu, nu)
+
+
 def _autograd_vg(fun):
     def vg(x):
         with torch.enable_grad():
@@ -68,24 +114,12 @@ def adam_minimize(
     vg = fun_and_grad if fun_and_grad is not None else _autograd_vg(fun)
     x = tuple(a.detach() for a in x0)
     state = adam_init(x) if opt_state is None else opt_state
-    c1, c2 = f32(1.0 - B1), f32(1.0 - B2)
-    b1, b2, eps, neg_lr = f32(B1), f32(B2), f32(EPS), f32(-lr)
-    count, mu, nu = state
     trace = []
     for _ in range(iters):
         f, grads = vg(x)
         trace.append(f)
         grads = [torch.where(torch.isfinite(g), g, 0.0) for g in grads]
-        mu = tuple(c1 * g + b1 * m for g, m in zip(grads, mu))
-        nu = tuple(c2 * (g * g) + b2 * v for g, v in zip(grads, nu))
-        count += 1
-        # as 0-d tensors: PyTorch on the card multiplies by the reciprocal
-        # of a Python-number divisor, optax divides
-        bc1, bc2 = (torch.tensor(np.float32(1.0) - np.float32(b)
-                                 ** np.float32(count), device=x[0].device)
-                    for b in (B1, B2))
-        x = tuple(a + ((m / bc1) / (torch.sqrt(v / bc2 + 0.0) + eps)) * neg_lr
-                  for a, m, v in zip(x, mu, nu))
+        x, state = adam_step(x, grads, state, lr)
     fval = None
     if fun is not None:
         with torch.no_grad():
@@ -94,4 +128,4 @@ def adam_minimize(
     loss_trace = (torch.stack(trace, dim=-1) if trace
                   else torch.zeros(x[0].shape[0], 0, device=dev))
     return AdamResult(x=x, fval=fval, loss_trace=loss_trace,
-                      opt_state=AdamState(count, mu, nu))
+                      opt_state=state)

@@ -206,6 +206,22 @@ def test_value_and_grad_kernel_is_its_plain_version_bit_for_bit(card, r, n):
         _assert_same(got, want)
 
 
+# exp_advi's steps at 4 substeps (37 points a lane): the test stage's 8
+# sample rows over 35 subjects (280 lanes) and the joint stage's 25 x 4 rows
+# over 57 (5,700)
+@pytest.mark.parametrize("r,n", [(8, 35), (100, 57)])
+def test_value_and_grad_kernel_at_4_substeps_is_its_plain_version(card, r, n):
+    net, args = _restarts(r, n, card)
+    before = lane_grad.launches
+    out = lane_grad.lane_sse_and_grad(net, *args, 4)
+    assert lane_grad.launches == before + 1
+    ref = lane_grad.lane_sse_and_grad_reference(net, *args, 4)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(out[0][-1]).all())
+    for got, want in zip(out, ref):
+        _assert_same(got, want)
+
+
 def test_population_sse_autograd_launches_once(card):
     net, (nn, betas, *cohort) = _restarts(4, 6, card)
     x = nn.clone().requires_grad_(True)
