@@ -123,8 +123,21 @@
     3,500 times and K4 4 and nothing else; its metrics and each test
     subject's β mean and sd are held to the spread of the JAX package's
     own runs over keys on the CPU (``scripts/advi_reference.py``) widened
-    as in 17.
-    12-20 are bound by the host, so they run in seven child processes (this
+    as in 17;
+21. runs exp_suppression, which must launch no kernel, after exp_advi:
+    the port's loss at the 25 restarts of each of the 14 committed
+    ``artifacts/suppression_lambda=*.npz`` on its own training data
+    (the true p4 exact, the objectives within max(1e-4, twice JAX-CPU's
+    own miss of the file)); ``--test-only`` through the entry point with
+    its L-BFGS cut to 20 steps (the selections, Spearmans and each
+    restart's revalidation, but the three that JAX leaves undetermined at
+    that depth, against JAX-CPU's at the same cut, from
+    ``scripts/suppression_reference.py``; at full depth it takes ~16 min
+    alone on an H100, ``scripts/suppression_runs.py``); and a reduced
+    retrain (all 37 subjects, the full network, 10,000 designs and 25
+    restarts, 100 Adam and 5 L-BFGS steps) whose metrics of each λ are
+    held to JAX-CPU's spread over 16 keys, widened as in 17.
+    12-21 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -1358,9 +1371,10 @@ def main() -> None:
 # the symbolic refits, SAEM on the analytic heads: eager PyTorch,
 # host-bound), the replication experiments (exp02_seeds and exp05 train, so
 # they launch K1, K2 and K3), SAEM on the cUDE (K4 and K2), and exp_advi (K2
-# and K4) after exp_symreg_production, the child that ended first
+# and K4) then exp_suppression (no kernel) after exp_symreg_production, the
+# child that ended first
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04"),
-        ("exp_symreg_production", "exp_advi"),
+        ("exp_symreg_production", "exp_advi", "exp_suppression"),
         tuple(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
         ("exp02_seeds",),
         ("exp05", "replicate"),
@@ -1517,6 +1531,98 @@ ADVI_SUBJECT_SPREAD = {
          0.830906, 0.101965, 0.0434651, 0.0300916, 0.0354498]),
 }
 
+# exp_suppression: no kernel serves it.  The committed test stage at the
+# λ = 0.01 artifact (results/exp_suppression_metrics.json) and the limit of
+# its Spearmans and of each revalidated restart's correlation_valid;
+# JAX-CPU's own largest relative miss of the committed loss_valid of those
+# 25 restarts revalidated at full depth (scripts/suppression_reference.py
+# --only test: restart 24, whose refit is the least determined), of which
+# the port's may miss twice
+SUPPRESSION_TEST_STAGE = {"selected_restart": 4, "best_valid_rho_restart": 5,
+                          "spearman": 0.7568213392609059,
+                          "spearman_best_valid_rho_restart":
+                              0.8531814392886915}
+SUPPRESSION_RHO_TOL = 0.01
+SUPPRESSION_VALID_MISS = 7.912e-3
+# JAX-CPU's largest relative miss of each committed
+# artifacts/suppression_lambda=<λ>.npz's objectives, on its own training
+# data (scripts/suppression_reference.py --only artifacts); the port's loss
+# is held to max(1e-4, twice that)
+SUPPRESSION_ARTIFACT_MISS = {
+    0.0: 4.241e-4, 0.001: 5.746e-05, 0.01: 2.134e-05,
+    0.015848931925: 1.454e-05, 0.025118864315: 1.061e-05, 0.039810717055: 2.027e-05,
+    0.063095734448: 1.919e-05, 0.1: 1.693e-05, 0.158489319246: 1.669e-05,
+    0.251188643151: 1.299e-05, 1.0: 9.203e-05, 10.0: 2.73e-05,
+    100.0: 1.293e-05, 1000.0: 1.788e-06}
+# the reduced retrain beside the main run: the full population, network,
+# designs and restarts, fewer steps and validation candidates.  A
+# value+grad takes ~0.25-0.4 s of host time alone on an H100 80GB HBM3 at
+# 700 W (~22,000 launches of eager PyTorch, 45 ms of device time) whatever
+# the rows, so the steps are cut: 100 Adam and 5 L-BFGS (the validations'
+# too), and the frozen test stage's L-BFGS to SUPPRESSION_TEST_LBFGS steps
+# (its full depth, 2,000, took 954.65 s alone on that card:
+# scripts/suppression_runs.py)
+SUPPRESSION_REDUCED = dict(initial_space=10_000, select_best_n=25,
+                           adam_iters=100, lbfgs_iters=5, valid_inits=1000)
+SUPPRESSION_TEST_LBFGS = 20
+# JAX-CPU's --test-only with its L-BFGS cut to SUPPRESSION_TEST_LBFGS steps
+# (scripts/suppression_reference.py --only test --lbfgs-iters 20): the
+# selections and Spearmans (± SUPPRESSION_RHO_TOL) the card's cut run is
+# held to, and each restart's loss_valid (within SUPPRESSION_CUT_RTOL) and
+# correlation_valid (± SUPPRESSION_RHO_TOL).  Not the restarts that the cut
+# leaves undetermined, SUPPRESSION_CUT_UNDETERMINED: JAX-CPU's own refits
+# of them move by more than those limits when the candidates move one
+# float32 ulp (--perturb, then --compare: restart 24 by 3.3 % and 0.0102,
+# 23 by 0.59 %, 3 by 0.10 %; every other restart by 5e-5 at most), since
+# L-BFGS in float32 is chaotic mid-descent; they are printed as a report
+SUPPRESSION_CUT = {
+    "selected_restart": 8, "best_valid_rho_restart": 13,
+    "spearman": 0.8865240345,
+    "spearman_best_valid_rho_restart": 0.9220894693,
+    "loss_valid": np.asarray([
+        0.40428326, 0.3895908, 0.38452187, 1.8129168, 0.47621715,
+        0.38943484, 0.38049975, 0.37919179, 0.37897202, 0.40047902,
+        2.4512663, 0.40034291, 0.38516685, 0.38548964, 0.39439034,
+        0.39051285, 0.40364966, 0.38655746, 0.42014727, 0.42459783,
+        0.40676895, 0.39163283, 0.39194605, 1.0059018, 1.0040753]),
+    "correlation_valid": np.asarray([
+        0.97063404, 0.95817575, 0.92791991, 0.12569522, 0.83982202,
+        0.97152392, 0.96751947, 0.96529477, 0.96529477, -0.97196885,
+        -0.91679644, -0.88876529, 0.95995551, 0.97196885, 0.96440489,
+        -0.96084538, 0.96440489, -0.96484983, 0.96573971, 0.85272525,
+        0.96307008, -0.96618465, 0.70189099, 0.75305895, 0.78286986])}
+SUPPRESSION_CUT_RTOL = 1e-3
+SUPPRESSION_CUT_UNDETERMINED = (3, 23, 24)
+# JAX-CPU's reduced retrain at SUPPRESSION_REDUCED (10,000 designs, 25
+# restarts, 100 Adam and 5 L-BFGS steps, 1,000 validation candidates) over
+# 16 keys (scripts/suppression_reference.py --only spread --seeds 270523 11
+# 22 ... 165, then --merge; the merged output is
+# scripts/suppression_spread.json): each λ's least and greatest, widened
+# as SAEM_SPREAD.  At this depth the λ = 1 network is not yet flat, so its
+# ρ's spread; at full depth it is (the committed run's λ ≥ 1 restarts
+# all have validation ρ −0.2436, results/suppression_selection_sensitivity)
+SUPPRESSION_SPREAD = {
+    "0.0": {
+        "best_correlation_train": (0.29255571360834515, 0.6064485538169748),
+        "best_correlation_valid": (0.9692992213570634, 0.9826473859844269),
+        "best_objective": (1.5556408166885376, 1.7411478757858276)},
+    "0.001": {
+        "best_correlation_train": (0.29255571360834515, 0.6064485538169748),
+        "best_correlation_valid": (0.9706340378197997, 0.9839822024471635),
+        "best_objective": (1.5796664953231812, 1.7611535787582397)},
+    "0.01": {
+        "best_correlation_train": (0.2726410621147463, 0.6064485538169748),
+        "best_correlation_valid": (0.971078976640712, 0.9822024471635149),
+        "best_objective": (1.7622030973434448, 1.9345649480819702)},
+    "0.1": {
+        "best_correlation_train": (0.27240398293029866, 0.6102418207681365),
+        "best_correlation_valid": (0.9759733036707454, 0.9835372636262512),
+        "best_objective": (2.583693504333496, 3.0973563194274902)},
+    "1.0": {
+        "best_correlation_train": (0.23992413466097673, 0.5723091512565197),
+        "best_correlation_valid": (0.435817575083426, 0.7383759733036708),
+        "best_objective": (4.784222602844238, 4.82206392288208)}}
+
 
 def new_paths(dev):
     """Name -> (run, check, the kernels it must launch) of each path beside
@@ -1556,6 +1662,8 @@ def new_paths(dev):
             check_saem_retrain, SAEM_KERNELS | TRAINING_KERNELS),
         "exp_advi": (lambda: run_advi_path(dev), check_advi_path,
                      ADVI_KERNELS),
+        "exp_suppression": (lambda: run_suppression_path(dev),
+                            check_suppression_path, none),
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
                    lambda res: check_saem_spread(res.metrics, "exp06a"), none),
         "exp06b": (lambda: run_exp06b(dev, ARTIFACTS),
@@ -1718,6 +1826,71 @@ def run_advi_path(dev):
         joint=load_checkpoint(out / "advi_cude_results.npz")[0],
         test=load_checkpoint(out / "advi_test_posteriors.npz")[0],
         seconds=seconds)
+
+
+def run_suppression_path(dev):
+    """exp_suppression, which launches no kernel: the port's loss at every
+    committed ``artifacts/suppression_lambda=*.npz`` on its own training
+    data; ``--experiment exp_suppression --test-only --lbfgs-iters
+    SUPPRESSION_TEST_LBFGS`` through the entry point (in this process, its
+    outputs under ``build/``); and the reduced retrain
+    (``SUPPRESSION_REDUCED``) through ``run_exp_suppression``."""
+    import contextlib
+    import io
+    import shutil
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch import __main__ as entry
+    from conditional_ude_tpu_torch import suppression_pipeline as pipe
+    from conditional_ude_tpu_torch.models import suppression as sup
+    seconds, artifacts = {}, {}
+    t0 = time.perf_counter()
+    data, gt = sup.generate_data(pipe.GROUP_MEANS, pipe.FULL.train,
+                                 pipe.TIMEPOINTS, 0.1,
+                                 rng=np.random.default_rng(pipe.DATA_SEED),
+                                 device=dev)
+    net = sup.suppression_net()
+    for path in sorted(ARTIFACTS.glob("suppression_lambda=*.npz")):
+        ck = np.load(path)
+        lam = json.loads(path.with_suffix(".json").read_text())["lambda"]
+        with torch.no_grad():
+            loss = sup.suppression_loss(
+                net, torch.as_tensor(ck["nn_params"], device=dev),
+                torch.as_tensor(ck["thetas"], device=dev), data,
+                pipe.TIMEPOINTS, torch.full((25,), lam, device=dev))
+        artifacts[lam] = (loss.cpu().numpy(), ck["objectives"],
+                          bool(np.array_equal(ck["gt_train"], gt)))
+    seconds["committed artifacts"] = time.perf_counter() - t0
+
+    out = REPO / "build" / "chip_smoke_suppression"
+    shutil.rmtree(out, ignore_errors=True)
+    stdout, stderr = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(
+            stderr):
+        entry.main(["--experiment", "exp_suppression", "--test-only",
+                    "--lbfgs-iters", str(SUPPRESSION_TEST_LBFGS), "--out",
+                    str(out), "--device", str(dev)])
+    seconds["test-only entry point"] = time.perf_counter() - t0
+    lines = stderr.getvalue().strip().splitlines()
+    revalidated = next(json.loads(line)["revalidated"] for line in lines
+                       if line.startswith('{"revalidated"'))
+    test_only = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    seconds.update({f"test-only {k}": v
+                    for k, v in test_only["stage_seconds"].items()})
+
+    red = SUPPRESSION_REDUCED
+    sizes = pipe.Sizes(valid_inits=red["valid_inits"], fit=sup.
+                       SuppressionFitConfig(**{k: v for k, v in red.items()
+                                               if k != "valid_inits"}))
+    t0 = time.perf_counter()
+    retrain = pipe.run_exp_suppression(dev, ARTIFACTS, sizes=sizes,
+                                       no_test_stage=True)
+    seconds["reduced retrain"] = time.perf_counter() - t0
+    seconds.update({f"reduced {k}": v for k, v in retrain.seconds.items()})
+    return SimpleNamespace(artifacts=artifacts, test_only=test_only,
+                           revalidated=revalidated, retrain=retrain,
+                           seconds=seconds)
 
 
 def run_side(names: list[str], out: Path) -> None:
@@ -2291,6 +2464,89 @@ def check_advi_path(res) -> list[str]:
             f"run {float(np.abs(got - tpu[key]).max()):.4g}")
         failures += [f"exp_advi test {key} subject {i}: {got[i]:.6g} outside "
                      f"{lo[i]:.6g} to {hi[i]:.6g}" for i in outside]
+    return failures
+
+
+def check_suppression_path(res) -> list[str]:
+    """exp_suppression on the card: (i) the committed artifacts' objectives
+    and true p4; (ii) ``--test-only`` at ``SUPPRESSION_TEST_LBFGS`` L-BFGS
+    steps against JAX-CPU's at the same cut; (iii) each λ's
+    reduced-retrain metrics inside JAX-CPU's spread over keys, widened.
+    That no kernel launched is the caller's check."""
+    failures = []
+    for lam, (loss, want, gt_exact) in res.artifacts.items():
+        miss = float(np.max(np.abs(loss / want - 1)))
+        limit = max(1e-4, 2 * SUPPRESSION_ARTIFACT_MISS[lam])
+        log(f"[check] exp_suppression artifact λ={lam}: objectives' largest "
+            f"relative miss {miss:.3e} (limit {limit:.3e}), true p4 "
+            f"{'exact' if gt_exact else 'DIFFERS'}")
+        if not (miss <= limit and gt_exact):
+            failures.append(f"artifact λ={lam}: miss {miss}, p4 {gt_exact}")
+
+    # (ii) at SUPPRESSION_TEST_LBFGS steps, against JAX-CPU at the same cut
+    ts, want = res.test_only.get("test_stage", {}), SUPPRESSION_CUT
+    for key in ("selected_restart", "best_valid_rho_restart"):
+        log(f"[check] exp_suppression --test-only at {SUPPRESSION_TEST_LBFGS}"
+            f" L-BFGS steps, {key}: {ts.get(key)} (JAX-CPU {want.get(key)})")
+        if ts.get(key) != want.get(key):
+            failures.append(f"--test-only {key} {ts.get(key)}")
+    for key in ("spearman", "spearman_best_valid_rho_restart"):
+        got, ref = ts.get(key, float("nan")), want.get(key, float("nan"))
+        log(f"[check] exp_suppression --test-only {key}: {got:.6g} (JAX-CPU "
+            f"{ref:.6g} ± {SUPPRESSION_RHO_TOL}; at full depth the "
+            f"committed {SUPPRESSION_TEST_STAGE[key]:.6g})")
+        if not abs(got - ref) <= SUPPRESSION_RHO_TOL:
+            failures.append(f"--test-only {key} {got}")
+    loss = np.asarray([r["loss_valid"] for r in res.revalidated])
+    rho = np.asarray([r["correlation_valid"] for r in res.revalidated])
+    if loss.shape != (25,):
+        failures.append(f"--test-only revalidated {loss.shape} restarts")
+    else:
+        loss_miss = np.abs(loss / want["loss_valid"] - 1)
+        rho_miss = np.abs(rho - want["correlation_valid"])
+        for r in SUPPRESSION_CUT_UNDETERMINED:
+            log(f"[check] exp_suppression --test-only, restart {r} (not "
+                f"determined at the cut, a report): loss_valid "
+                f"{loss[r]:.6g} against JAX-CPU's {want['loss_valid'][r]:.6g}"
+                f", correlation_valid {rho[r]:.4f} against "
+                f"{want['correlation_valid'][r]:.4f}")
+        held = np.setdiff1d(np.arange(25), SUPPRESSION_CUT_UNDETERMINED)
+        loss_miss, rho_miss = loss_miss[held], rho_miss[held]
+        log(f"[check] exp_suppression --test-only, the other 22 restarts "
+            f"revalidated: loss_valid's largest relative miss of JAX-CPU's "
+            f"{loss_miss.max():.3e} (restart {int(held[loss_miss.argmax()])}"
+            f"; limit {SUPPRESSION_CUT_RTOL}), correlation_valid's "
+            f"{rho_miss.max():.4f} (restart {int(held[rho_miss.argmax()])}; "
+            f"limit {SUPPRESSION_RHO_TOL})")
+        loss_miss, rho_miss = float(loss_miss.max()), float(rho_miss.max())
+        if not (loss_miss <= SUPPRESSION_CUT_RTOL
+                and rho_miss <= SUPPRESSION_RHO_TOL):
+            failures.append(f"--test-only revalidation: loss {loss_miss}, "
+                            f"ρ {rho_miss}")
+
+    return failures + check_suppression_spread(res.retrain.rows)
+
+
+def check_suppression_spread(rows: list[dict]) -> list[str]:
+    """Each λ's best train and validation ρ and best objective of a reduced
+    retrain's ``rows`` inside ``SUPPRESSION_SPREAD``, widened."""
+    failures = []
+    for lam, spread in SUPPRESSION_SPREAD.items():
+        lam_rows = [r for r in rows if r["lambda"] == float(lam)]
+        got = {"best_correlation_train": max(r["correlation_train"]
+                                             for r in lam_rows),
+               "best_correlation_valid": max(r["correlation_valid"]
+                                             for r in lam_rows),
+               "best_objective": min(r["loss_train"] for r in lam_rows)}
+        for key, (lo, hi) in spread.items():
+            lo, hi = widen(lo, hi)
+            log(f"[check] exp_suppression reduced retrain λ={lam} {key} "
+                f"{got[key]:.6g} (JAX on the CPU over its keys, widened: "
+                f"{lo:.6g} to {hi:.6g})")
+            if not lo <= got[key] <= hi:
+                failures.append(f"reduced retrain λ={lam} {key} {got[key]}")
+    if not SUPPRESSION_SPREAD:
+        failures.append("no JAX spread for the reduced retrain")
     return failures
 
 

@@ -16,6 +16,9 @@
     python -m conditional_ude_tpu_torch --experiment exp06a              # SAEM, the symbolic model
     python -m conditional_ude_tpu_torch --experiment exp06b              # SAEM, the discovered equation
     python -m conditional_ude_tpu_torch --experiment exp_advi [--restarts N] [--seed S]   # ADVI
+    python -m conditional_ude_tpu_torch --experiment exp_suppression --out runs/sup   # the λ sweep
+    python -m conditional_ude_tpu_torch --experiment exp_suppression --test-only --out runs/sup
+    python -m conditional_ude_tpu_torch --experiment exp_suppression --selection-sensitivity --out runs/sup
     python -m conditional_ude_tpu_torch --out runs/exp02   # also write the metrics and outputs there
     python -m conditional_ude_tpu_torch --device cpu    # the plain versions, on the CPU
 
@@ -29,14 +32,16 @@ and its outputs into DIR: exp02's dose-response table
 (``exp05_ablation.csv``), and exp06's fit (``saem_fit.npz``), dose-response
 grid (``neural_simulations.csv``) and, with ``--retrain``, pre-train
 (``saem_pretrain.npz``), and exp_advi's posteriors
-(``advi_cude_results.npz``, ``advi_test_posteriors.npz``), in the JAX
-package's formats.  It never writes
+(``advi_cude_results.npz``, ``advi_test_posteriors.npz``), and
+exp_suppression's sweep (``suppression_sweep*.csv``, one
+``suppression_lambda=<λ>.npz`` a λ, ``suppression_selection_sensitivity
+.csv``), in the JAX package's formats.  It never writes
 into the artifacts directory or ``results/``, which hold the JAX package's
 reference.  exp02_seeds and exp05 always train; exp02_seeds prints one
 JSON line a seed.  exp06, exp06a and exp06b write their metrics with the
 JAX keys only and print their stage seconds on the standard error;
-exp_advi's metrics carry its ``stage_seconds`` in place of the JAX
-script's two timers.  Last,
+exp_advi's and exp_suppression's metrics carry their ``stage_seconds`` in
+place of the JAX scripts' timers.  Last,
 on the standard error, the kernels the run launched: ``{"launches":
 {module: count}}``.
 """
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -56,6 +62,7 @@ from conditional_ude_tpu_torch import (
     advi_pipeline,
     saem_pipeline,
     seeds,
+    suppression_pipeline,
 )
 from conditional_ude_tpu_torch.fit.train import TrainConfig
 from conditional_ude_tpu_torch.ops import (
@@ -85,7 +92,7 @@ SYMBOLIC = {"exp03": run_exp03, "exp04": run_exp04,
 SAEM = {"exp06": saem_pipeline.run_exp06, "exp06a": saem_pipeline.run_exp06a,
         "exp06b": saem_pipeline.run_exp06b}
 EXPERIMENTS = ("exp01", "exp02", "exp02_seeds", "exp05", *SAEM, "exp_advi",
-               *SYMBOLIC)
+               "exp_suppression", *SYMBOLIC)
 XL_RESTARTS = 96        # --xl --retrain's restarts unless --restarts says
 
 
@@ -138,7 +145,8 @@ def _main(argv) -> None:
                         "exp05 (the less-data ablation), exp06, exp06a or "
                         "exp06b (SAEM on the cUDE, the symbolic model and "
                         "the discovered equation), exp_advi (ADVI "
-                        "posteriors of the cUDE), exp03, exp04 or "
+                        "posteriors of the cUDE), exp_suppression (the "
+                        "simulated suppression model), exp03, exp04 or "
                         "symreg_production (the symbolic refits)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
@@ -152,9 +160,11 @@ def _main(argv) -> None:
     p.add_argument("--out", type=Path, default=None,
                    help="directory for the metrics and the outputs (none "
                         "written without it)")
-    p.add_argument("--lbfgs-iters", type=int, default=1000,
-                   help="L-BFGS steps of the fits (exp05 keeps its own 500 "
-                        "and 1000)")
+    p.add_argument("--lbfgs-iters", type=int, default=None,
+                   help="L-BFGS steps of the fits: 1000 by default (exp05 "
+                        "keeps its own 500 and 1000); exp_suppression's "
+                        "sweep, validations and test stage take 2000 "
+                        "unless given")
     p.add_argument("--retrain", action="store_true",
                    help="train the candidates (exp02: train_conditional on "
                         "the seed's fit split; exp01: train_ude on the mean "
@@ -181,7 +191,7 @@ def _main(argv) -> None:
                         "designs (--retrain) and of exp02's sampled bands; "
                         "exp05's first ablation seed; the seed of "
                         "exp_advi's joint-stage draws (its test stage's "
-                        "is 7)")
+                        "is 7); of exp_suppression's designs")
     p.add_argument("--seeds", type=int, nargs="+",
                    default=list(seeds.DEFAULT_SEEDS),
                    help="exp02_seeds: the seeds to run, one after another")
@@ -191,7 +201,32 @@ def _main(argv) -> None:
                         "exp02_seeds.csv instead of running seeds")
     p.add_argument("--ablation-seeds", type=int, default=5,
                    help="exp05: ablation seeds, from --seed on")
+    sup = p.add_argument_group("exp_suppression")
+    sup.add_argument("--noise", type=float, default=0.1,
+                     help="multiplicative noise of the training, the noisy "
+                          "validation and the test populations")
+    sup.add_argument("--lambdas", type=float, nargs="*", default=None,
+                     help="the λ's of the sweep (outputs tagged _<λ>...)")
+    sup.add_argument("--fine", action="store_true",
+                     help="the 13-point fine λ grid (outputs tagged _fine)")
+    sup.add_argument("--joint", action="store_true",
+                     help="a no-op, kept for the JAX script's flag: the "
+                          "port always fits the λ's as rows of one batch, "
+                          "whose rows are each λ's fit alone")
+    sup.add_argument("--no-test-stage", action="store_true",
+                     help="stop after the sweep and its validations")
+    sup.add_argument("--test-only", action="store_true",
+                     help="no sweep: revalidate the test λ's restarts of "
+                          "--artifacts and run the 60-subject test stage")
+    sup.add_argument("--selection-sensitivity", action="store_true",
+                     help="no sweep: the test stage of each selection rule "
+                          "at every λ of the committed fine grid")
+    sup.add_argument("--merge-fine", action="store_true",
+                     help="no fitting: merge the per-λ partials under --out "
+                          "into the _fine CSV and metrics")
     args = p.parse_args(argv)
+    if args.lbfgs_iters is None and args.experiment != "exp_suppression":
+        args.lbfgs_iters = 1000
     if args.experiment != "exp02" and (args.covariate or args.xl):
         p.error("--covariate and --xl select variants of exp02")
     if args.experiment in (*SYMBOLIC, "exp06a", "exp06b") and args.retrain:
@@ -201,6 +236,16 @@ def _main(argv) -> None:
                 "candidates")
     if args.merge and args.experiment != "exp02_seeds":
         p.error("--merge merges exp02_seeds' records")
+    if args.experiment == "exp_suppression" and args.retrain:
+        p.error("exp_suppression always fits; --test-only and "
+                "--selection-sensitivity read the committed artifacts")
+    if args.merge_fine:
+        if args.experiment != "exp_suppression" or args.out is None:
+            p.error("--merge-fine merges exp_suppression's partials under "
+                    "--out")
+        print(json.dumps(suppression_pipeline.merge_fine_outputs(
+            out_dir(args.out, args.artifacts)), default=float))
+        return
     if args.merge:
         if args.out is None:
             p.error("--merge needs --out, the directory of the records")
@@ -247,6 +292,22 @@ def _main(argv) -> None:
         if out is not None:
             advi_pipeline.write_outputs(out, run)
         print(json.dumps(run.metrics))
+        return
+    if args.experiment == "exp_suppression":
+        sizes = suppression_pipeline.FULL
+        if args.lbfgs_iters is not None:
+            sizes = dataclasses.replace(sizes, fit=dataclasses.replace(
+                sizes.fit, lbfgs_iters=args.lbfgs_iters))
+        run = suppression_pipeline.run_exp_suppression(
+            args.device, args.artifacts, out=out, sizes=sizes,
+            noise=args.noise, lambdas=args.lambdas, fine=args.fine,
+            no_test_stage=args.no_test_stage, test_only=args.test_only,
+            selection_sensitivity=args.selection_sensitivity, seed=args.seed)
+        if run.revalidated:
+            print(json.dumps({"revalidated": run.revalidated}),
+                  file=sys.stderr)
+        print(json.dumps({"stage_seconds": run.seconds}), file=sys.stderr)
+        print(json.dumps(run.metrics, default=float))
         return
     if args.experiment in SAEM:
         kw = {"retrain": args.retrain} if args.experiment == "exp06" else {}

@@ -95,6 +95,44 @@ def _autograd_vg(fun):
     return vg
 
 
+def graphed_vg(fun: Callable[[tuple[torch.Tensor, ...]], torch.Tensor],
+               x0: Sequence[torch.Tensor]):
+    """``x -> (fun(x), grads)`` at the shapes of ``x0``, as autograd gives
+    them; on a CUDA device replayed from one CUDA graph of that call.
+
+    A value+grad through an unrolled solve is thousands of small launches
+    whose host cost is several times their device time; the graph launches
+    them in one call, with the kernels of the eager call.  ``fun`` must not
+    synchronise with the host or copy from it (the constants it makes are
+    fills on the device).  On the CPU this is plain autograd.
+    """
+    dev = x0[0].device
+    if dev.type != "cuda":
+        return _autograd_vg(fun)
+    static = [a.detach().clone().requires_grad_(True) for a in x0]
+    with torch.cuda.device(dev), torch.enable_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):    # warm-up before capture, as documented
+                torch.autograd.grad(fun(tuple(static)).sum(), static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            f = fun(tuple(static))
+            grads = torch.autograd.grad(f.sum(), static)
+    f = f.detach()
+
+    def vg(x):
+        with torch.no_grad():
+            for s, a in zip(static, x):
+                s.copy_(a)
+        graph.replay()
+        return f.clone(), tuple(g.clone() for g in grads)
+
+    return vg
+
+
 def adam_minimize(
     fun: Callable[[tuple[torch.Tensor, ...]], torch.Tensor] | None,
     x0: Sequence[torch.Tensor],

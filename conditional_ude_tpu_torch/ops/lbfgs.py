@@ -152,10 +152,12 @@ def lbfgs_minimize(
     ftol: float = 0.0,
     max_backtracks: int = 30,
     wolfe_patience: int = 6,
+    value_and_grad: Callable | None = None,
 ) -> LBFGSResult:
     """Minimize ``fun`` row by row from ``x0[R, p]``.
 
-    ``fun(x[R, p]) -> f[R]``; gradients come from torch autograd.  ``lower``
+    ``fun(x[R, p]) -> f[R]``; gradients come from torch autograd, or from
+    ``value_and_grad`` (``x -> (f[R], g[R, p])``) when given.  ``lower``
     and ``upper`` broadcast against ``x0``.  The line search bisects for the
     weak-Wolfe conditions; once an Armijo point exists it spends at most
     ``wolfe_patience`` further evaluations (and never more than
@@ -168,8 +170,12 @@ def lbfgs_minimize(
     n_rows, p = x0.shape
     m = history
 
+    if value_and_grad is None:
+        def value_and_grad(x):
+            return _value_and_grad(fun, x)
+
     x = _project(x0, lower, upper)
-    f, g = _value_and_grad(fun, x)
+    f, g = value_and_grad(x)
     g, gfin = _finite_grad(g)
     bad_start = ~torch.isfinite(f)
     s = _State(x=x, f=f, g=g, gfin=gfin,
@@ -222,7 +228,7 @@ def lbfgs_minimize(
                 break
 
             xt = _project(s.x + alpha[:, None] * d, lower, upper)
-            ft, gt = _value_and_grad(fun, xt)
+            ft, gt = value_and_grad(xt)
             gt, gt_fin = _finite_grad(gt)
             # Armijo on the actual (projected) displacement
             decrease = torch.clamp_max(_dot(s.g, xt - s.x), -1e-30)

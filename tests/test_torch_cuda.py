@@ -431,3 +431,62 @@ def test_restart_kernel_refuses_a_cohort_beyond_shared_memory(card):
     with pytest.raises(ValueError):
         population_grad.restart_sse_and_grad(net, *args, 8)
     assert population_grad.launches == before + 1
+
+
+def test_suppression_loss_on_the_card_matches_the_cpu(card):
+    """The suppression model reaches no kernel: its RK4 loss at the 25
+    restarts of the committed λ = 0.01 fit, eager on the card, equals the
+    CPU's within rtol 1e-5 and the file's objectives within 1e-4 (JAX on
+    the CPU misses them by 2.1e-5)."""
+    from pathlib import Path
+
+    from conditional_ude_tpu_torch.models import suppression as sup
+    from conditional_ude_tpu_torch.suppression_pipeline import (
+        DATA_SEED,
+        GROUP_MEANS,
+        TIMEPOINTS,
+    )
+    from conditional_ude_tpu_torch.utils.checkpoint import load_checkpoint
+    ck = load_checkpoint(Path(__file__).resolve().parent.parent / "artifacts"
+                         / "suppression_lambda=0.01.npz")[0]
+    data, gt = sup.generate_data(GROUP_MEANS, (15, 3, 3, 3, 3, 10),
+                                 TIMEPOINTS, 0.1,
+                                 rng=np.random.default_rng(DATA_SEED),
+                                 device=card)
+    np.testing.assert_array_equal(gt, ck["gt_train"])
+    net = sup.suppression_net()
+    got = {}
+    for dev in ("cpu", card):
+        got[str(dev)] = sup.suppression_loss(
+            net, torch.as_tensor(ck["nn_params"], device=dev),
+            torch.as_tensor(ck["thetas"], device=dev), data, TIMEPOINTS,
+            torch.full((25,), 0.01, device=dev)).cpu()
+    torch.testing.assert_close(got[str(card)], got["cpu"], rtol=1e-5,
+                               atol=0)
+    assert np.abs(got[str(card)].numpy() / ck["objectives"] - 1).max() <= 1e-4
+
+
+def test_suppression_graphed_value_and_grad_matches_eager(card):
+    """The fits' value+grad replayed from a CUDA graph (``graphed_vg``)
+    equals eager autograd at the same inputs, on the first inputs and on
+    new ones copied in, within rtol 1e-5."""
+    from conditional_ude_tpu_torch.fit.optim import _autograd_vg, graphed_vg
+    from conditional_ude_tpu_torch.models import suppression as sup
+    from conditional_ude_tpu_torch.suppression_pipeline import TIMEPOINTS
+    net = sup.suppression_net()
+    gen = torch.Generator().manual_seed(3)
+    data = torch.rand(6, 3, 8, generator=gen).to(card) + 0.5
+    lam = torch.full((4,), 0.01, device=card)
+
+    def loss(x):
+        return sup.suppression_loss(net, x[0], x[1], data, TIMEPOINTS, lam)
+
+    first = tuple(a.to(card) for a in sup.initial_designs(net, 4, 6, gen))
+    vg = graphed_vg(loss, first)
+    for x in (first, tuple(a.to(card) for a in sup.initial_designs(
+            net, 4, 6, gen))):
+        f, grads = vg(x)
+        want_f, want_g = _autograd_vg(loss)(x)
+        torch.testing.assert_close(f, want_f, rtol=1e-5, atol=0)
+        for g, w in zip(grads, want_g):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7)
