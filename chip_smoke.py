@@ -137,7 +137,18 @@
     retrain (all 37 subjects, the full network, 10,000 designs and 25
     restarts, 100 Adam and 5 L-BFGS steps) whose metrics of each λ are
     held to JAX-CPU's spread over 16 keys, widened as in 17.
-    12-21 are bound by the host, so they run in seven child processes (this
+22. runs exp_symreg_search, the GP search for closed-form equations of
+    the production surface, which must launch no kernel, after
+    exp_suppression: one GP run of each of the script's configurations at
+    full width (population 4096 on depth-4 trees and 2048 on depth-5
+    trees, 80 constant-optimisation steps, elite 64 and 48, ``max_size``
+    18) on its 720-sample fit split, at ``SYMREG_GENERATIONS`` = 300
+    generations (the script's own: no cut), through
+    ``run_exp_symreg_search``; each run's best loss, Pareto size and best
+    holdout MSE held to JAX-CPU's spread over 16 keys at the same
+    configuration, widened as in 17, and the reference equation's holdout
+    MSE to the committed 0.005350096 within 1e-6 relative.
+    12-22 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -151,6 +162,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1371,10 +1383,11 @@ def main() -> None:
 # the symbolic refits, SAEM on the analytic heads: eager PyTorch,
 # host-bound), the replication experiments (exp02_seeds and exp05 train, so
 # they launch K1, K2 and K3), SAEM on the cUDE (K4 and K2), and exp_advi (K2
-# and K4) then exp_suppression (no kernel) after exp_symreg_production, the
-# child that ended first
+# and K4) then exp_suppression and exp_symreg_search (no kernel) after
+# exp_symreg_production, the child that ended first
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04"),
-        ("exp_symreg_production", "exp_advi", "exp_suppression"),
+        ("exp_symreg_production", "exp_advi", "exp_suppression",
+         "exp_symreg_search"),
         tuple(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
         ("exp02_seeds",),
         ("exp05", "replicate"),
@@ -1624,6 +1637,26 @@ SUPPRESSION_SPREAD = {
         "best_objective": (4.784222602844238, 4.82206392288208)}}
 
 
+# exp_symreg_search: one GP run of each of the script's configurations at
+# full width and the script's 300 generations (its child ends first, with
+# room for them, so nothing is cut).  torch's draws are not JAX's and a GP
+# run is chaotic in its draws, so each run's best loss (the last row of its
+# Pareto front), front size and best holdout MSE are held to the spread of
+# the JAX package's runs at 16 keys of the same configuration on the CPU
+# (python scripts/symreg_reference.py; the keys' values are
+# scripts/symreg_spread.json), widened as SAEM_SPREAD
+SYMREG_GENERATIONS = 300
+SYMREG_SPREAD = {
+    4: {"best_loss": (0.0005309018888510764, 0.02532055787742138),
+        "pareto_size": (4, 11),
+        "best_holdout_mse": (0.0005397972076470455, 0.021665909015176312)},
+    5: {"best_loss": (0.0005807605339214206, 0.009422264993190765),
+        "pareto_size": (5, 10),
+        "best_holdout_mse": (0.0006408460783514485, 0.010078582539795369)}}
+SYMREG_REFERENCE_MSE = 0.005350096      # results/exp_symreg_metrics.json
+SYMREG_REFERENCE_RTOL = 1e-6
+
+
 def new_paths(dev):
     """Name -> (run, check, the kernels it must launch) of each path beside
     the main one; every other kernel must launch 0 times."""
@@ -1664,6 +1697,8 @@ def new_paths(dev):
                      ADVI_KERNELS),
         "exp_suppression": (lambda: run_suppression_path(dev),
                             check_suppression_path, none),
+        "exp_symreg_search": (lambda: run_symreg_search_path(dev),
+                              check_symreg_search_path, none),
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
                    lambda res: check_saem_spread(res.metrics, "exp06a"), none),
         "exp06b": (lambda: run_exp06b(dev, ARTIFACTS),
@@ -1891,6 +1926,18 @@ def run_suppression_path(dev):
     return SimpleNamespace(artifacts=artifacts, test_only=test_only,
                            revalidated=revalidated, retrain=retrain,
                            seconds=seconds)
+
+
+def run_symreg_search_path(dev):
+    """exp_symreg_search through ``run_exp_symreg_search``: one GP run of
+    each of the script's configurations, at ``SYMREG_GENERATIONS``, on the
+    port's own generator (keys 270523 and 270524), no output written."""
+    import dataclasses
+
+    from conditional_ude_tpu_torch import symreg_pipeline as pipe
+    configs = tuple((dataclasses.replace(cfg, generations=SYMREG_GENERATIONS),
+                     1) for cfg, _ in pipe.FULL)
+    return pipe.run_exp_symreg_search(dev, ARTIFACTS, configs=configs)
 
 
 def run_side(names: list[str], out: Path) -> None:
@@ -2525,6 +2572,44 @@ def check_suppression_path(res) -> list[str]:
                             f"ρ {rho_miss}")
 
     return failures + check_suppression_spread(res.retrain.rows)
+
+
+def check_symreg_search_path(run) -> list[str]:
+    """exp_symreg_search on the card: the reference equation's holdout MSE
+    as committed; each GP run's best loss, front size and best holdout MSE
+    inside ``SYMREG_SPREAD`` of its depth, widened."""
+    failures = []
+    ref = run.metrics["holdout"]["reference_equation_mse"]
+    log(f"[check] exp_symreg_search reference equation holdout MSE {ref!r} "
+        f"(committed {SYMREG_REFERENCE_MSE})")
+    if abs(ref - SYMREG_REFERENCE_MSE) > SYMREG_REFERENCE_RTOL \
+            * SYMREG_REFERENCE_MSE:
+        failures.append(f"exp_symreg_search reference equation MSE {ref} "
+                        f"!= {SYMREG_REFERENCE_MSE}")
+    for r in run.runs:
+        front = r["front"]
+        got = {"best_loss": front[-1]["loss"] if front else math.inf,
+               "pareto_size": len(front),
+               "best_holdout_mse": min((f["holdout_mse"] for f in front),
+                                       default=math.inf)}
+        best = min(front, key=lambda f: f["holdout_mse"]) if front else None
+        log(f"[check] exp_symreg_search depth {r['depth']} (key {r['key']}): "
+            f"{got}; best holdout {best and best['equation']}")
+        spread = SYMREG_SPREAD.get(r["depth"])
+        if not spread:
+            failures.append(f"no JAX spread for depth {r['depth']}")
+            continue
+        for key, (lo, hi) in spread.items():
+            wlo, whi = widen(lo, hi)
+            log(f"[check] exp_symreg_search depth {r['depth']} {key} "
+                f"{got[key]!r} in [{wlo:.6g}, {whi:.6g}] (JAX-CPU over 16 "
+                f"keys [{lo:.6g}, {hi:.6g}], widened)")
+            if not wlo <= got[key] <= whi:
+                failures.append(f"exp_symreg_search depth {r['depth']} {key}"
+                                f" {got[key]} outside [{wlo}, {whi}]")
+    log(f"[check] exp_symreg_search metrics: "
+        f"{json.dumps({k: v for k, v in run.metrics.items() if k != 'seeds'})}")
+    return failures
 
 
 def check_suppression_spread(rows: list[dict]) -> list[str]:

@@ -19,6 +19,8 @@
     python -m conditional_ude_tpu_torch --experiment exp_suppression --out runs/sup   # the λ sweep
     python -m conditional_ude_tpu_torch --experiment exp_suppression --test-only --out runs/sup
     python -m conditional_ude_tpu_torch --experiment exp_suppression --selection-sensitivity --out runs/sup
+    python -m conditional_ude_tpu_torch --experiment exp_symreg_search --search-seeds 3 --out runs/symreg
+    python -m conditional_ude_tpu_torch --experiment exp_symreg_search --smoke --out runs/symreg_smoke
     python -m conditional_ude_tpu_torch --out runs/exp02   # also write the metrics and outputs there
     python -m conditional_ude_tpu_torch --device cpu    # the plain versions, on the CPU
 
@@ -35,13 +37,16 @@ grid (``neural_simulations.csv``) and, with ``--retrain``, pre-train
 (``advi_cude_results.npz``, ``advi_test_posteriors.npz``), and
 exp_suppression's sweep (``suppression_sweep*.csv``, one
 ``suppression_lambda=<λ>.npz`` a λ, ``suppression_selection_sensitivity
-.csv``), in the JAX package's formats.  It never writes
+.csv``), and exp_symreg_search's fronts (``symbolic_regression_result
+.csv``, one ``symbolic_regression_result_seed<s>.csv`` a search seed when
+there are several), in the JAX package's formats.  It never writes
 into the artifacts directory or ``results/``, which hold the JAX package's
 reference.  exp02_seeds and exp05 always train; exp02_seeds prints one
 JSON line a seed.  exp06, exp06a and exp06b write their metrics with the
 JAX keys only and print their stage seconds on the standard error;
-exp_advi's and exp_suppression's metrics carry their ``stage_seconds`` in
-place of the JAX scripts' timers.  Last,
+exp_advi's, exp_suppression's and exp_symreg_search's metrics carry their
+``stage_seconds`` (exp_symreg_search: each GP run's) in place of the JAX
+scripts' timers.  Last,
 on the standard error, the kernels the run launched: ``{"launches":
 {module: count}}``.
 """
@@ -63,6 +68,7 @@ from conditional_ude_tpu_torch import (
     saem_pipeline,
     seeds,
     suppression_pipeline,
+    symreg_pipeline,
 )
 from conditional_ude_tpu_torch.fit.train import TrainConfig
 from conditional_ude_tpu_torch.ops import (
@@ -92,7 +98,7 @@ SYMBOLIC = {"exp03": run_exp03, "exp04": run_exp04,
 SAEM = {"exp06": saem_pipeline.run_exp06, "exp06a": saem_pipeline.run_exp06a,
         "exp06b": saem_pipeline.run_exp06b}
 EXPERIMENTS = ("exp01", "exp02", "exp02_seeds", "exp05", *SAEM, "exp_advi",
-               "exp_suppression", *SYMBOLIC)
+               "exp_suppression", "exp_symreg_search", *SYMBOLIC)
 XL_RESTARTS = 96        # --xl --retrain's restarts unless --restarts says
 
 
@@ -146,7 +152,9 @@ def _main(argv) -> None:
                         "exp06b (SAEM on the cUDE, the symbolic model and "
                         "the discovered equation), exp_advi (ADVI "
                         "posteriors of the cUDE), exp_suppression (the "
-                        "simulated suppression model), exp03, exp04 or "
+                        "simulated suppression model), exp_symreg_search "
+                        "(the GP search for closed-form equations of the "
+                        "production surface), exp03, exp04 or "
                         "symreg_production (the symbolic refits)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
@@ -191,7 +199,8 @@ def _main(argv) -> None:
                         "designs (--retrain) and of exp02's sampled bands; "
                         "exp05's first ablation seed; the seed of "
                         "exp_advi's joint-stage draws (its test stage's "
-                        "is 7); of exp_suppression's designs")
+                        "is 7); of exp_suppression's designs; of "
+                        "exp_symreg_search's holdout split and GP keys")
     p.add_argument("--seeds", type=int, nargs="+",
                    default=list(seeds.DEFAULT_SEEDS),
                    help="exp02_seeds: the seeds to run, one after another")
@@ -201,6 +210,13 @@ def _main(argv) -> None:
                         "exp02_seeds.csv instead of running seeds")
     p.add_argument("--ablation-seeds", type=int, default=5,
                    help="exp05: ablation seeds, from --seed on")
+    sym = p.add_argument_group("exp_symreg_search")
+    sym.add_argument("--search-seeds", type=int, default=1,
+                     help="independent searches, each its own GP runs and "
+                          "front, merged into one front")
+    sym.add_argument("--smoke", action="store_true",
+                     help="one GP run at depth 2, population 256, 15 "
+                          "generations")
     sup = p.add_argument_group("exp_suppression")
     sup.add_argument("--noise", type=float, default=0.1,
                      help="multiplicative noise of the training, the noisy "
@@ -239,6 +255,12 @@ def _main(argv) -> None:
     if args.experiment == "exp_suppression" and args.retrain:
         p.error("exp_suppression always fits; --test-only and "
                 "--selection-sensitivity read the committed artifacts")
+    if args.experiment != "exp_symreg_search" and (args.smoke or
+                                                   args.search_seeds != 1):
+        p.error("--smoke and --search-seeds are exp_symreg_search's")
+    if args.experiment == "exp_symreg_search" and args.retrain:
+        p.error("exp_symreg_search has no --retrain: it reads the committed "
+                "production samples and always searches")
     if args.merge_fine:
         if args.experiment != "exp_suppression" or args.out is None:
             p.error("--merge-fine merges exp_suppression's partials under "
@@ -306,6 +328,13 @@ def _main(argv) -> None:
         if run.revalidated:
             print(json.dumps({"revalidated": run.revalidated}),
                   file=sys.stderr)
+        print(json.dumps({"stage_seconds": run.seconds}), file=sys.stderr)
+        print(json.dumps(run.metrics, default=float))
+        return
+    if args.experiment == "exp_symreg_search":
+        run = symreg_pipeline.run_exp_symreg_search(
+            args.device, args.artifacts, seed=args.seed,
+            search_seeds=args.search_seeds, smoke=args.smoke, out=out)
         print(json.dumps({"stage_seconds": run.seconds}), file=sys.stderr)
         print(json.dumps(run.metrics, default=float))
         return

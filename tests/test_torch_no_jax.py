@@ -21,7 +21,7 @@ for m in ("fit.optim", "ops.tsit5", "ops.rk4_population", "ops.lane_grad",
           "ops.tsit5_cohort", "ops.population_grad", "ops.cuda_build",
           "seeds", "ablation", "replicate", "fit.saem", "saem_pipeline",
           "fit.advi", "advi_pipeline", "models.suppression",
-          "suppression_pipeline"):
+          "suppression_pipeline", "analysis.symreg", "symreg_pipeline"):
     assert pkg.__name__ + "." + m in names, m
 assert "torch" in sys.modules
 """
