@@ -30,7 +30,8 @@
    to |β| = 5, and with a network a lane, the last of huge weights; K2 at
    one restart on the 82 training subjects; and K2 at 4 substeps at
    exp_advi's steps (280 and 5,700 lanes) and K4 at its profile chunk
-   (500 x 35).  K5 is held bit for bit
+   (500 x 35); and K4 and K4c at the gallery's CI chunk (500 points x the
+   three test medians, 1,500 lanes).  K5 is held bit for bit
    against K2's lanes
    summed over the individuals in order, at 2,304 x 57 and at the ragged
    shape, and against K2's packed route (``Tensor.sum`` over the
@@ -53,15 +54,18 @@
    step of that lane (``us_per_step``);
 4. runs the frozen path of exp02 (``run_frozen_pipeline``) at full width
    and checks it against the committed results, the SSE per NGT/IGT/T2DM
-   class included; K4's launches are counted over it;
+   class included, and its export (``cude_fit.npz``, as ``--out`` writes
+   it) against the committed file's keys and shapes; K4's launches are
+   counted over it;
 5. runs the retrain path of exp02 (``run_training_pipeline``) at full
    width: 25,000 designs screened on the 57-subject fit split, 25 restarts
    of 1000 Adam and 1000 L-BFGS steps, the Tsit5 re-rank, selection and the
    (beta, sigma) refit; K1, K2 and K3's launches are counted over it, and
    the result is held to the spread of the JAX package's per-seed runs;
 6. runs the frozen path of exp07, the covariate model (``covariate=True``),
-   at full width and checks it against exp07's committed results; K4c's
-   launches are counted over it;
+   at full width and checks it against exp07's committed results and its
+   export (``cude_covariate_fit.npz``) as in 4; K4c's launches are counted
+   over it;
 7. runs the retrain path of exp07 at full width, as in 5; K1c, K2c and
    K3c's launches are counted over it, and the result is held to limits
    widened from the one JAX run of exp07;
@@ -148,7 +152,17 @@
     holdout MSE held to JAX-CPU's spread over 16 keys at the same
     configuration, widened as in 17, and the reference equation's holdout
     MSE to the committed 0.005350096 within 1e-6 relative.
-    12-22 are bound by the host, so they run in seven child processes (this
+23. runs exp_figures, the gallery, at full size after exp01's retrains at
+    seeds 11 and 22 in their child: first ``device_trace`` around one K4
+    launch, whose trace must name the kernel; then every section through
+    ``run_exp_figures``, which must launch K4 and K4c 20 times each (the
+    CI-bound profiles: 10,000 points in chunks of 500) and nothing else,
+    held to the JAX package's arrays on the CPU
+    (``scripts/figures_reference.json``): the median subjects, their CI
+    bounds within two grid steps and the trajectories there, the
+    dose-response curves, the refits, every section's trajectories and
+    bands, the p-values.
+    12-23 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -1182,12 +1196,64 @@ def main() -> None:
             if differ == 0:
                 raise AssertionError(f"{kid} does not read the age")
 
+    def gallery_shapes() -> None:
+        """K4 and K4c at the gallery's ``ci_bound_sims`` chunk: 500 points
+        of Δβ ∈ [-10, 15] (of 10,000) around the β̂ of the three test
+        medians, on exp02's selected network (Cantelli-95 profile) and on
+        exp07's (Raue-95), 1,500 lanes.  Each bit for bit its plain
+        version, then timed."""
+        grid = torch.as_tensor(linspace(-10.0, 15.0, FIGURES_CI_STEPS)[
+            :FIGURES_CHUNK], device=dev)
+        for kid, d, fit, cand in (
+                ("K4", 2, fit_ckpt, np.load(
+                    ARTIFACTS / "cude_neural_parameters.npz")["nn_params"][
+                    meta["best_model_index"]]),
+                ("K4c", 3, cov_ckpt,
+                 cov_cand["nn_params"][cov_meta["best_model_index"]])):
+            net = chain(4, 2, input_dims=d)
+            idx = figures_reference()[
+                "cude" if kid == "K4" else "covariate"]["idx_med_test"]
+            c = build_cohort(test.glucose[idx], test.timepoints,
+                             test.cpeptide[idx], test.ages[idx],
+                             test.t2dm[idx], dev)
+            n = len(idx)
+            lanes = FIGURES_CHUNK * n
+
+            def expand(x):
+                return x.expand(FIGURES_CHUNK, *x.shape).reshape(
+                    lanes, *x.shape[1:])
+
+            centre = torch.as_tensor(fit["beta_test"][idx], **f32)
+            path = (torch.as_tensor(cand, **f32).expand(lanes, -1),
+                    (grid[:, None] + centre[None, :]).reshape(-1),
+                    expand(c.glucose), expand(c.cpeptide),
+                    expand(c.kinetics(with_age=d == 3)))
+            shape = (f"the gallery's CI chunk ({FIGURES_CHUNK} x {n} = "
+                     f"{lanes} lanes)")
+            results[kid]["err"] = max(results[kid]["err"], exact(
+                rk4_cohort.cohort_sse(net, *path, tp, 8),
+                rk4_cohort.cohort_sse_reference(net, *path, tp, 8),
+                f"{kid} {shape}"))
+            flops, sfu = rk4_lane_work(d)
+            gallery_times[f"{kid} {lanes}"] = dict(
+                ms=cuda_ms(lambda: rk4_cohort.cohort_sse(net, *path, tp, 8),
+                           reps=50),
+                device=graph_ms(lambda: rk4_cohort.cohort_sse(
+                    net, *path, tp, 8), reps=50),
+                plain=cuda_ms(lambda: rk4_cohort.cohort_sse_reference(
+                    net, *path, tp, 8), reps=3),
+                shape=shape,
+                bound=bound(4 * (net.num_params + lanes * (12 + 4 + (d == 3))),
+                            lanes * flops, lanes * sfu))
+
     ablation_times = {}     # K1, K2 and K3 at exp05's shapes
     saem_times = {}         # K4 and K2 at SAEM's shapes
     advi_times = {}         # K2 and K4 at exp_advi's shapes
+    gallery_times = {}      # K4 and K4c at the gallery's CI chunk
     kernel_phase(2)
     kernel_phase(3)
     live_age_check()
+    gallery_shapes()
 
     def notes(r) -> str:
         plain = f", plain {r['plain']:.3f} ms" if "plain" in r else ""
@@ -1199,7 +1265,7 @@ def main() -> None:
 
     for kid, r in [*results.items(), *wide.items(),
                    *ablation_times.items(), *saem_times.items(),
-                   *advi_times.items()]:
+                   *advi_times.items(), *gallery_times.items()]:
         log(f"[time] {kid.split()[0]} at {r['shape']}: kernel "
             f"{r['ms']:.4f} ms{notes(r)}  [{card}]")
     if args.kernels_only:
@@ -1227,6 +1293,8 @@ def main() -> None:
             failures = check_frozen_covariate(res, cov_ckpt, metrics)
         else:
             failures = check_frozen(res, fit_ckpt, metrics)
+        failures += check_exports(res, covariate,
+                                  REPO / "build" / "chip_smoke_exports")
         if results[kid]["launches"] == 0:
             failures.append(f"{kid} was not launched by the profile scans")
         if not covariate:
@@ -1384,11 +1452,13 @@ def main() -> None:
 # host-bound), the replication experiments (exp02_seeds and exp05 train, so
 # they launch K1, K2 and K3), SAEM on the cUDE (K4 and K2), and exp_advi (K2
 # and K4) then exp_suppression and exp_symreg_search (no kernel) after
-# exp_symreg_production, the child that ended first
+# exp_symreg_production, and the gallery (K4 and K4c) after exp01's
+# retrains at two seeds, the child that ended first
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04"),
         ("exp_symreg_production", "exp_advi", "exp_suppression",
          "exp_symreg_search"),
-        tuple(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
+        (*(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
+         "exp_figures"),
         ("exp02_seeds",),
         ("exp05", "replicate"),
         ("exp06", "exp06a"),
@@ -1655,6 +1725,21 @@ SYMREG_SPREAD = {
         "best_holdout_mse": (0.0006408460783514485, 0.010078582539795369)}}
 SYMREG_REFERENCE_MSE = 0.005350096      # results/exp_symreg_metrics.json
 SYMREG_REFERENCE_RTOL = 1e-6
+# exp_figures: ci_bound_sims profiles three subjects over 10,000 points of
+# Δβ in chunks of 500 (analysis/profiles.py), one launch of K4 (the cUDE)
+# and of K4c (the covariate model) a chunk; the JAX package's values on the
+# CPU from the committed fits (scripts/figures_reference.py) and the limits
+# the card's gallery is held to
+FIGURES_CI_STEPS, FIGURES_CHUNK = 10_000, 500
+FIGURES_LAUNCHES = FIGURES_CI_STEPS // FIGURES_CHUNK
+FIGURES_KERNELS = frozenset({"rk4_cohort", "rk4_cohort (3-input)"})
+FIGURES_REFERENCE = REPO / "scripts" / "figures_reference.json"
+FIGURES_CI_TOL = 2 * 25.0 / FIGURES_CI_STEPS      # two grid steps of Δβ
+FIGURES_CI_SIMS = dict(rtol=1e-3, atol=1e-4)
+FIGURES_CURVES = dict(rtol=1e-4, atol=1.6e-4)     # exp02's table
+FIGURES_TRAJ = dict(rtol=1e-4, atol=1e-5)
+FIGURES_BETA_TOL, FIGURES_RHO_TOL = 1e-2, 0.01
+FIGURES_BEST = {"exp02": 19, "exp07": 16}   # artifacts/cude*_fit.json
 
 
 def new_paths(dev):
@@ -1699,6 +1784,8 @@ def new_paths(dev):
                             check_suppression_path, none),
         "exp_symreg_search": (lambda: run_symreg_search_path(dev),
                               check_symreg_search_path, none),
+        "exp_figures": (lambda: run_figures_path(dev), check_figures_path,
+                        FIGURES_KERNELS),
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
                    lambda res: check_saem_spread(res.metrics, "exp06a"), none),
         "exp06b": (lambda: run_exp06b(dev, ARTIFACTS),
@@ -1938,6 +2025,72 @@ def run_symreg_search_path(dev):
     configs = tuple((dataclasses.replace(cfg, generations=SYMREG_GENERATIONS),
                      1) for cfg, _ in pipe.FULL)
     return pipe.run_exp_symreg_search(dev, ARTIFACTS, configs=configs)
+
+
+def figures_reference() -> dict:
+    """``scripts/figures_reference.json``: the JAX package's gallery arrays
+    on the CPU, non-finite entries as NaN and ±inf."""
+    def decode(x):
+        if isinstance(x, dict):
+            return {k: decode(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [decode(v) for v in x]
+        if x is None:
+            return math.nan
+        return float(x) if x in ("inf", "-inf") else x
+
+    return decode(json.loads(FIGURES_REFERENCE.read_text()))
+
+
+def run_figures_path(dev):
+    """exp_figures.  First ``device_trace`` around one K4 launch at the
+    gallery's CI chunk (its trace must name the kernel); then, with every
+    kernel's count at 0, the whole gallery at full size through
+    ``run_exp_figures`` (its figures drawn under ``build/`` where
+    matplotlib is installed), and the counts read just after."""
+    import shutil
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch import figures_pipeline as fp
+    from conditional_ude_tpu_torch.ops import (
+        lane_grad,
+        population_grad,
+        rk4_cohort,
+        rk4_population,
+        tsit5_cohort,
+    )
+    from conditional_ude_tpu_torch.utils.profiling import device_trace
+    out = REPO / "build" / "chip_smoke_figures"
+    shutil.rmtree(out, ignore_errors=True)
+    g = fp.Gallery(dev, ARTIFACTS, fp.RESULTS, fp.FULL)
+    model = fp.cude_model()
+    fit, meta = (np.load(ARTIFACTS / "cude_fit.npz"),
+                 json.loads((ARTIFACTS / "cude_fit.json").read_text()))
+    nn = torch.as_tensor(np.load(ARTIFACTS / "cude_neural_parameters.npz")[
+        "nn_params"][meta["best_model_index"]], device=dev)
+    sub = fp.rows(g.cohort_test, [0, 1, 2])
+    lanes = FIGURES_CHUNK * sub.n
+    with device_trace(out / "trace") as trace:
+        rk4_cohort.cohort_sse(
+            model.net, nn.expand(lanes, -1),
+            torch.as_tensor(np.repeat(fit["beta_test"][None, :3],
+                                      FIGURES_CHUNK, 0).ravel(), device=dev),
+            sub.glucose.repeat(FIGURES_CHUNK, 1),
+            sub.cpeptide.repeat(FIGURES_CHUNK, 1),
+            sub.kinetics().repeat(FIGURES_CHUNK, 1),
+            tuple(float(t) for t in sub.timepoints), 8)
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    mods = (rk4_cohort, rk4_population, lane_grad, tsit5_cohort,
+            population_grad)
+    for mod in mods:
+        mod.launches = mod.launches_age = 0
+    t0 = time.perf_counter()
+    run = fp.run_exp_figures(dev, ARTIFACTS, out=out)
+    seconds = {"gallery": time.perf_counter() - t0, **run.seconds}
+    return SimpleNamespace(run=run, seconds=seconds, trace_kernels=kernels,
+                           launches={"K4": rk4_cohort.launches,
+                                     "K4c": rk4_cohort.launches_age})
 
 
 def run_side(names: list[str], out: Path) -> None:
@@ -2612,6 +2765,179 @@ def check_symreg_search_path(run) -> list[str]:
     return failures
 
 
+def close(got, want, what: str, rtol: float, atol: float) -> list[str]:
+    """``got`` within ``atol + rtol·|want|`` of ``want`` everywhere, NaN
+    where it is NaN, logged."""
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    if got.shape != want.shape:
+        return [f"{what}: shape {got.shape}, want {want.shape}"]
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        return [f"{what}: NaN (an open CI side) where JAX has none, or not"]
+    fin = ~np.isnan(want)
+    err = np.abs(got - want)[fin]
+    worst = float(np.max(err - rtol * np.abs(want[fin]))) if err.size else 0.0
+    log(f"[check] {what}: largest |diff| {float(np.max(err, initial=0)):.3e}"
+        f" (limit {atol:g} + {rtol:g}·|JAX|)")
+    return [] if worst <= atol else [f"{what}: off by {worst:.3e} beyond "
+                                     f"rtol {rtol:g}"]
+
+
+def check_medians(types, got_err, want_err, got_idx, want_idx,
+                  what: str) -> list[str]:
+    """Each type's median subject: equal to JAX's where JAX's margin to its
+    next candidate exceeds the port's miss of the distances to the median;
+    else one JAX could pick within that miss (an even count has two
+    equidistant middle subjects)."""
+    failures = []
+    present = [t for t in ("NGT", "IGT", "T2DM") if (types == t).any()]
+    if not len(got_idx) == len(want_idx) == len(present):
+        return [f"{what}: {len(got_idx)} median subjects"]
+    for t, gi, wi in zip(present, got_idx, want_idx):
+        sel = np.flatnonzero(types == t)
+        dw = np.abs(want_err[sel] - np.median(want_err[sel]))
+        dg = np.abs(got_err[sel] - np.median(got_err[sel]))
+        miss = float(np.max(np.abs(dg - dw)))
+        srt = np.sort(dw)
+        margin = float(srt[1] - srt[0])
+        log(f"[check] {what} {t}: subject {gi} (JAX {wi}), JAX's margin "
+            f"{margin:.3e}, the port's miss {miss:.3e}")
+        if margin > miss and gi != wi:
+            failures.append(f"{what} {t}: subject {gi}, JAX {wi}")
+        elif margin <= miss and not (
+                dw[np.flatnonzero(sel == gi)[0]] <= srt[0] + 2 * miss):
+            failures.append(f"{what} {t}: subject {gi} is no candidate")
+    return failures
+
+
+def check_ci(got: dict, want: dict, what: str) -> list[str]:
+    """CI bounds (Δβ) within two grid steps, open on the same sides, and
+    the trajectories at the bounds."""
+    failures = []
+    for key in ("lower", "upper"):
+        a, b = np.asarray(got[key]), np.asarray(want[key], np.float64)
+        if not np.array_equal(np.isfinite(a), np.isfinite(b)):
+            failures.append(f"{what} {key}: open sides {a}, JAX {b}")
+            continue
+        fin = np.isfinite(b)
+        miss = float(np.max(np.abs(a[fin] - b[fin]), initial=0.0))
+        log(f"[check] {what} CI {key}: {a}, JAX {b} (|diff| {miss:.2e}, "
+            f"limit {FIGURES_CI_TOL:g})")
+        if miss > FIGURES_CI_TOL:
+            failures.append(f"{what} CI {key} off by {miss:.2e}")
+    return failures + close(got["sims"], want["sims"],
+                            f"{what} trajectories at the CI bounds",
+                            **FIGURES_CI_SIMS)
+
+
+def check_figures_path(res) -> list[str]:
+    """exp_figures on the card against ``scripts/figures_reference.json``:
+    the trace names K4; K4 and K4c launched ``FIGURES_LAUNCHES`` times each
+    (``run_side`` holds every other body at 0); every section computed;
+    the median subjects and their CI-bound trajectories, the dose-response
+    curves, the runner-up and type-mean refits, the trajectories and bands
+    of every section and the p-values at the limits of ``FIGURES_*``."""
+    from conditional_ude_tpu_torch.figures_pipeline import SECTIONS
+    ref = figures_reference()
+    a = res.run.arrays
+    log(f"[check] exp_figures trace kernels: {res.trace_kernels}")
+    failures = []
+    if not any("rk4_cohort_sse_kernel" in k for k in res.trace_kernels):
+        failures.append("the device trace does not name K4")
+    for kid, n in res.launches.items():
+        log(f"[check] exp_figures {kid} launches {n} (want "
+            f"{FIGURES_LAUNCHES})")
+        if n != FIGURES_LAUNCHES:
+            failures.append(f"exp_figures launched {kid} {n} times")
+    if set(a) != set(SECTIONS):
+        return failures + [f"sections computed: {sorted(a)}"]
+    log(f"[check] exp_figures rendered {res.run.manifest['count']} figures "
+        f"(matplotlib {'present' if res.run.rendered else 'absent'})")
+    for (x, y), p in a["data"]["pvalues"].items():
+        failures += close(p, ref["data"][f"{x}-{y}"], f"p-value {x}-{y}",
+                          1e-12, 0.0)
+    c, rc = a["cude"], ref["cude"]
+    if c["best"] != FIGURES_BEST["exp02"] or c["second"] != rc["second"]:
+        failures.append(f"cude best {c['best']}, second {c['second']}")
+    for split in ("train", "test"):
+        failures += check_medians(
+            c[f"types_{split}"], c[f"err_{split}"],
+            np.asarray(rc[f"err_{split}"]), c[f"idx_med_{split}"],
+            rc[f"idx_med_{split}"], f"cude {split} median")
+    failures += check_ci(c["ci"], rc["ci"], "cude")
+    failures += close(c["sims_test"], rc["sims_test"], "cude test fits",
+                      **FIGURES_TRAJ)
+    failures += close(c["nn_curves"], rc["nn_curves"],
+                      "cude dose-response curves", **FIGURES_CURVES)
+    for what, got, want in (
+            ("runner-up refit", c["b2_all"], rc["b2_all"]),
+            ("type-mean refit", c["comparison"]["b_mean"], rc["b_mean"])):
+        failures += close(got, want, what, 0.0, FIGURES_BETA_TOL)
+    failures += close(c["rho2"], rc["rho2"], "runner-up Spearman", 0.0,
+                      FIGURES_RHO_TOL)
+    for key in ("sims_cude", "sims_ude"):
+        failures += close(c["comparison"][key], rc[key], f"type-mean {key}",
+                          **FIGURES_CI_SIMS if key == "sims_cude"
+                          else FIGURES_TRAJ)
+    v, rv = a["covariate"], ref["covariate"]
+    if list(v["idx_med_test"]) != rv["idx_med_test"]:
+        failures.append(f"covariate medians {v['idx_med_test']}")
+    failures += check_ci(v["ci"], rv["ci"], "covariate")
+    failures += close(a["ude"]["sims"], ref["ude"]["sims"], "UDE fits",
+                      **FIGURES_TRAJ)
+    s, rs = a["symbolic"], ref["symbolic"]
+    failures += close(s["sims"], rs["sims"], "symbolic fits", **FIGURES_TRAJ)
+    failures += check_medians(s["types_all"], s["err"], np.asarray(rs["err"]),
+                              s["idx_med"], rs["idx_med"], "symbolic median")
+    for key in ("nn_curves", "sym_curves", "disc_curves"):
+        failures += close(s[key], rs[key], f"symbolic {key}",
+                          **FIGURES_CURVES)
+    failures += close(a["external"]["sims"], ref["external"]["sims"],
+                      "external fits", **FIGURES_TRAJ)
+    u, ru = a["suppression"], ref["suppression"]
+    if u["restart"] != ru["restart"] or list(u["idx"]) != ru["idx"]:
+        failures.append(f"suppression restart {u['restart']}, subjects "
+                        f"{u['idx']}")
+    failures += close(u["ys"], ru["ys"], "suppression trajectories",
+                      **FIGURES_TRAJ)
+    for t, w in ref["saem"].items():
+        b = a["saem"]["bands"][t]
+        if b["subject"] != w["subject"]:
+            failures.append(f"SAEM {t} subject {b['subject']}")
+        for key in ("p05", "p95", "median"):
+            failures += close(b[key], w[key], f"SAEM {t} band {key}",
+                              **FIGURES_TRAJ)
+    return failures
+
+
+def check_exports(res, covariate: bool, out: Path) -> list[str]:
+    """The fit export the entry point writes with ``--out`` (``fit_export``
+    into ``out``): the committed file's keys and shapes, the run's own
+    arrays, the selected candidate."""
+    from conditional_ude_tpu_torch.pipeline import fit_export
+    from conditional_ude_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    name, arrays, meta = fit_export(res, covariate)
+    save_checkpoint(out / name, arrays, metadata=meta)
+    got, got_meta = load_checkpoint(out / name)
+    want = np.load(ARTIFACTS / name)
+    exp = "exp07" if covariate else "exp02"
+    failures = []
+    if set(got) != set(want.files):
+        failures.append(f"{name} keys {sorted(got)}")
+    for key in want.files:
+        if key in got and got[key].shape != want[key].shape:
+            failures.append(f"{name} {key} shape {got[key].shape}")
+        elif key in got and not np.array_equal(got[key], arrays[key]):
+            failures.append(f"{name} {key} is not the run's own")
+    if got_meta["best_model_index"] != FIGURES_BEST[exp]:
+        failures.append(f"{name} best {got_meta['best_model_index']}")
+    log(f"[check] {exp} export {name}: keys {sorted(got)}, best "
+        f"{got_meta['best_model_index']}, bounds {got_meta['bounds']}")
+    return failures
+
+
 def check_suppression_spread(rows: list[dict]) -> list[str]:
     """Each λ's best train and validation ρ and best objective of a reduced
     retrain's ``rows`` inside ``SUPPRESSION_SPREAD``, widened."""
@@ -2676,7 +3002,10 @@ def check_exp04(res) -> list[str]:
     """exp04 against ``symreg_external_fit.npz`` and
     ``results/exp04_metrics.json``: each subject's k and σ within 2 %, the
     MSE mean within 3 %, the same three quantile subjects with k and their
-    interval bounds within 2 %, every objective finite."""
+    interval bounds within 2 %, every objective finite; and the figure's
+    CI-bound trajectories (``model_fit_external_quantiles.png``): finite on
+    the 2-minute grid at k and at each finite bound, none where it is
+    open."""
     fit = np.load(ARTIFACTS / "symreg_external_fit.npz")
     want = json.loads((REPO / "results" / "exp04_metrics.json").read_text())
     got = res.metrics
@@ -2694,6 +3023,15 @@ def check_exp04(res) -> list[str]:
             continue
         for key in ("k", "ci_lower", "ci_upper"):
             failures += within(g[key], w[key], 0.02, f"exp04 q{q} {key}")
+        panel = res.figure["panels"][q]
+        for key, bound in (("fit", g["k"]), ("lower", g["ci_lower"]),
+                           ("upper", g["ci_upper"])):
+            curve = panel[key]
+            if (curve is None) == bool(np.isfinite(bound)) or (
+                    curve is not None and not (
+                        curve.shape == res.figure["dense_t"].shape
+                        and np.isfinite(curve).all())):
+                failures.append(f"exp04 q{q} {key} trajectory at {bound}")
     if not got["all_finite"]:
         failures.append("exp04 objectives not all finite")
     return failures

@@ -21,12 +21,19 @@
     python -m conditional_ude_tpu_torch --experiment exp_suppression --selection-sensitivity --out runs/sup
     python -m conditional_ude_tpu_torch --experiment exp_symreg_search --search-seeds 3 --out runs/symreg
     python -m conditional_ude_tpu_torch --experiment exp_symreg_search --smoke --out runs/symreg_smoke
+    python -m conditional_ude_tpu_torch --experiment exp_figures --out runs/gallery [--sections cude saem] [--smoke]
     python -m conditional_ude_tpu_torch --out runs/exp02   # also write the metrics and outputs there
     python -m conditional_ude_tpu_torch --device cpu    # the plain versions, on the CPU
 
 With ``--out DIR`` the run writes its metrics (``<experiment>_metrics.json``)
-and its outputs into DIR: exp02's dose-response table
-(``ohashi_production.csv``), exp01's retrained networks
+and its outputs into DIR: exp02's canonical fits (``cude_fit.npz``: the
+(β, σ, SSE) refits, the test profile and the Δβ census) and exp07's
+(``cude_covariate_fit.npz``), which the gallery reads from an artifacts
+directory, exp02's dose-response table
+(``ohashi_production.csv``) and band figure
+(``figures/sampled_simulations.png``), exp04's CI-bound trajectories
+(``figures/model_fit_external_quantiles.png``; the figures only where
+matplotlib is installed), exp01's retrained networks
 (``ude_neural_parameters.npz``), the symbolic fits (``symreg_fit.npz``,
 ``symreg_external_fit.npz``, ``discovered_fit.npz``), exp02_seeds' records
 (``exp02_seed_<s>.json``) and candidates
@@ -39,7 +46,12 @@ exp_suppression's sweep (``suppression_sweep*.csv``, one
 ``suppression_lambda=<λ>.npz`` a λ, ``suppression_selection_sensitivity
 .csv``), and exp_symreg_search's fronts (``symbolic_regression_result
 .csv``, one ``symbolic_regression_result_seed<s>.csv`` a search seed when
-there are several), in the JAX package's formats.  It never writes
+there are several), in the JAX package's formats.  exp_figures, the
+gallery, needs ``--out``: it computes every section's arrays from
+``--artifacts`` and the committed ``results/``, draws ``figures/*.png``
+into DIR where matplotlib is installed (else it notes each figure it
+skips), and writes ``exp_figures_manifest.json`` there, merged with the
+figures an earlier run left; its JSON line is that manifest.  It never writes
 into the artifacts directory or ``results/``, which hold the JAX package's
 reference.  exp02_seeds and exp05 always train; exp02_seeds prints one
 JSON line a seed.  exp06, exp06a and exp06b write their metrics with the
@@ -65,6 +77,7 @@ import torch
 from conditional_ude_tpu_torch import (
     ablation,
     advi_pipeline,
+    figures_pipeline,
     saem_pipeline,
     seeds,
     suppression_pipeline,
@@ -80,15 +93,19 @@ from conditional_ude_tpu_torch.ops import (
 )
 from conditional_ude_tpu_torch.pipeline import (
     SEED,
+    draw_sampled_bands,
+    fit_export,
     run_frozen_pipeline,
     run_training_pipeline,
     run_ude_pipeline,
 )
 from conditional_ude_tpu_torch.symbolic_pipeline import (
+    draw_external_quantiles,
     run_exp03,
     run_exp04,
     run_symreg_production,
 )
+from conditional_ude_tpu_torch.utils import figures
 from conditional_ude_tpu_torch.utils.checkpoint import save_checkpoint
 
 REPO = Path(__file__).resolve().parent.parent
@@ -98,7 +115,8 @@ SYMBOLIC = {"exp03": run_exp03, "exp04": run_exp04,
 SAEM = {"exp06": saem_pipeline.run_exp06, "exp06a": saem_pipeline.run_exp06a,
         "exp06b": saem_pipeline.run_exp06b}
 EXPERIMENTS = ("exp01", "exp02", "exp02_seeds", "exp05", *SAEM, "exp_advi",
-               "exp_suppression", "exp_symreg_search", *SYMBOLIC)
+               "exp_suppression", "exp_symreg_search", "exp_figures",
+               *SYMBOLIC)
 XL_RESTARTS = 96        # --xl --retrain's restarts unless --restarts says
 
 
@@ -121,6 +139,17 @@ def _write_csv(path: Path, header: list[str], rows) -> None:
         w = csv.writer(f)
         w.writerow(header)
         w.writerows([float(v) for v in row] for row in rows)
+
+
+def _draw(draw, arrays, out: Path, name: str) -> None:
+    """``draw(arrays, out/figures/name)`` where matplotlib is installed,
+    else a note that the figure was skipped."""
+    if figures.available():
+        draw(arrays, out / "figures" / name)
+        print(f"[figure] {name}", file=sys.stderr)
+    else:
+        print(f"[skip] {name}: {figures_pipeline.NO_MATPLOTLIB}",
+              file=sys.stderr)
 
 
 def launches() -> dict[str, int]:
@@ -154,7 +183,8 @@ def _main(argv) -> None:
                         "posteriors of the cUDE), exp_suppression (the "
                         "simulated suppression model), exp_symreg_search "
                         "(the GP search for closed-form equations of the "
-                        "production surface), exp03, exp04 or "
+                        "production surface), exp_figures (the figure "
+                        "gallery), exp03, exp04 or "
                         "symreg_production (the symbolic refits)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
@@ -216,7 +246,12 @@ def _main(argv) -> None:
                           "front, merged into one front")
     sym.add_argument("--smoke", action="store_true",
                      help="one GP run at depth 2, population 256, 15 "
-                          "generations")
+                          "generations; exp_figures: 8 subjects a split, "
+                          "100 L-BFGS steps, 200 profile and CI points")
+    gal = p.add_argument_group("exp_figures")
+    gal.add_argument("--sections", nargs="+", default=None,
+                     choices=figures_pipeline.SECTIONS,
+                     help="the gallery's sections to run (default all)")
     sup = p.add_argument_group("exp_suppression")
     sup.add_argument("--noise", type=float, default=0.1,
                      help="multiplicative noise of the training, the noisy "
@@ -255,9 +290,17 @@ def _main(argv) -> None:
     if args.experiment == "exp_suppression" and args.retrain:
         p.error("exp_suppression always fits; --test-only and "
                 "--selection-sensitivity read the committed artifacts")
-    if args.experiment != "exp_symreg_search" and (args.smoke or
-                                                   args.search_seeds != 1):
-        p.error("--smoke and --search-seeds are exp_symreg_search's")
+    if args.experiment not in ("exp_symreg_search", "exp_figures") \
+            and args.smoke:
+        p.error("--smoke is exp_symreg_search's and exp_figures'")
+    if args.experiment != "exp_symreg_search" and args.search_seeds != 1:
+        p.error("--search-seeds is exp_symreg_search's")
+    if args.sections is not None and args.experiment != "exp_figures":
+        p.error("--sections selects exp_figures' sections")
+    if args.experiment == "exp_figures" and (args.out is None
+                                             or args.retrain):
+        p.error("exp_figures draws into --out DIR (required) from the "
+                "committed fits; it has no --retrain")
     if args.experiment == "exp_symreg_search" and args.retrain:
         p.error("exp_symreg_search has no --retrain: it reads the committed "
                 "production samples and always searches")
@@ -331,6 +374,13 @@ def _main(argv) -> None:
         print(json.dumps({"stage_seconds": run.seconds}), file=sys.stderr)
         print(json.dumps(run.metrics, default=float))
         return
+    if args.experiment == "exp_figures":
+        run = figures_pipeline.run_exp_figures(
+            args.device, args.artifacts, out=out, sections=args.sections,
+            smoke=args.smoke)
+        print(json.dumps({"stage_seconds": run.seconds}), file=sys.stderr)
+        print(json.dumps(run.manifest))
+        return
     if args.experiment == "exp_symreg_search":
         run = symreg_pipeline.run_exp_symreg_search(
             args.device, args.artifacts, seed=args.seed,
@@ -355,6 +405,9 @@ def _main(argv) -> None:
         if out is not None:
             save_checkpoint(out / res.checkpoint, res.fits,
                             metadata={"script": name})
+            if res.figure is not None:
+                _draw(draw_external_quantiles, res.figure, out,
+                      "model_fit_external_quantiles.png")
     elif args.experiment == "exp01":
         res = run_ude_pipeline(args.device, args.artifacts,
                                retrain=args.retrain, seed=args.seed,
@@ -389,6 +442,12 @@ def _main(argv) -> None:
         if out is not None and res.dose_response is not None:
             _write_csv(out / "ohashi_production.csv",
                        ["Beta", "Glucose", "Production"], res.dose_response)
+        if out is not None and res.band_curves is not None:
+            _draw(draw_sampled_bands, res.band_curves, out,
+                  "sampled_simulations.png")
+        if out is not None and not args.xl:
+            file, arrays, meta = fit_export(res, args.covariate)
+            save_checkpoint(out / file, arrays, metadata=meta)
     if out is not None:
         (out / f"{name}_metrics.json").write_text(
             json.dumps(metrics, indent=2))

@@ -184,6 +184,7 @@ class PipelineResult:
     # Glucose = ΔG, Production), the sampled bands and the UDE comparison
     dose_response: np.ndarray | None = None
     bands: dict | None = None
+    band_curves: dict | None = None   # sampled_band_curves: the band figure
     ude_vs_cude: dict | None = None
 
     def metrics(self) -> dict:
@@ -359,18 +360,29 @@ def dose_response(model: CPeptideModel, nn_params: torch.Tensor,
     return np.stack([np.exp(bb), gg, prod.cpu().numpy()], axis=1)
 
 
-def sampled_bands(model: CPeptideModel, nn_params: torch.Tensor,
-                  betas: np.ndarray, split: OhashiSplit, seed: int,
-                  n_samples: int = 500) -> dict[str, dict[str, float]]:
+def dense_grid(timepoints) -> np.ndarray:
+    """The 2-minute grid over ``timepoints``' span that the figures'
+    trajectories are drawn on."""
+    return np.arange(timepoints[0], timepoints[-1] + 0.1,
+                     2.0).astype(np.float32)
+
+
+def sampled_band_curves(model: CPeptideModel, nn_params: torch.Tensor,
+                        betas: np.ndarray, split: OhashiSplit, seed: int,
+                        n_samples: int = 500) -> dict:
     """For each type, ``n_samples`` β's drawn with replacement from that
     type's ``betas`` and the type-average individual simulated at each on
-    a 2-minute grid (RK4, 4 substeps): the mean, 5 % and 95 % of the
-    trajectories at the last time (``experiments/exp02_conditional.py
+    a 2-minute grid (RK4, 4 substeps) (``experiments/exp02_conditional.py
     :140-198``).  One generator from ``seed`` draws for the types in
-    turn, as the JAX experiment script's does."""
+    turn, as the JAX experiment script's does.
+
+    Returns ``{"dense_t": [T], "timepoints": [T_obs], "bands": {type:
+    {"mean", "p05", "p95": [T] over the trajectories, "final": [n_samples]
+    their last values, "obs_mean", "obs_sd": [T_obs] the type's observed
+    c-peptide}}}``, the arrays of exp02's ``sampled_simulations.png``."""
     rng = np.random.default_rng(seed)
     tp = split.timepoints
-    dense_t = np.arange(tp[0], tp[-1] + 0.1, 2.0).astype(np.float32)
+    dense_t = dense_grid(tp)
     bands = {}
     for t in TYPES:
         sel = split.types == t
@@ -385,10 +397,66 @@ def sampled_bands(model: CPeptideModel, nn_params: torch.Tensor,
             sols = simulate(model, nn_params, np.asarray(sampled, np.float32),
                             ind, dense_t, solver="rk4",
                             substeps=4).ys[..., 0].cpu().numpy()
-        bands[t] = {"mean_final": float(sols.mean(axis=0)[-1]),
-                    "p05_final": float(np.quantile(sols[:, -1], 0.05)),
-                    "p95_final": float(np.quantile(sols[:, -1], 0.95))}
-    return bands
+        bands[t] = {"mean": sols.mean(axis=0),
+                    "p05": np.quantile(sols, 0.05, axis=0),
+                    "p95": np.quantile(sols, 0.95, axis=0),
+                    "final": sols[:, -1],
+                    "obs_mean": split.cpeptide[sel].mean(axis=0),
+                    "obs_sd": split.cpeptide[sel].std(axis=0)}
+    return {"dense_t": dense_t, "timepoints": tp, "bands": bands}
+
+
+def band_summary(curves: dict) -> dict[str, dict[str, float]]:
+    """The mean, 5 % and 95 % of each type's trajectories at the last time
+    (exp02's ``sampled_simulation_bands`` metric)."""
+    return {t: {"mean_final": float(c["mean"][-1]),
+                "p05_final": float(np.quantile(c["final"], 0.05)),
+                "p95_final": float(np.quantile(c["final"], 0.95))}
+            for t, c in curves["bands"].items()}
+
+
+def sampled_bands(model: CPeptideModel, nn_params: torch.Tensor,
+                  betas: np.ndarray, split: OhashiSplit, seed: int,
+                  n_samples: int = 500) -> dict[str, dict[str, float]]:
+    """:func:`band_summary` of :func:`sampled_band_curves`."""
+    return band_summary(sampled_band_curves(model, nn_params, betas, split,
+                                            seed, n_samples))
+
+
+def draw_sampled_bands(curves: dict, path: Path) -> None:
+    """exp02's ``sampled_simulations.png`` from :func:`sampled_band_curves`
+    (the type's observed mean ± sd as error bars)."""
+    from conditional_ude_tpu_torch.utils import figures
+
+    bands = curves["bands"]
+    figures.save(figures.band_panels(
+        curves["dense_t"], bands, curves["timepoints"],
+        {t: c["obs_mean"] for t, c in bands.items()},
+        obs_err={t: c["obs_sd"] for t, c in bands.items()}, center="mean",
+        figsize=(9, 2.8)), path)
+
+
+def fit_export(res: "PipelineResult", covariate: bool) -> tuple[str, dict,
+                                                                 dict]:
+    """exp02's canonical fits as ``cude_fit.npz`` writes them
+    (``experiments/exp02_conditional.py:104-115``: the (β, σ, SSE) refits,
+    the test profile and the Δβ census), or exp07's as
+    ``cude_covariate_fit.npz`` (``experiments/exp07_covariate.py:72-80``:
+    the refits only): ``(file name, arrays, metadata)``."""
+    arrays = {"beta_train": res.b_train, "sigma_train": res.s_train,
+              "sse_train": res.sse_train, "beta_test": res.b_test,
+              "sigma_test": res.s_test, "sse_test": res.sse_test}
+    if not covariate:
+        for key, prof in (("profile", res.profile),
+                          ("delta", res.delta_profile)):
+            if prof is not None:
+                arrays[f"{key}_grid"] = prof.grid.cpu().numpy()
+                arrays[f"{key}_values"] = prof.values.cpu().numpy()
+    meta = {"script": "exp07" if covariate else "exp02",
+            "best_model_index": int(res.best),
+            "bounds": [float(b) for b in res.bounds]}
+    return ("cude_covariate_fit.npz" if covariate else "cude_fit.npz",
+            arrays, meta)
 
 
 def ude_model() -> CPeptideModel:
@@ -417,9 +485,10 @@ def _add_outputs(result: PipelineResult, model: CPeptideModel,
     with stage("outputs"):
         result.dose_response = dose_response(model, nn_best, result.b_train,
                                              train.glucose)
-        result.bands = sampled_bands(
+        result.band_curves = sampled_band_curves(
             model, nn_best, np.concatenate([result.b_train, result.b_test]),
             OhashiSplit.concatenate(train, test), seed, band_samples)
+        result.bands = band_summary(result.band_curves)
         path = artifacts_dir / UDE_WEIGHTS
         if path.exists():
             ude = load_checkpoint(path)[0]["nn_params"][0]

@@ -10,7 +10,9 @@ to an equation.
   census;
 * ``run_exp04``: (k, σ) on the 20 subjects of the Fujita cohort, and the
   profiles of the subjects at the 25/50/75 % SSE quantiles over
-  [k − 25, k + 1000] (RK4, 8 substeps) with their confidence intervals;
+  [k − 25, k + 1000] (RK4, 8 substeps) with their confidence intervals,
+  and each of these subjects simulated at k and at its CI's bounds, the
+  arrays of ``model_fit_external_quantiles.png``;
 * ``run_symreg_production``: (b, σ) of the in-repo discovered equation on
   Ohashi and on Fujita, and the b-profiles over [1e-3, 10] with their
   census.
@@ -37,7 +39,11 @@ from conditional_ude_tpu_torch.analysis.profiles import (
 from conditional_ude_tpu_torch.data.fujita import load_fujita_npz
 from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
 from conditional_ude_tpu_torch.fit.losses import sse
-from conditional_ude_tpu_torch.models.cpeptide import Cohort, build_cohort
+from conditional_ude_tpu_torch.models.cpeptide import (
+    Cohort,
+    build_cohort,
+    simulate,
+)
 from conditional_ude_tpu_torch.models.symbolic import (
     discovered_model,
     fit_b_sigma,
@@ -48,6 +54,7 @@ from conditional_ude_tpu_torch.pipeline import (
     _cohort,
     _counts,
     _Stages,
+    dense_grid,
     sse_per_type,
 )
 from conditional_ude_tpu_torch.utils.stats import spearman
@@ -60,6 +67,7 @@ class SymbolicResult:
     metrics: dict                    # the JAX experiment script's metrics keys
     fits: dict[str, np.ndarray]      # the arrays of its fit checkpoint
     checkpoint: str                  # that checkpoint's file name
+    figure: dict | None = None       # exp04: its CI-bound trajectories
 
 
 def _sse(objectives, sigmas, n_t: int) -> np.ndarray:
@@ -139,7 +147,9 @@ def run_exp04(device: torch.device | str, artifacts_dir: str | Path,
     sse_vals = _sse(objs, sigmas, n_t)
     model = symbolic_model()
 
-    quantile_ci = {}
+    quantile_ci, panels = {}, {}
+    t_obs = cohort.timepoints
+    dense_t = dense_grid(t_obs)
     with stage("profile"):
         for q in (0.25, 0.5, 0.75):
             i = quantile_subject(sse_vals, q)
@@ -158,6 +168,9 @@ def run_exp04(device: torch.device | str, artifacts_dir: str | Path,
             quantile_ci[str(q)] = {"subject": i, "k": float(ks[i]),
                                    "ci_lower": float(ci.lower),
                                    "ci_upper": float(ci.upper)}
+            panels[str(q)] = ci_trajectories(model, one, dense_t, ks[i],
+                                             ci.lower, ci.upper)
+            panels[str(q)]["observed"] = one.cpeptide[0].cpu().numpy()
     return SymbolicResult(metrics={
         "n_subjects": int(cohort.n),
         "k_mean": float(ks.mean()),
@@ -169,7 +182,35 @@ def run_exp04(device: torch.device | str, artifacts_dir: str | Path,
         "all_finite": bool(np.isfinite(objs).all()),
         "stage_seconds": stage.seconds,
     }, fits={"ks": ks, "sigmas": sigmas, "objectives": objs},
-        checkpoint="symreg_external_fit.npz")
+        checkpoint="symreg_external_fit.npz",
+        figure={"dense_t": dense_t, "timepoints": t_obs, "panels": panels})
+
+
+def ci_trajectories(model, one: Cohort, dense_t: np.ndarray, k: float,
+                    lower: float, upper: float) -> dict:
+    """One subject simulated on ``dense_t`` (RK4, 4 substeps) at ``k`` and
+    at its CI's bounds (``experiments/exp04_symreg_external.py:113-122``):
+    ``{"fit": [T], "lower", "upper": [T] or None where the CI is open}``."""
+    thetas = [k] + [b for b in (lower, upper) if np.isfinite(b)]
+    with torch.no_grad():
+        ys = simulate(model, None, np.asarray(thetas, np.float32), one,
+                      dense_t, solver="rk4", substeps=4).ys[..., 0]
+    ys = list(ys.cpu().numpy())
+    return {"fit": ys.pop(0),
+            "lower": ys.pop(0) if np.isfinite(lower) else None,
+            "upper": ys.pop(0) if np.isfinite(upper) else None}
+
+
+def draw_external_quantiles(figure: dict, path: Path) -> None:
+    """exp04's ``model_fit_external_quantiles.png`` from ``run_exp04``'s
+    ``figure``."""
+    from conditional_ude_tpu_torch.utils import figures
+
+    figures.save(figures.quantile_ci_panels(
+        figure["dense_t"],
+        [(f"{int(float(q) * 100)}%", p["fit"], p["lower"], p["upper"],
+          p["observed"]) for q, p in figure["panels"].items()],
+        figure["timepoints"]), path)
 
 
 def run_symreg_production(device: torch.device | str,

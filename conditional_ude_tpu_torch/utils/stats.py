@@ -3,7 +3,9 @@
 * ``stratified_split``: per-class sampling that keeps the NGT/IGT/T2DM
   proportions;
 * ``latin_hypercube``: the β design of joint training;
-* ``spearman``: rank correlation of β against the clamp indices.
+* ``spearman``: rank correlation of β against the clamp indices;
+* ``mann_whitney_u``: the age-difference tests of the gallery's age panel;
+* ``argmedian``: the median-fit subject of a set of errors.
 """
 
 from __future__ import annotations
@@ -45,3 +47,15 @@ def latin_hypercube(rng: np.random.Generator, n_samples: int, dims: int,
 def spearman(x, y) -> float:
     """Spearman rank correlation (average ranks for ties)."""
     return float(_sstats.spearmanr(np.asarray(x), np.asarray(y)).statistic)
+
+
+def mann_whitney_u(x, y) -> float:
+    """Two-sided Mann-Whitney U test p-value."""
+    return float(_sstats.mannwhitneyu(np.asarray(x), np.asarray(y),
+                                      alternative="two-sided").pvalue)
+
+
+def argmedian(x) -> int:
+    """Index of the element closest to the median, the first of equals."""
+    x = np.asarray(x)
+    return int(np.argmin(np.abs(x - np.median(x))))

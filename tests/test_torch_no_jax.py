@@ -1,5 +1,6 @@
 """PyTorch port: importing every module of the port loads neither ``jax`` nor
-the JAX package."""
+the JAX package, nor ``matplotlib`` (the card's machine has none: the
+figure functions import it when they run)."""
 
 import subprocess
 import sys
@@ -14,14 +15,16 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "conditional_ude_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "conditional_ude_tpu",
+                                    "matplotlib"))
 print(len(names), bad)
 assert not bad, bad
 for m in ("fit.optim", "ops.tsit5", "ops.rk4_population", "ops.lane_grad",
           "ops.tsit5_cohort", "ops.population_grad", "ops.cuda_build",
           "seeds", "ablation", "replicate", "fit.saem", "saem_pipeline",
           "fit.advi", "advi_pipeline", "models.suppression",
-          "suppression_pipeline", "analysis.symreg", "symreg_pipeline"):
+          "suppression_pipeline", "analysis.symreg", "symreg_pipeline",
+          "utils.figures", "utils.profiling", "cli", "figures_pipeline"):
     assert pkg.__name__ + "." + m in names, m
 assert "torch" in sys.modules
 """
