@@ -162,7 +162,19 @@
     bounds within two grid steps and the trajectories there, the
     dose-response curves, the refits, every section's trajectories and
     bands, the p-values.
-    12-23 are bound by the host, so they run in seven child processes (this
+24. runs the mesh path (``parallel/mesh.py``) after the gallery in its
+    child: exp02's retrain cut to 10 + 10 steps, the census (117 x 1,000),
+    the test profiles of exp02 (K4) and exp07 (K4c), the (β, σ) refit of
+    all 117 subjects at 10 L-BFGS steps, SAEM on the 117 at 4 iterations
+    and the suppression sweep at the reduced retrain cut to 10 Adam and 10
+    L-BFGS steps, each unsharded and on a 2-way mesh of ``cuda:0`` (25 restarts padded
+    to 26, 117 and 35 subjects padded to 118 and 36), then exp02's retrain
+    at full depth on the mesh; every stage launches exactly its kernels,
+    the sharded run twice as often, and is held to the unsharded run bit
+    for bit where its lanes are independent (``MESH_*``), the full-depth
+    training to exp02's retrain limit.  With more than one card the census
+    and the cut run over all of them too, held as the 2-way runs are.
+    12-24 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -1452,13 +1464,14 @@ def main() -> None:
 # host-bound), the replication experiments (exp02_seeds and exp05 train, so
 # they launch K1, K2 and K3), SAEM on the cUDE (K4 and K2), and exp_advi (K2
 # and K4) then exp_suppression and exp_symreg_search (no kernel) after
-# exp_symreg_production, and the gallery (K4 and K4c) after exp01's
-# retrains at two seeds, the child that ended first
+# exp_symreg_production, and the gallery (K4 and K4c) and the mesh path
+# (K1-K4, K4c) after exp01's retrains at two seeds, the child that ended
+# first
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04"),
         ("exp_symreg_production", "exp_advi", "exp_suppression",
          "exp_symreg_search"),
         (*(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
-         "exp_figures"),
+         "exp_figures", "mesh"),
         ("exp02_seeds",),
         ("exp05", "replicate"),
         ("exp06", "exp06a"),
@@ -1740,6 +1753,34 @@ FIGURES_CURVES = dict(rtol=1e-4, atol=1.6e-4)     # exp02's table
 FIGURES_TRAJ = dict(rtol=1e-4, atol=1e-5)
 FIGURES_BETA_TOL, FIGURES_RHO_TOL = 1e-2, 0.01
 FIGURES_BEST = {"exp02": 19, "exp07": 16}   # artifacts/cude*_fit.json
+# the mesh path: each sharded subsystem at full width on a 2-way mesh of
+# cuda:0 (and on every card where there are more), beside its unsharded
+# run.  The lanes of the screen, the profiles and the refit are
+# independent, so those are held bit for bit; the rest at the JAX suite's
+# tolerances (tests/test_parallel.py): training objectives rtol 5e-3, SAEM's
+# nll_trace atol 1e-4 and θ atol 1e-5, the suppression sweep rtol 5e-2 +
+# atol 1e-4.  Every stage of both runs must launch exactly the kernels
+# named in MESH_STAGE_KERNELS, the sharded run twice as often
+MESH_SHARDS = 2
+MESH_CUT = dict(adam_iters=10, lbfgs_iters=10)
+MESH_TRAIN_RTOL, MESH_OBJ_MAX = 5e-3, 0.30       # exp02's retrain limit
+MESH_CENSUS_STEPS, MESH_PROFILE_STEPS = 1_000, 10_000
+# the refit and the sweep launch no kernel and their lanes are independent,
+# so bit for bit does not depend on depth: each runs the fewest steps that
+# still pad, split and gather (their eager steps dominated the path's time)
+MESH_REFIT_LBFGS = 10
+MESH_SAEM = dict(iterations=4, burnin=2, n_mcmc_steps=25,
+                 initial_mcmc_steps=25)   # exp06's steps, 4 iterations
+MESH_SAEM_ATOL = {"nll_trace": 1e-4, "theta": 1e-5}
+MESH_SWEEP_STEPS = dict(adam_iters=10, lbfgs_iters=10)
+MESH_SWEEP_TOL = dict(rtol=5e-2, atol=1e-4)
+MESH_STAGE_KERNELS = {
+    "train cut": {"rk4_population", "lane_grad", "tsit5_cohort"},
+    "census": {"rk4_cohort"}, "test profile": {"rk4_cohort"},
+    "exp07 test profile": {"rk4_cohort (3-input)"}, "refit": set(),
+    "saem": {"rk4_cohort", "lane_grad"}, "sweep": set()}
+MESH_KERNELS = frozenset({"rk4_population", "lane_grad", "tsit5_cohort",
+                          "rk4_cohort", "rk4_cohort (3-input)"})
 
 
 def new_paths(dev):
@@ -1786,6 +1827,7 @@ def new_paths(dev):
                               check_symreg_search_path, none),
         "exp_figures": (lambda: run_figures_path(dev), check_figures_path,
                         FIGURES_KERNELS),
+        "mesh": (lambda: run_mesh_path(dev), check_mesh_path, MESH_KERNELS),
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
                    lambda res: check_saem_spread(res.metrics, "exp06a"), none),
         "exp06b": (lambda: run_exp06b(dev, ARTIFACTS),
@@ -2093,6 +2135,203 @@ def run_figures_path(dev):
                                      "K4c": rk4_cohort.launches_age})
 
 
+def _launch_counts() -> dict[str, int]:
+    from conditional_ude_tpu_torch.__main__ import launches
+    return launches()
+
+
+def run_mesh_path(dev):
+    """The sharded subsystems (``parallel/mesh.py``) at full width, each
+    unsharded then on a 2-way mesh of ``dev`` (``MESH_SHARDS``), with the
+    seconds and the kernels' launches of each run: exp02's retrain cut to
+    ``MESH_CUT`` steps (restarts 25 padded to 26), the census (117 x 1,000)
+    and the test profiles of exp02 (35 x 10,000, K4) and exp07 (K4c), the
+    (β, σ) refit of all 117 subjects at ``MESH_REFIT_LBFGS`` L-BFGS steps,
+    SAEM on the 117 (``MESH_SAEM``) and the suppression sweep at the reduced
+    retrain cut to ``MESH_SWEEP_STEPS``; then exp02's retrain at
+    full depth on the mesh alone (the unsharded one is the main path's), its
+    value+grad evaluations counted.  With more than one card the census
+    and the training cut run again over all of them."""
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch import suppression_pipeline as sp
+    from conditional_ude_tpu_torch.analysis.profiles import (
+        cohort_beta_profiles,
+    )
+    from conditional_ude_tpu_torch.convert import params_from_jax
+    from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
+    from conditional_ude_tpu_torch.fit import saem
+    from conditional_ude_tpu_torch.fit.train import (
+        TrainConfig,
+        fit_betas_sigma,
+        train_conditional,
+    )
+    from conditional_ude_tpu_torch.models import suppression as sup
+    from conditional_ude_tpu_torch.models.cpeptide import (
+        CPeptideModel,
+        build_cohort,
+    )
+    from conditional_ude_tpu_torch.nn import chain
+    from conditional_ude_tpu_torch.parallel import mesh as pmesh
+    from conditional_ude_tpu_torch.pipeline import SEED
+    from conditional_ude_tpu_torch.utils.stats import stratified_split
+
+    def cohort(split):
+        return build_cohort(split.glucose, split.timepoints, split.cpeptide,
+                            split.ages, split.t2dm, dev)
+
+    train, test = load_npz(ARTIFACTS / "ohashi.npz")
+    both = OhashiSplit.concatenate(train, test)
+    idx_fit, _ = stratified_split(np.random.default_rng(SEED), train.types,
+                                  0.7)
+    fit_cohort, test_cohort, all_cohort = (
+        cohort(train.subset(idx_fit)), cohort(test), cohort(both))
+    model = CPeptideModel(chain(4, 2))
+    cov_model = CPeptideModel(chain(4, 2, "tanh", input_dims=3),
+                              "conditional_covariate")
+    nn = torch.as_tensor(np.load(ARTIFACTS / "cude_neural_parameters.npz")[
+        "nn_params"][FIGURES_BEST["exp02"]], device=dev)
+    nn_cov = torch.as_tensor(np.load(
+        ARTIFACTS / "cude_covariate_neural_parameters.npz")["nn_params"][
+        FIGURES_BEST["exp07"]], device=dev)
+    fit, cov_fit = (np.load(ARTIFACTS / f) for f in
+                    ("cude_fit.npz", "cude_covariate_fit.npz"))
+    lb, ub = json.loads((ARTIFACTS / "cude_fit.json").read_text())["bounds"]
+    clb, cub = json.loads((ARTIFACTS / "cude_covariate_fit.json")
+                          .read_text())["bounds"]
+    devices = [dev] * MESH_SHARDS
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    mesh_r = pmesh.make_mesh(("restarts",), devices=devices)
+    mesh_i = pmesh.make_mesh(("individuals",), devices=devices)
+    stages, seconds = {}, {}
+
+    def run(name, shards, fn):
+        before = _launch_counts()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        t0 = time.perf_counter()
+        res = fn()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        sec = time.perf_counter() - t0
+        after = _launch_counts()
+        stages.setdefault(name, {})[shards] = {
+            "seconds": sec, "launches": {
+                k: after.get(k, 0) - before.get(k, 0) for k in after
+                if after.get(k, 0) != before.get(k, 0)}}
+        seconds[f"{name} x{shards}"] = sec
+        return res
+
+    def pair(name, plain, sharded, shards=MESH_SHARDS):
+        return run(name, 1, plain), run(name, shards, sharded)
+
+    # value+grad evaluations of the sharded trainings: K2 launches once a
+    # shard each
+    evals, real_vg = [0], pmesh.sharded_population_vg
+
+    def counted_vg(*args, **kwargs):
+        vg = real_vg(*args, **kwargs)
+
+        def wrapped(nn_, b_):
+            evals[0] += 1
+            return vg(nn_, b_)
+        return wrapped
+
+    def train(cfg, mesh=None):
+        evals[0] = 0
+        return train_conditional(
+            model, fit_cohort, cfg,
+            generator=torch.Generator(device=dev).manual_seed(SEED),
+            seed=SEED, mesh=mesh)
+
+    out = SimpleNamespace(stages=stages, seconds=seconds)
+    pmesh.sharded_population_vg = counted_vg
+    try:
+        cut = TrainConfig(**MESH_CUT)
+        out.cut = pair("train cut", lambda: train(cut),
+                       lambda: train(cut, mesh_r))
+        out.cut_evals = evals[0]
+
+        out.census = pair(
+            "census",
+            lambda: cohort_beta_profiles(
+                model, nn, all_cohort, sigmas=np.concatenate(
+                    [fit["sigma_train"], fit["sigma_test"]]), lower=-10.0,
+                upper=10.0, steps=MESH_CENSUS_STEPS, center=np.concatenate(
+                    [fit["beta_train"], fit["beta_test"]])),
+            lambda: pmesh.sharded_beta_profiles(
+                model, nn, all_cohort, mesh_i, sigmas=np.concatenate(
+                    [fit["sigma_train"], fit["sigma_test"]]), lower=-10.0,
+                upper=10.0, steps=MESH_CENSUS_STEPS, center=np.concatenate(
+                    [fit["beta_train"], fit["beta_test"]])))
+        for name, m, net_, f, lo, hi in (
+                ("test profile", model, nn, fit, lb, ub),
+                ("exp07 test profile", cov_model, nn_cov, cov_fit, clb, cub)):
+            kw = dict(sigmas=f["sigma_test"], lower=float(lo) - 1.0,
+                      upper=float(hi) + 1.0, steps=MESH_PROFILE_STEPS)
+            setattr(out, name.replace(" ", "_"), pair(
+                name, lambda m=m, n_=net_, kw=kw: cohort_beta_profiles(
+                    m, n_, test_cohort, **kw),
+                lambda m=m, n_=net_, kw=kw: pmesh.sharded_beta_profiles(
+                    m, n_, test_cohort, mesh_i, **kw)))
+
+        refit_kw = dict(initial_beta=-1.0, bounds=(float(lb), float(ub)),
+                        lbfgs_iters=MESH_REFIT_LBFGS)
+        out.refit = pair(
+            "refit",
+            lambda: fit_betas_sigma(model, nn, all_cohort, **refit_kw),
+            lambda: pmesh.sharded_fit_betas(model, nn, all_cohort, mesh_i,
+                                            sigma=True, **refit_kw))
+
+        nn0 = params_from_jax(np.load(ARTIFACTS / "saem_pretrain.npz")[
+            "nn_params"][0], model.net, dev)
+        scfg = saem.SAEMConfig(**MESH_SAEM)
+        out.saem = pair(
+            "saem",
+            lambda: saem.saem_cude(model, all_cohort, nn0, torch.Generator(
+                device=dev).manual_seed(1), scfg),
+            lambda: saem.saem_cude(
+                model, pmesh.shard_cohort(all_cohort, mesh_i), nn0,
+                torch.Generator(device=dev).manual_seed(1), scfg))
+
+        data, _ = sup.generate_data(sp.GROUP_MEANS, sp.FULL.train,
+                                    sp.TIMEPOINTS, 0.1,
+                                    rng=np.random.default_rng(sp.DATA_SEED),
+                                    device=dev)
+        red = {k: v for k, v in SUPPRESSION_REDUCED.items()
+               if k != "valid_inits"}
+        scfg_sup = sup.SuppressionFitConfig(**{**red, **MESH_SWEEP_STEPS})
+
+        def sweep(mesh=None):
+            return sup.fit_suppression_sweep(
+                sup.suppression_net(), data, sp.TIMEPOINTS, sp.LAMBDAS,
+                scfg_sup, device=dev,
+                generator=torch.Generator().manual_seed(SEED), mesh=mesh)
+        out.sweep = pair("sweep", sweep, lambda: sweep(mesh_r))
+
+        out.full = run("train full", MESH_SHARDS,
+                       lambda: train(TrainConfig(), mesh_r))
+        out.full_evals = evals[0]
+
+        count = len(cards)
+        out.cards = count
+        if count > 1:
+            out.cards_census = run(
+                "census", count, lambda: pmesh.sharded_beta_profiles(
+                    model, nn, all_cohort,
+                    pmesh.make_mesh(("individuals",), devices=cards),
+                    sigmas=np.concatenate([fit["sigma_train"],
+                                           fit["sigma_test"]]),
+                    lower=-10.0, upper=10.0, steps=MESH_CENSUS_STEPS,
+                    center=np.concatenate([fit["beta_train"],
+                                           fit["beta_test"]])))
+            out.cards_cut = run("train cut", count, lambda: train(
+                cut, pmesh.make_mesh(("restarts",), devices=cards)))
+    finally:
+        pmesh.sharded_population_vg = real_vg
+    return out
+
+
 def run_side(names: list[str], out: Path) -> None:
     """A child process: run ``names``, each with every kernel's count at 0
     before it, and write each one's failures, kernel launches, the kernels
@@ -2220,6 +2459,128 @@ def finish_side(procs: list, t_start: float) -> None:
     if failures:
         raise AssertionError("paths beside the main one failed:\n  "
                              + "\n  ".join(failures))
+
+
+def check_mesh_path(res) -> list[str]:
+    """The mesh path: each stage's launches (exactly the kernels of
+    ``MESH_STAGE_KERNELS``, the sharded run twice as often as the unsharded
+    one; the full-depth training K1 and K3 once a shard and K2 once a shard
+    an evaluation), the lanes-independent results bit for bit, the rest at
+    the ``MESH_*`` tolerances, and the full-depth training's objective and
+    routes."""
+    failures = []
+    card = card_line()
+    for name, runs in res.stages.items():
+        for shards, r in sorted(runs.items()):
+            log(f"[time] mesh {name} x{shards}: {r['seconds']:.2f} s, "
+                f"launches {r['launches'] or 'none'}  [{card}]")
+        if name not in MESH_STAGE_KERNELS:
+            continue
+        plain = runs[1]["launches"]
+        for shards, r in runs.items():
+            if set(r["launches"]) != MESH_STAGE_KERNELS[name]:
+                failures.append(f"mesh {name} x{shards} launched "
+                                f"{r['launches']}")
+            elif r["launches"] != {k: shards * v for k, v in plain.items()}:
+                failures.append(f"mesh {name} x{shards} launched "
+                                f"{r['launches']}, not {shards} x {plain}")
+    want = {"census": 2 * MESH_CENSUS_STEPS // 1000,
+            "test profile": MESH_PROFILE_STEPS // 500}
+    for name, n in want.items():
+        got = res.stages[name][1]["launches"].get("rk4_cohort")
+        if got != n:
+            failures.append(f"mesh {name} unsharded: K4 {got}, not {n}")
+    cut_k2 = res.stages["train cut"][1]["launches"].get("lane_grad")
+    log(f"[check] mesh training cut: {res.cut_evals} value+grad evaluations"
+        f" sharded, K2 {cut_k2} launches unsharded")
+    if cut_k2 != res.cut_evals:
+        failures.append(f"mesh train cut: {res.cut_evals} evaluations, K2 "
+                        f"{cut_k2} unsharded")
+    saem_want = {"rk4_cohort": MESH_SAEM["iterations"]
+                 * (MESH_SAEM["n_mcmc_steps"] + 1),
+                 "lane_grad": MESH_SAEM["iterations"] * 5}
+    if res.stages["saem"][1]["launches"] != saem_want:
+        failures.append(f"mesh saem unsharded launched "
+                        f"{res.stages['saem'][1]['launches']}, not "
+                        f"{saem_want}")
+    full = res.stages["train full"][MESH_SHARDS]["launches"]
+    full_want = {"rk4_population": MESH_SHARDS, "tsit5_cohort": MESH_SHARDS,
+                 "lane_grad": MESH_SHARDS * res.full_evals}
+    log(f"[check] mesh training at full depth: {res.full_evals} value+grad "
+        f"evaluations, launches {full} (want {full_want})")
+    if full != full_want:
+        failures.append(f"mesh train full launched {full}, not {full_want}")
+
+    def exact(name, pairs):
+        diffs = {k: float((a.double() - b.double()).abs().max())
+                 if a.shape == b.shape else math.inf for k, (a, b) in
+                 pairs.items()}
+        same_ = all(torch.equal(a, b) for a, b in pairs.values())
+        log(f"[check] mesh {name}: sharded {'equals' if same_ else 'differs from'}"
+            f" unsharded bit for bit (largest differences {diffs})")
+        return same_, diffs
+
+    plain, sharded = res.cut
+    same_cut, diffs = exact("train cut", {
+        k: (getattr(plain, k), getattr(sharded, k))
+        for k in ("screen_losses", "objectives", "nn_params", "betas",
+                  "loss_traces")})
+    if not torch.equal(sharded.screen_losses, plain.screen_losses):
+        failures.append("mesh train cut: the sharded screen is not the "
+                        "unsharded one bit for bit")
+    if not same_cut and not torch.allclose(
+            sharded.objectives, plain.objectives, rtol=MESH_TRAIN_RTOL,
+            atol=0.0):
+        failures.append(f"mesh train cut objectives {diffs}")
+    if (sharded.timings["screen_path"], sharded.timings["refine_path"]) != (
+            f"cuda_k1+mesh{MESH_SHARDS}", f"cuda_k2+mesh{MESH_SHARDS}"):
+        failures.append(f"mesh routes {sharded.timings}")
+    for name in ("census", "test_profile", "exp07_test_profile"):
+        p0, p1 = getattr(res, name)
+        if not exact(name, {"values": (p0.values, p1.values)})[0]:
+            failures.append(f"mesh {name} not bit for bit")
+    if getattr(res, "cards_census", None) is not None and not torch.equal(
+            res.cards_census.values, res.census[0].values):
+        failures.append(f"mesh census over {res.cards} cards not bit for "
+                        "bit")
+    if getattr(res, "cards_cut", None) is not None:
+        cards_cut = res.cards_cut
+        same_cards, diffs = exact(f"train cut over {res.cards} cards", {
+            k: (getattr(plain, k), getattr(cards_cut, k))
+            for k in ("screen_losses", "objectives")})
+        if not torch.equal(cards_cut.screen_losses, plain.screen_losses):
+            failures.append(f"mesh train cut over {res.cards} cards: the "
+                            "screen is not the unsharded one bit for bit")
+        if not same_cards and not torch.allclose(
+                cards_cut.objectives, plain.objectives, rtol=MESH_TRAIN_RTOL,
+                atol=0.0):
+            failures.append(f"mesh train cut over {res.cards} cards "
+                            f"objectives {diffs}")
+    if not exact("refit", dict(zip(("beta", "sigma", "objective"),
+                                   zip(*res.refit))))[0]:
+        failures.append("mesh (β, σ) refit not bit for bit")
+    s0, s1 = res.saem
+    exact("saem", {"nll_trace": (s0.nll_trace, s1.nll_trace),
+                   "theta": (s0.theta, s1.theta)})
+    for key, atol in MESH_SAEM_ATOL.items():
+        if not torch.allclose(getattr(s1, key), getattr(s0, key), rtol=0.0,
+                              atol=atol):
+            failures.append(f"mesh saem {key} beyond atol {atol}")
+    w0, w1 = res.sweep
+    exact("sweep", {"objectives": (w0.objectives, w1.objectives),
+                    "thetas": (w0.thetas, w1.thetas)})
+    if not torch.allclose(w1.objectives, w0.objectives, **MESH_SWEEP_TOL):
+        failures.append("mesh sweep objectives beyond rtol 5e-2 + atol "
+                        "1e-4")
+    tr = res.full
+    log(f"[check] mesh training at full depth: routes "
+        f"{tr.timings['screen_path']}, {tr.timings['refine_path']}; stages "
+        + ", ".join(f"{k} {tr.timings[k]:.2f} s" for k in
+                    ("screen", "adam", "lbfgs", "final_eval")))
+    failures += check_routes_and_objective(
+        tr, f"cuda_k2+mesh{MESH_SHARDS}", MESH_OBJ_MAX,
+        "exp02's retrain limit", f"cuda_k1+mesh{MESH_SHARDS}")
+    return failures
 
 
 def check_fits(res, fit: dict, beta_tol: float, sigma_tol: float,
@@ -3117,11 +3478,12 @@ def check_retrain_covariate(res) -> list[str]:
 
 
 def check_routes_and_objective(tr, refine_path: str, obj_max: float,
-                               obj_ref: str) -> list[str]:
+                               obj_ref: str, screen_path: str = "cuda_k1"
+                               ) -> list[str]:
     """The kernels' routes a training took and its best Tsit5 objective."""
     failures = []
     timings = tr.timings
-    if (timings["screen_path"], timings["refine_path"]) != ("cuda_k1",
+    if (timings["screen_path"], timings["refine_path"]) != (screen_path,
                                                             refine_path):
         failures.append(f"routes {timings['screen_path']}, "
                         f"{timings['refine_path']}")

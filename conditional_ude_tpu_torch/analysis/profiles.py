@@ -70,7 +70,8 @@ def cohort_beta_profiles(model: CPeptideModel,
                          sigmas=1.0, lower: float = -4.0,
                          upper: float = 1.0, steps: int = 10_000,
                          chunk: int = 500, center=None,
-                         substeps: int = 8, solver: str = "rk4") -> Profile:
+                         substeps: int = 8, solver: str = "rk4",
+                         require_kernel: bool = False) -> Profile:
     """β-profiles of every individual at once: ``values[N, S]``; for the
     analytic head (``nn_params`` None) the profiles of its θ.
 
@@ -78,6 +79,8 @@ def cohort_beta_profiles(model: CPeptideModel,
     grid is a shared Δβ axis (the identifiability census).  The scan runs in
     chunks of ``chunk`` grid points, by RK4 at ``substeps`` or by Tsit5 at
     the JAX defaults (``solver="tsit5"``, which K4 does not compute).
+    ``require_kernel=True`` raises ``ValueError`` where K4 cannot compute
+    the model (the JAX package's ``use_pallas=True``).
     """
     dev, n = cohort.device, cohort.n
     f32 = dict(dtype=torch.float32, device=dev)
@@ -86,6 +89,9 @@ def cohort_beta_profiles(model: CPeptideModel,
     ctr = (torch.zeros(n, **f32) if center is None
            else torch.as_tensor(center, **f32))
     fused = solver == "rk4" and fused_kernel_eligible(model)
+    if require_kernel and not fused:
+        raise ValueError("require_kernel=True needs the canonical "
+                         "conditional or covariate model and solver='rk4'")
     if fused:
         kin = cohort.kinetics(with_age=model.with_age)
         nn_params = nn_params.contiguous()    # a row of a strided table

@@ -6,7 +6,10 @@ UDE head (``models/cpeptide.py::lanes``).  A failed (non-finite) solve
 gives ``inf``.  ``solver`` is ``"rk4"`` (fixed steps, ``substeps`` per save
 segment) or ``"tsit5"`` (adaptive, at most ``max_steps`` steps); both are
 plain tensor code, differentiable by autograd.  The JAX package's losses
-default to Tsit5 (its ``simulate``); these default to RK4.
+default to Tsit5 (its ``simulate``); these default to RK4.  A cohort split
+over a mesh (``parallel.mesh.ShardedCohort``) is solved shard by shard, each
+on its device, and the per-individual losses gather in order before any
+sum.
 """
 
 from __future__ import annotations
@@ -18,12 +21,20 @@ from conditional_ude_tpu_torch.models.cpeptide import (
     CPeptideModel,
     simulate_cohort,
 )
+from conditional_ude_tpu_torch.parallel.mesh import ShardedCohort
 
 
 def sse(model: CPeptideModel, nn_params: torch.Tensor | None, betas,
         cohort: Cohort, substeps: int = 16, solver: str = "rk4",
         max_steps: int = 256) -> torch.Tensor:
     """Sum of squared errors on the plasma compartment; ``inf`` on failure."""
+    if isinstance(cohort, ShardedCohort):
+        if betas is None:
+            raise ValueError("a sharded cohort needs lanes with an "
+                             "individual axis")
+        return cohort.map(lambda c, b, nn: sse(
+            model, nn, b, c, substeps=substeps, solver=solver,
+            max_steps=max_steps), torch.as_tensor(betas), nn_params)
     res = simulate_cohort(model, nn_params, betas, cohort, substeps=substeps,
                           solver=solver, max_steps=max_steps)
     err = torch.square(res.ys[..., 0] - cohort.cpeptide).sum(-1)

@@ -32,7 +32,10 @@ launch of 2N lanes) and the population gradient from K2
 (``ops/lane_grad.py``, one restart) plus σ's closed form.  Every other
 configuration (Tsit5, the analytic heads) runs the plain solvers, as the
 JAX package's XLA path does; the route is named in the result.  The MAP and
-MLE fits take autograd through the plain RK4.
+MLE fits take autograd through the plain RK4.  On a cohort split over a
+mesh (``parallel.mesh.shard_cohort``) each shard's lanes run on its device
+and the per-individual results gather in order before any sum, so the run
+is the unsharded one.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from conditional_ude_tpu_torch.models.cpeptide import (
 )
 from conditional_ude_tpu_torch.ops import lane_grad, rk4_cohort
 from conditional_ude_tpu_torch.ops.lbfgs import lbfgs_minimize
+from conditional_ude_tpu_torch.parallel.mesh import ShardedCohort, gather
 
 F32 = torch.float32
 
@@ -155,15 +159,18 @@ class CohortLogLik(LogLik):
     kernels: K4 for :meth:`values`, K2 for :meth:`nll_and_grad` (CUDA
     tensors launch them, CPU tensors run their plain versions).  Everything
     else, and ``__call__`` (the MAP and MLE fits), runs the plain solvers.
+    A ``ShardedCohort`` gives one likelihood a shard (``parts``), whose
+    kernels run on the shard's device.
     """
 
-    def __init__(self, model: CPeptideModel, cohort: Cohort,
+    def __init__(self, model: CPeptideModel, cohort: Cohort | ShardedCohort,
                  solver: str = "rk4", substeps: int = 8,
                  max_steps: int = 256):
         self.model, self.cohort = model, cohort
         self.solver, self.substeps, self.max_steps = solver, substeps, max_steps
         self.n, self.device = cohort.n, cohort.device
         self.n_t = cohort.timepoints.shape[0]
+        self.parts = None
         self.kernels = (solver == "rk4" and model.kind in (
             "conditional", "conditional_covariate")
             and 1 <= substeps <= lane_grad.MAX_SUBSTEPS)
@@ -175,6 +182,11 @@ class CohortLogLik(LogLik):
         if self.kernels:
             dev = "cuda" if self.device.type == "cuda" else "plain"
             self.route = f"{dev}_k4_k2"
+        if isinstance(cohort, ShardedCohort):
+            self.parts = [CohortLogLik(model, c, solver, substeps, max_steps)
+                          for c in cohort.shards]
+            self.route += f"+mesh{len(self.parts)}"
+        elif self.kernels:
             self.tp = tuple(float(t) for t in cohort.timepoints)
             self.rows = (cohort.glucose, cohort.cpeptide,
                          cohort.kinetics(with_age=model.with_age))
@@ -197,6 +209,14 @@ class CohortLogLik(LogLik):
     def values(self, theta, sigma, rand) -> torch.Tensor:
         if not self.kernels:
             return super().values(theta, sigma, rand)
+        return _gaussian(self._kernel_sse(theta, rand), sigma, self.n_t)
+
+    def _kernel_sse(self, theta, rand) -> torch.Tensor:
+        """K4's SSE of the lanes ``rand[..., N]``, one launch (a shard)."""
+        if self.parts is not None:
+            outs = [p._kernel_sse(theta.to(p.device), r) for p, r in
+                    zip(self.parts, self.cohort.split(rand, -1))]
+            return gather(outs, self.device, dim=-1)
         lanes = rand.reshape(-1).contiguous()
         m = lanes.shape[0] // self.n
         if m not in self._lanes:
@@ -204,7 +224,21 @@ class CohortLogLik(LogLik):
         nn = theta.reshape(1, -1).contiguous().expand(lanes.shape[0], -1)
         err = rk4_cohort.cohort_sse(self.model.net, nn, lanes, *self._lanes[m],
                                     self.tp, self.substeps)
-        return _gaussian(err.reshape(rand.shape), sigma, self.n_t)
+        return err.reshape(rand.shape)
+
+    def _lane_grads(self, theta, rand):
+        """K2's SSE ``[N]`` and ∇nn ``[N, P]`` at one restart, gathered
+        over the shards."""
+        if self.parts is not None:
+            outs = [p._lane_grads(theta.to(p.device), r) for p, r in
+                    zip(self.parts, self.cohort.split(rand, -1))]
+            return tuple(gather([o[i] for o in outs], self.device)
+                         for i in range(2))
+        err, gnn, _ = lane_grad.lane_sse_and_grad(
+            self.model.net, theta.reshape(1, -1).contiguous(),
+            rand.reshape(1, -1).contiguous(), *self.rows, self.tp,
+            self.substeps)
+        return err[0], gnn[0]
 
     def nll_and_grad(self, theta, sigma, rand):
         """K2's per-lane SSE and ∇nn at one restart, summed over the lanes,
@@ -218,11 +252,7 @@ class CohortLogLik(LogLik):
         lane may overflow, so it is not used."""
         if not self.kernels:
             return super().nll_and_grad(theta, sigma, rand)
-        err, gnn, _ = lane_grad.lane_sse_and_grad(
-            self.model.net, theta.reshape(1, -1).contiguous(),
-            rand.reshape(1, -1).contiguous(), *self.rows, self.tp,
-            self.substeps)
-        err, gnn = err[0], gnn[0]
+        err, gnn = self._lane_grads(theta, rand)
         fail = ~torch.isfinite(err)
         f = -_gaussian(err, sigma, self.n_t).sum()
         g_th = (torch.where(fail[:, None], 0.0, gnn)
@@ -238,9 +268,11 @@ class CohortLogLik(LogLik):
         """Whether the residuals of the individuals ``lanes`` are finite:
         their trajectories by the plain RK4 (no gradient)."""
         idx = torch.nonzero(lanes)[:, 0]
-        sub = dataclasses.replace(self.cohort, **{
-            f.name: getattr(self.cohort, f.name)[idx]
-            for f in dataclasses.fields(self.cohort)
+        cohort = (self.cohort.whole() if self.parts is not None
+                  else self.cohort)
+        sub = dataclasses.replace(cohort, **{
+            f.name: getattr(cohort, f.name)[idx]
+            for f in dataclasses.fields(cohort)
             if f.name != "timepoints"})
         with torch.no_grad():
             ys = simulate_cohort(self.model, theta, rand[idx], sub,

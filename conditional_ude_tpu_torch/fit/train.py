@@ -7,7 +7,9 @@
   L-BFGS on the value and exact gradient of K2 (``ops/lane_grad.py``; of K5,
   ``ops/population_grad.py``, above 131,072 restart × individual lanes), and
   re-rank with adaptive Tsit5, K3 (``ops/tsit5_cohort.py``).  CUDA tensors
-  launch the kernels; CPU tensors run their plain versions.
+  launch the kernels; CPU tensors run their plain versions.  With a
+  ``mesh`` the restarts split over its ``"restarts"`` axis
+  (``parallel/mesh.py``), the JAX package's fused-mesh path.
 * ``train_ude``: the non-conditional UDE on one series (experiment 01): a
   screen of Glorot designs, the best refined by Adam then L-BFGS, every
   restart a row; plain batched RK4 with autograd gradients, as the JAX
@@ -36,14 +38,10 @@ from conditional_ude_tpu_torch.models.cpeptide import (
     production_orientations,
 )
 from conditional_ude_tpu_torch.nn import MLP
-from conditional_ude_tpu_torch.ops import (
-    lane_grad,
-    rk4_population,
-    tsit5_cohort,
-)
-from conditional_ude_tpu_torch.ops.lane_grad import PopulationSSE
+from conditional_ude_tpu_torch.ops import lane_grad
 from conditional_ude_tpu_torch.ops.lbfgs import lbfgs_minimize
 from conditional_ude_tpu_torch.ops.rk4_cohort import check_net_canonical
+from conditional_ude_tpu_torch.parallel import mesh as pmesh
 from conditional_ude_tpu_torch.utils.stats import latin_hypercube
 
 _BIG = 1e30   # the "unbounded" box edge of the JAX package
@@ -139,7 +137,8 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
                       config: TrainConfig = TrainConfig(),
                       generator: torch.Generator | None = None,
                       seed: int | None = None,
-                      designs=None) -> TrainResult:
+                      designs=None, mesh: pmesh.Mesh | None = None
+                      ) -> TrainResult:
     """Joint training of the shared network and every individual's β
     (``src/parameter-estimation.jl:340-386``), on ``cohort.device``.
 
@@ -147,6 +146,15 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
     cohort's device; a fresh one seeded with ``seed`` when absent) and the
     LHS from ``seed``, or are given as ``designs=(nn_inits[G, P],
     betas_init[G, N, 1])``, e.g. the JAX package's, for parity.
+
+    With ``mesh`` (``parallel.make_mesh``, a ``"restarts"`` axis) every
+    evaluation splits its restarts over that axis, the whole cohort on each
+    device (the first device of each row of a 2-D mesh), as the JAX
+    package's fused-mesh path (``fit/train.py:263-372``): the designs are
+    padded to the axis and the padded screen entries set to inf before the
+    top-k; the selected restarts are padded with the last of them, refined,
+    and sliced off before ranking.  The optimizers' state stays on the
+    cohort's device, so a padded row never touches a real one.
     """
     cfg = config
     _check_trainable(model, cfg)
@@ -172,29 +180,35 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
         nn_inits, betas_init = (torch.as_tensor(np.array(a), dtype=torch.float32)
                                 for a in designs)
     nn_inits, betas_init = nn_inits.to(dev), betas_init.to(dev)
-    cohort_args = (cohort.glucose, cohort.cpeptide,
-                   cohort.kinetics(with_age=model.with_age),
-                   tuple(float(t) for t in cohort.timepoints))
+    # unsharded, the whole run is one shard on the cohort's device
+    g_orig, k = nn_inits.shape[0], cfg.selected_initials
+    shards = 1 if mesh is None else len(mesh.axis_devices("restarts"))
+    split = mesh or pmesh.make_mesh(("restarts",), devices=[dev])
+    nn_inits = pmesh.pad_to_multiple(nn_inits, shards)
+    betas_init = pmesh.pad_to_multiple(betas_init, shards)
 
-    # -- screen every design (K1) --------------------------------------------
-    b_screen = betas_init[:, :, 0].contiguous()
-    chunk = nn_inits.shape[0] if cuda else max(1, cfg.screen_chunk)
-    screen = torch.cat([
-        rk4_population.population_sse(net, nn_inits[i:i + chunk],
-                                      b_screen[i:i + chunk], *cohort_args,
-                                      cfg.substeps)
-        for i in range(0, nn_inits.shape[0], chunk)])
+    # -- screen every design (K1; the plain version in chunks) --------------
+    screen = pmesh.sharded_screen(net, nn_inits, betas_init[:, :, 0], cohort,
+                                  split, substeps=cfg.substeps,
+                                  chunk=None if cuda else cfg.screen_chunk)
+    # padded designs repeat the last one: keep them out of the top-k
+    screen[g_orig:] = torch.inf
     sync()
     t1 = time.perf_counter()
 
     # -- top-k, a stable sort as jnp.argsort's -------------------------------
     top = torch.argsort(torch.where(torch.isfinite(screen), screen, torch.inf),
-                        stable=True)[:cfg.selected_initials]
-    nn0, b0 = nn_inits[top], betas_init[top, :, 0]
+                        stable=True)[:k]
+    nn0 = pmesh.pad_to_multiple(nn_inits[top], shards)
+    b0 = pmesh.pad_to_multiple(betas_init[top, :, 0], shards)
 
     # -- Adam, then L-BFGS on the flat [nn, β] rows (K2 or K5 value + gradient)
+    vg = pmesh.sharded_population_vg(
+        net, pmesh.cohort_args(cohort, net.input_dims == 3), split,
+        substeps=cfg.substeps)
+
     def loss(nn, b):
-        return PopulationSSE.apply(nn, b, net, *cohort_args, cfg.substeps)
+        return lane_grad.PopulationSSE.apply(nn, b, vg)
 
     adam = adam_minimize(lambda x: loss(*x), (nn0, b0), iters=cfg.adam_iters,
                          lr=cfg.adam_lr)
@@ -210,26 +224,32 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
         nn2, b2, objs = res.x[:, :p], res.x[:, p:], res.fval
     else:
         nn2, b2 = nn1, b1
-        objs = rk4_population.population_sse(net, nn2.contiguous(),
-                                             b2.contiguous(), *cohort_args,
-                                             cfg.substeps)
+        objs = pmesh.sharded_screen(net, nn2, b2, cohort, split,
+                                    substeps=cfg.substeps)
     sync()
     t3 = time.perf_counter()
 
     # -- re-rank with adaptive Tsit5 (K3) -------------------------------------
     if cfg.final_eval_tsit5:
-        objs = tsit5_cohort.screen_population_tsit5(
-            net, nn2, b2, *cohort_args, max_steps=cfg.max_steps)
+        objs = pmesh.sharded_screen_tsit5(net, nn2, b2, cohort, split,
+                                          max_steps=cfg.max_steps)
     sync()
     t4 = time.perf_counter()
-    # the value+grad kernel that ran: K2 on packed lanes, K5 above its limit
-    if lane_grad.takes_restart_kernel(nn0.shape[0], cohort.n):
+    # the value+grad kernel that ran: K2 on packed lanes, K5 above its limit,
+    # decided by a shard's own restarts
+    if lane_grad.takes_restart_kernel(nn0.shape[0] // shards, cohort.n):
         refine_path = "cuda_k5" if cuda else "plain_k5"
     else:
         refine_path = "cuda_k2" if cuda else "plain"
+    screen_path = "cuda_k1" if cuda else "plain"
+    if mesh is not None:
+        screen_path += f"+mesh{shards}"
+        refine_path += f"+mesh{shards}"
+    # the padded restarts go before ranking
+    nn2, b2, objs, screen = nn2[:k], b2[:k], objs[:k], screen[:g_orig]
+    loss_trace = adam.loss_trace[:k]
     timings = {"screen": t1 - t0, "adam": t2 - t1, "lbfgs": t3 - t2,
-               "final_eval": t4 - t3,
-               "screen_path": "cuda_k1" if cuda else "plain",
+               "final_eval": t4 - t3, "screen_path": screen_path,
                "refine_path": refine_path}
     if cfg.log_timings:
         print(f"[train_conditional] screen={timings['screen']:.1f}s "
@@ -245,7 +265,7 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
                           stable=True)
     return TrainResult(nn_params=nn2[order], betas=b2[order, :, None],
                        objectives=objs[order], screen_losses=screen,
-                       loss_traces=adam.loss_trace[order],
+                       loss_traces=loss_trace[order],
                        orientations=orients[order], timings=timings)
 
 

@@ -32,6 +32,7 @@ from conditional_ude_tpu_torch.nn import ACTIVATIONS, MLP, chain
 from conditional_ude_tpu_torch.ops.lbfgs import lbfgs_minimize
 from conditional_ude_tpu_torch.ops.rk4 import solve_rk4
 from conditional_ude_tpu_torch.ops.tsit5 import solve_tsit5
+from conditional_ude_tpu_torch.parallel import mesh as pmesh
 
 P_TRUE = (0.4, 0.9, 0.3)    # group-mean kinetic parameters (p1, p2, p3)
 U0 = (10.0, 0.0, 0.0)
@@ -228,12 +229,13 @@ def fit_suppression(net: MLP, data, timepoints, lam: float = 0.0,
                     config: SuppressionFitConfig = SuppressionFitConfig(),
                     device: torch.device | str = "cpu",
                     generator: torch.Generator | None = None,
-                    designs=None) -> SuppressionFit:
+                    designs=None,
+                    mesh: pmesh.Mesh | None = None) -> SuppressionFit:
     """The joint (NN, θ) multi-start fit at one λ (reference
     ``fit_suppression_model``): :func:`fit_suppression_sweep` at ``[lam]``."""
     res = fit_suppression_sweep(net, data, timepoints, [lam], config,
                                 device=device, generator=generator,
-                                designs=designs)
+                                designs=designs, mesh=mesh)
     return SuppressionFit(*(a[0] for a in res))
 
 
@@ -242,7 +244,8 @@ def fit_suppression_sweep(net: MLP, data, timepoints, lambdas,
                               SuppressionFitConfig()),
                           device: torch.device | str = "cpu",
                           generator: torch.Generator | None = None,
-                          designs=None) -> SuppressionFit:
+                          designs=None,
+                          mesh: pmesh.Mesh | None = None) -> SuppressionFit:
     """The whole λ sweep as one batch of (λ × restart) rows.
 
     One screen gives every design its ``(err, ‖nn‖²)``; each λ keeps the
@@ -256,6 +259,14 @@ def fit_suppression_sweep(net: MLP, data, timepoints, lambdas,
     generator: the card and the CPU then start from the same numbers), moved
     to ``device``; one of the two must be given.  Every field of the result has a leading λ axis
     (``nn_params[L, R, P]`` …), each λ's restarts sorted best first.
+
+    With ``mesh`` (a ``"restarts"`` axis, ``parallel.make_mesh``) the
+    screen's designs and the (λ × restart) rows split over that axis, each
+    padded to it with its last entry (JAX ``models/suppression.py:248-315``):
+    the padded screen entries are set to inf before the top-k, each shard
+    captures its own value+grad graph, the optimizers keep their rows on
+    ``device``, and the padded rows are dropped before the (λ, restart)
+    axes re-form.
     """
     cfg = config
     dev = torch.device(device)
@@ -271,14 +282,27 @@ def fit_suppression_sweep(net: MLP, data, timepoints, lambdas,
         (a if torch.is_tensor(a) else torch.as_tensor(np.array(a)))
         .to(dev, torch.float32) for a in designs)
 
-    def loss(nn, th, lam):
+    def loss(nn, th, lam, data=data):
         return suppression_loss(net, nn, th, data, timepoints, lam)
 
-    chunk = max(1, cfg.screen_chunk)
+    g_orig = nn_inits.shape[0]
+    devices = [dev] if mesh is None else mesh.axis_devices("restarts")
+    shards = len(devices)
+    nn_inits = pmesh.pad_to_multiple(nn_inits, shards)
+    theta_inits = pmesh.pad_to_multiple(theta_inits, shards)
+    datas = [data.to(d) for d in devices]
+
+    def screen(nn, th, data):
+        chunk = max(1, cfg.screen_chunk)
+        return torch.cat([loss(nn[i:i + chunk], th[i:i + chunk], 0.0, data)
+                          for i in range(0, nn.shape[0], chunk)])
+
     with torch.no_grad():
-        errs = torch.cat([loss(nn_inits[i:i + chunk],
-                               theta_inits[i:i + chunk], 0.0)
-                          for i in range(0, nn_inits.shape[0], chunk)])
+        errs = pmesh.gather([
+            screen(nn, th, d) for nn, th, d in zip(
+                pmesh.split(nn_inits, devices),
+                pmesh.split(theta_inits, devices), datas)], dev)
+        errs[g_orig:] = torch.inf       # padded designs repeat the last
         pens = (nn_inits ** 2).sum(-1)
     losses = errs[None, :] + lambdas[:, None] * pens[None, :]      # [L, G]
     losses = torch.where(torch.isfinite(losses), losses, torch.inf)
@@ -286,24 +310,32 @@ def fit_suppression_sweep(net: MLP, data, timepoints, lambdas,
     top = torch.argsort(losses, dim=1, stable=True)[:, :r]         # [L, R]
 
     flat = top.reshape(-1)
-    nn_c, th_c = nn_inits[flat], theta_inits[flat]
-    lam_lane = lambdas.repeat_interleave(r)
+    lanes = flat.shape[0]
+    flat_pad = pmesh.pad_to_multiple(flat, shards)
+    nn_c, th_c = nn_inits[flat_pad], theta_inits[flat_pad]
+    lam_lane = pmesh.pad_to_multiple(lambdas.repeat_interleave(r), shards)
+    lams = pmesh.split(lam_lane, devices)
     p_nn = nn_c.shape[-1]
-    def adam_loss(x):
-        return loss(x[0], x[1], lam_lane)
+    # one loss a shard, on its rows, its data and its λ's
+    adam_losses = [lambda x, lam=lam, d=d: loss(x[0], x[1], lam, d)
+                   for lam, d in zip(lams, datas)]
+    adam_loss = pmesh.shard_value(adam_losses, devices)
 
     adam = adam_minimize(adam_loss, (nn_c, th_c), iters=cfg.adam_iters,
-                         lr=cfg.adam_lr, fun_and_grad=graphed_vg(
-                             adam_loss, (nn_c, th_c))
+                         lr=cfg.adam_lr, fun_and_grad=pmesh.shard_value_and_grad(
+                             adam_losses, (nn_c, th_c), devices, graphed_vg)
                          if cfg.adam_iters > 0 else None)
     nn_c, th_c = adam.x
     x = torch.cat([nn_c, th_c], -1)
     if cfg.lbfgs_iters > 0:
-        x, objs = _lbfgs(lambda x: loss(x[:, :p_nn], x[:, p_nn:], lam_lane),
-                         x, cfg.lbfgs_iters)
+        x, objs = _lbfgs([lambda x, lam=lam, d=d: loss(
+            x[:, :p_nn], x[:, p_nn:], lam, d) for lam, d in zip(lams, datas)],
+            x, cfg.lbfgs_iters, devices)
     else:
-        with torch.no_grad():
-            objs = loss(nn_c, th_c, lam_lane)
+        objs = adam_loss((nn_c, th_c))
+    # the padded rows go before the (λ, restart) axes re-form
+    x, objs, flat = x[:lanes], objs[:lanes], flat_pad[:lanes]
+    loss_trace = adam.loss_trace[:lanes]
 
     n_lam = lambdas.shape[0]
     objs = objs.reshape(n_lam, r)
@@ -317,20 +349,25 @@ def fit_suppression_sweep(net: MLP, data, timepoints, lambdas,
     return SuppressionFit(nn_params=take(x[:, :p_nn]),
                           thetas=take(x[:, p_nn:]),
                           objectives=take(objs.reshape(-1)),
-                          loss_traces=take(adam.loss_trace),
+                          loss_traces=take(loss_trace),
                           designs=take(flat))
 
 
-def _lbfgs(fun, x0: torch.Tensor, iters: int):
+def _lbfgs(fun, x0: torch.Tensor, iters: int, devices=None):
     """``lbfgs_minimize(fun, x0)``, its value+grad by ``graphed_vg``:
-    ``(x, f)``."""
-    vg = graphed_vg(lambda xs: fun(xs[0]), (x0,))
+    ``(x, f)``.  With ``devices``, ``fun`` is a list of one function a
+    device, and the rows of ``x`` split evenly over them (``parallel.mesh``);
+    the optimizer's state stays on ``x0``'s device."""
+    funs = [fun] if devices is None else fun
+    vg = pmesh.shard_value_and_grad(
+        [lambda xs, f=f: f(xs[0]) for f in funs], (x0,),
+        devices or [x0.device], graphed_vg)
 
     def value_and_grad(x):
         f, (g,) = vg((x,))
         return f, g
 
-    res = lbfgs_minimize(fun, x0, max_iters=iters,
+    res = lbfgs_minimize(None, x0, max_iters=iters,
                          value_and_grad=value_and_grad)
     return res.x, res.fval
 

@@ -28,8 +28,8 @@ lanes and the restart kernel K5 (``ops/population_grad.py``) above.
 :func:`lane_sse_and_grad` launches ``csrc/lane_grad.cu`` for CUDA tensors
 and runs :func:`lane_sse_and_grad_reference`, the same arithmetic as plain
 tensor code over a leading lane axis, for CPU tensors.
-:class:`PopulationSSE` puts it under autograd: its forward launches once
-and its backward scales the saved gradients.
+:class:`PopulationSSE` puts a value+grad under autograd: its forward
+evaluates once and its backward scales the saved gradients.
 """
 
 from __future__ import annotations
@@ -331,21 +331,19 @@ def population_sse_and_grad(net: MLP, nn_params: torch.Tensor,
 
 
 class PopulationSSE(torch.autograd.Function):
-    """``f[R]`` of :func:`population_sse_and_grad` under autograd: the
-    forward launches the kernel once and keeps ∇nn and ∇β; the backward
-    returns them times ``grad_output``."""
+    """``f[R]`` of a value+grad ``vg(nn, β) -> (f[R], ∇nn[R, P], ∇β[R, N])``
+    under autograd (``parallel.mesh.sharded_population_vg``, which runs
+    :func:`population_sse_and_grad` on each restart shard): the forward
+    evaluates ``vg`` once and keeps ∇nn and ∇β; the backward returns them
+    times ``grad_output``."""
 
     @staticmethod
-    def forward(ctx, nn_params, betas, net, glucose, data, kinetics,
-                timepoints, substeps):
-        f, gnn, gb = population_sse_and_grad(net, nn_params, betas, glucose,
-                                             data, kinetics, timepoints,
-                                             substeps)
+    def forward(ctx, nn_params, betas, vg):
+        f, gnn, gb = vg(nn_params, betas)
         ctx.save_for_backward(gnn, gb)
         return f
 
     @staticmethod
     def backward(ctx, grad_output):
         gnn, gb = ctx.saved_tensors
-        return (grad_output[:, None] * gnn, grad_output[:, None] * gb,
-                None, None, None, None, None, None)
+        return grad_output[:, None] * gnn, grad_output[:, None] * gb, None

@@ -223,10 +223,16 @@ def test_value_and_grad_kernel_at_4_substeps_is_its_plain_version(card, r, n):
 
 
 def test_population_sse_autograd_launches_once(card):
+    """Training's loss: ``PopulationSSE`` over ``sharded_population_vg`` on
+    a one-card mesh launches K2 once, and its backward is the kernel's
+    gradient."""
+    from conditional_ude_tpu_torch.parallel import make_mesh
+    from conditional_ude_tpu_torch.parallel.mesh import sharded_population_vg
     net, (nn, betas, *cohort) = _restarts(4, 6, card)
+    vg = sharded_population_vg(net, tuple(cohort), make_mesh(devices=[card]))
     x = nn.clone().requires_grad_(True)
     before = lane_grad.launches
-    f = lane_grad.PopulationSSE.apply(x, betas, net, *cohort, 8)
+    f = lane_grad.PopulationSSE.apply(x, betas, vg)
     f[:-1].sum().backward()
     assert lane_grad.launches == before + 1
     _, gnn, _ = lane_grad.population_sse_and_grad(net, nn, betas, *cohort, 8)
@@ -490,3 +496,40 @@ def test_suppression_graphed_value_and_grad_matches_eager(card):
         torch.testing.assert_close(f, want_f, rtol=1e-5, atol=0)
         for g, w in zip(grads, want_g):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7)
+
+
+def test_two_way_mesh_on_one_card_is_the_unsharded_run(card):
+    """A 2-way mesh of ``cuda:0``: ``sharded_screen`` (K1 once a shard)
+    and ``sharded_beta_profiles`` (K4 once a shard a chunk; 37 subjects, so
+    the pad path) equal the unsharded launches bit for bit."""
+    from conditional_ude_tpu_torch.parallel import (
+        make_mesh,
+        sharded_beta_profiles,
+        sharded_screen,
+    )
+    from conditional_ude_tpu_torch.parallel.mesh import cohort_args
+    net, (nn, betas, *_) = _lanes(64, card)
+    rng = np.random.default_rng(17)
+    cohort = build_cohort(5.0 + rng.uniform(0, 5, (37, 5)), np.asarray(TP),
+                          0.5 + rng.uniform(0, 1.5, (37, 5)),
+                          rng.uniform(30, 70, 37), rng.uniform(size=37) > 0.5,
+                          card)
+    b_screen = torch.as_tensor(rng.uniform(-3, 0.5, (64, 37)),
+                               dtype=torch.float32, device=card)
+    mesh = make_mesh(("restarts",), devices=[card, card])
+    plain = rk4_population.population_sse(net, nn, b_screen,
+                                          *cohort_args(cohort, False))
+    before = rk4_population.launches
+    sharded = sharded_screen(net, nn, b_screen, cohort, mesh)
+    assert rk4_population.launches == before + 2
+    assert torch.equal(sharded, plain)
+
+    model = CPeptideModel(net, "conditional")
+    mesh_i = make_mesh(("individuals",), devices=[card, card])
+    kw = dict(sigmas=0.2, lower=-3.0, upper=1.0, steps=300, chunk=100)
+    p0 = cohort_beta_profiles(model, nn[0], cohort, **kw)
+    before = rk4_cohort.launches
+    p1 = sharded_beta_profiles(model, nn[0], cohort, mesh_i, **kw)
+    assert rk4_cohort.launches == before + 6
+    assert p1.values.shape == (37, 300)
+    assert torch.equal(p1.values, p0.values)

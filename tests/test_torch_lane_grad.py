@@ -22,6 +22,8 @@ from conditional_ude_tpu_torch.fit.losses import population_sse
 from conditional_ude_tpu_torch.models.cpeptide import CPeptideModel, build_cohort
 from conditional_ude_tpu_torch.nn import chain
 from conditional_ude_tpu_torch.ops import lane_grad
+from conditional_ude_tpu_torch.parallel import make_mesh
+from conditional_ude_tpu_torch.parallel.mesh import sharded_population_vg
 
 R, N = 3, 5
 TP = (0.0, 30.0, 60.0, 90.0, 120.0)
@@ -110,7 +112,10 @@ def test_population_sse_backward_scales_the_saved_gradients(case):
         *cohort_args, 8)
     x = torch.as_tensor(nn).requires_grad_(True)
     b = torch.as_tensor(betas).requires_grad_(True)
-    out = lane_grad.PopulationSSE.apply(x, b, chain(4, 2), *cohort_args, 8)
+    # training's value+grad, one shard on the CPU
+    vg = sharded_population_vg(chain(4, 2), cohort_args,
+                               make_mesh(devices=["cpu"]))
+    out = lane_grad.PopulationSSE.apply(x, b, vg)
     torch.testing.assert_close(out, f, rtol=0, atol=0)
     w = torch.tensor([0.5, -2.0, 3.0])
     dx, db = torch.autograd.grad(out, (x, b), grad_outputs=w)

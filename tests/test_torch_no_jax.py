@@ -24,7 +24,8 @@ for m in ("fit.optim", "ops.tsit5", "ops.rk4_population", "ops.lane_grad",
           "seeds", "ablation", "replicate", "fit.saem", "saem_pipeline",
           "fit.advi", "advi_pipeline", "models.suppression",
           "suppression_pipeline", "analysis.symreg", "symreg_pipeline",
-          "utils.figures", "utils.profiling", "cli", "figures_pipeline"):
+          "utils.figures", "utils.profiling", "cli", "figures_pipeline",
+          "parallel.mesh", "parallel.dryrun"):
     assert pkg.__name__ + "." + m in names, m
 assert "torch" in sys.modules
 """

@@ -52,6 +52,8 @@ from conditional_ude_tpu_torch.fit.losses import population_sse
 from conditional_ude_tpu_torch.models import cpeptide as cp
 from conditional_ude_tpu_torch.nn import chain
 from conditional_ude_tpu_torch.ops import lane_grad, population_grad
+from conditional_ude_tpu_torch.parallel import make_mesh
+from conditional_ude_tpu_torch.parallel.mesh import sharded_population_vg
 from conditional_ude_tpu_torch.pipeline import (
     guarded_best,
     run_frozen_pipeline,
@@ -259,7 +261,9 @@ def test_switch_follows_the_lane_count(case, monkeypatch):
     # under autograd: the forward takes the restart route once, the backward
     # scales its saved gradients
     x = _t(nn).requires_grad_(True)
-    f = lane_grad.PopulationSSE.apply(x, _t(betas), net, *args, SUBSTEPS)
+    vg = sharded_population_vg(net, args, make_mesh(devices=["cpu"]),
+                               substeps=SUBSTEPS)
+    f = lane_grad.PopulationSSE.apply(x, _t(betas), vg)
     f.sum().backward()
     assert (len(packed), len(restart)) == (1, 2)
     torch.testing.assert_close(x.grad, above[1], rtol=0, atol=0)
