@@ -29,7 +29,8 @@
    posterior chains' step) on the committed pre-train network at β's up
    to |β| = 5, and with a network a lane, the last of huge weights; K2 at
    one restart on the 82 training subjects; and K2 at 4 substeps at
-   exp_advi's steps (280 and 5,700 lanes) and K4 at its profile chunk
+   exp_advi's steps (280, 5,700 and section 3's 656 lanes) and K4 at its
+   profile chunk
    (500 x 35); and K4 and K4c at the gallery's CI chunk (500 points x the
    three test medians, 1,500 lanes).  K5 is held bit for bit
    against K2's lanes
@@ -174,7 +175,28 @@
     for bit where its lanes are independent (``MESH_*``), the full-depth
     training to exp02's retrain limit.  With more than one card the census
     and the cut run over all of them too, held as the 2-way runs are.
-    12-24 are bound by the host, so they run in seven child processes (this
+25. runs the ETL path after exp04 in its child, on raw data files written
+    as the tests write them (``tests/etl_fixtures.py``: the committed npz
+    files back in the reference's CSV layout): exp00 through the entry
+    point, whose ``ohashi.npz`` and ``fujita.npz`` must equal the
+    committed ones bit for bit and whose metrics must equal
+    ``results/exp00_metrics.json`` (p-values rtol 1e-12); exp_parity's
+    computation (``parity_pipeline.run_parity``) at the reference's
+    network of ``tests/golden/reference_parity_golden.npz``, its bounds
+    the golden training β's widened by 10 %, no fitted β at the upper
+    bound and at the lower one only a subject that the golden fit leaves at
+    the reference's own lower bound (its likelihood falls toward β → −∞,
+    so a wider bound moves it there too), each
+    per-type SSE within 3 % and the refit's β mean within 1e-2 of
+    ``results/exp_parity_metrics.json``, RK4 and Tsit5 within 2e-4; and
+    exp_advi's section 3 (``advi_pipeline.reference_crosscheck``) at three
+    committed candidates standing in for the reference's ADVI runs, finite
+    statistics.  exp00 and exp_parity launch no kernel; section 3 launches
+    K2 exactly 3 x 800 times and nothing else.  The JLD2 readers are not
+    run: this machine has no h5py, so exp_parity's and section 3's entry
+    points, which read the reference's JLD2 files, are driven through
+    their computations.
+    12-25 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -1105,7 +1127,9 @@ def main() -> None:
         rows on the 35 test subjects, 280 lanes), the joint stage's step
         (the 25 committed candidates, each over 4 sample rows, on their 57
         fit subjects, 5,700 lanes; weights and β's drawn as the first step
-        draws them, e^ρ = e^-2), and K4 over 500 grid points on [-6, 2]
+        draws them, e^ρ = e^-2), section 3's step (a network over 8 sample
+        rows on the 82 training subjects, 656 lanes), and K4 over 500 grid
+        points on [-6, 2]
         times the 35 test subjects (17,500 lanes).  Each bit for bit its
         plain version, then timed."""
         net = chain(4, 2)
@@ -1134,10 +1158,22 @@ def main() -> None:
             torch.as_tensor(b_rows + spread * rng.normal(size=b_rows.shape),
                             **f32),
             c_fit.glucose, c_fit.cpeptide, c_fit.kinetics(), tp)
+        # section 3's step: a run's network over 8 sample rows on the 82
+        # training subjects (a committed candidate stands in for the run)
+        c_train = build_cohort(train.glucose, train.timepoints,
+                               train.cpeptide, train.ages, train.t2dm, dev)
+        reference_step = (
+            torch.as_tensor(cand["nn_params"][0], **f32)[None].expand(
+                ADVI_TEST_SAMPLES, -1).contiguous(),
+            torch.as_tensor(rng.normal(-1.0, 1.0, (ADVI_TEST_SAMPLES,
+                                                   c_train.n)), **f32),
+            c_train.glucose, c_train.cpeptide, c_train.kinetics(), tp)
         for what, args, (r, n) in (
                 ("the test stage's step", test_step,
                  (ADVI_TEST_SAMPLES, c_test.n)),
-                ("the joint stage's step", joint_step, (rows, c_fit.n))):
+                ("the joint stage's step", joint_step, (rows, c_fit.n)),
+                ("section 3's step", reference_step,
+                 (ADVI_TEST_SAMPLES, c_train.n))):
             shape = f"exp_advi {what} ({r} x {n} = {r * n} lanes, 4 substeps)"
             results["K2"]["err"] = max(results["K2"]["err"], k2_compare(
                 args, f"K2 {shape}", substeps=ADVI_SUBSTEPS))
@@ -1466,8 +1502,9 @@ def main() -> None:
 # and K4) then exp_suppression and exp_symreg_search (no kernel) after
 # exp_symreg_production, and the gallery (K4 and K4c) and the mesh path
 # (K1-K4, K4c) after exp01's retrains at two seeds, the child that ended
-# first
-SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04"),
+# first, and the ETL path (K2 in its section-3 stage) after the symbolic
+# refits, the child that ended first after that
+SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04", "etl"),
         ("exp_symreg_production", "exp_advi", "exp_suppression",
          "exp_symreg_search"),
         (*(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
@@ -1779,6 +1816,16 @@ MESH_STAGE_KERNELS = {
     "census": {"rk4_cohort"}, "test profile": {"rk4_cohort"},
     "exp07 test profile": {"rk4_cohort (3-input)"}, "refit": set(),
     "saem": {"rk4_cohort", "lane_grad"}, "sweep": set()}
+# the ETL path: exp_parity at the golden network, held to the committed
+# metrics (the SSEs relative, the β mean absolute), and section 3 of
+# exp_advi at the first ETL_RUNS committed candidates
+ETL_PARITY = REPO / "tests" / "golden" / "reference_parity_golden.npz"
+ETL_PARITY_METRICS = REPO / "results" / "exp_parity_metrics.json"
+ETL_SSE_RTOL = 0.03
+ETL_BETA_ATOL = 1e-2
+ETL_RUNS = 3
+ETL_STAGE_KERNELS = {"exp00": {}, "exp_parity": {},
+                     "section 3": {"lane_grad": ETL_RUNS * 800}}
 MESH_KERNELS = frozenset({"rk4_population", "lane_grad", "tsit5_cohort",
                           "rk4_cohort", "rk4_cohort (3-input)"})
 
@@ -1828,6 +1875,8 @@ def new_paths(dev):
         "exp_figures": (lambda: run_figures_path(dev), check_figures_path,
                         FIGURES_KERNELS),
         "mesh": (lambda: run_mesh_path(dev), check_mesh_path, MESH_KERNELS),
+        "etl": (lambda: run_etl_path(dev), check_etl_path,
+                frozenset({"lane_grad"})),
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
                    lambda res: check_saem_spread(res.metrics, "exp06a"), none),
         "exp06b": (lambda: run_exp06b(dev, ARTIFACTS),
@@ -2138,6 +2187,69 @@ def run_figures_path(dev):
 def _launch_counts() -> dict[str, int]:
     from conditional_ude_tpu_torch.__main__ import launches
     return launches()
+
+
+def _launched_since(before: dict[str, int]) -> dict[str, int]:
+    after = _launch_counts()
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def run_etl_path(dev):
+    """The raw-data path: exp00 through the entry point on CSV files
+    written from the committed npz files (``tests/etl_fixtures.py``; in
+    this process, under ``build/``), exp_parity's computation at the golden
+    network and exp_advi's section 3 at ``ETL_RUNS`` committed candidates,
+    each stage's seconds and launches."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch import __main__ as entry
+    from conditional_ude_tpu_torch import advi_pipeline, parity_pipeline
+    from conditional_ude_tpu_torch.data.ohashi import load_npz
+    sys.path.insert(0, str(REPO / "tests"))
+    from etl_fixtures import write_fujita_csv, write_ohashi_csvs
+    root = REPO / "build" / "chip_smoke_etl"
+    shutil.rmtree(root, ignore_errors=True)
+    write_ohashi_csvs(root / "data")
+    write_fujita_csv(root / "data")
+    h5py = importlib.util.find_spec("h5py") is not None
+    log(f"[etl] h5py {'is' if h5py else 'is not'} installed here; the JLD2 "
+        "readers are held to the JAX package's on the CPU only "
+        "(tests/test_torch_jld2.py)")
+    seconds, launched = {}, {}
+    stdout = io.StringIO()
+    before, t0 = _launch_counts(), time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        entry.main(["--experiment", "exp00", "--data-dir",
+                    str(root / "data"), "--out", str(root / "out")])
+    seconds["exp00"], launched["exp00"] = (time.perf_counter() - t0,
+                                           _launched_since(before))
+    exp00 = json.loads(stdout.getvalue().strip().splitlines()[-1])
+
+    golden = np.load(ETL_PARITY)
+    train, test = load_npz(root / "out" / "ohashi.npz")
+    before, t0 = _launch_counts(), time.perf_counter()
+    parity = parity_pipeline.run_parity(
+        dev, golden["nn"], golden["betas_train"], train, test,
+        json.loads(ETL_PARITY_METRICS.read_text())["best_model_index"])
+    seconds["exp_parity"], launched["exp_parity"] = (
+        time.perf_counter() - t0, _launched_since(before))
+    seconds.update({f"exp_parity {k}": v for k, v in parity.seconds.items()})
+
+    with np.load(ARTIFACTS / "cude_neural_parameters.npz") as z:
+        ref = {"parameters": z["nn_params"][:ETL_RUNS],
+               "betas": z["betas"][:ETL_RUNS, :, 0], "width": 4, "depth": 2}
+    before, t0 = _launch_counts(), time.perf_counter()
+    crosscheck = advi_pipeline.reference_crosscheck(dev, ref, train)
+    seconds["section 3"], launched["section 3"] = (
+        time.perf_counter() - t0, _launched_since(before))
+    return SimpleNamespace(out=root / "out", exp00=exp00, parity=parity,
+                           crosscheck=crosscheck, seconds=seconds,
+                           launched=launched)
 
 
 def run_mesh_path(dev):
@@ -2459,6 +2571,88 @@ def finish_side(procs: list, t_start: float) -> None:
     if failures:
         raise AssertionError("paths beside the main one failed:\n  "
                              + "\n  ".join(failures))
+
+
+def check_etl_path(res) -> list[str]:
+    """The ETL path: exp00's outputs bit for bit and its metrics as
+    committed; exp_parity with no β at a bound but where the golden fit
+    sits at the reference's lower bound, each per-type SSE within
+    ``ETL_SSE_RTOL`` and the refit's β mean within ``ETL_BETA_ATOL`` of the
+    committed metrics, the solvers in agreement; section 3's statistics
+    finite; each stage's launches exactly ``ETL_STAGE_KERNELS``'."""
+    failures = []
+    for stage, want in ETL_STAGE_KERNELS.items():
+        log(f"[check] etl {stage}: launches {res.launched[stage] or 'none'}"
+            f" (must be {want or 'none'})")
+        if res.launched[stage] != want:
+            failures.append(f"{stage} launched {res.launched[stage]}, must "
+                            f"launch {want or 'nothing'}")
+    for name in ("ohashi.npz", "fujita.npz"):
+        with np.load(res.out / name) as got, np.load(ARTIFACTS / name) as w:
+            differ = [k for k in w.files if k not in got.files
+                      or got[k].dtype != w[k].dtype
+                      or not np.array_equal(got[k], w[k])]
+        log(f"[check] etl exp00 {name}: "
+            f"{'bit for bit' if not differ else 'differs in ' + str(differ)}")
+        if differ:
+            failures.append(f"exp00's {name} differs in {differ}")
+    committed = json.loads((REPO / "results" / "exp00_metrics.json")
+                           .read_text())
+    got = dict(res.exp00)
+    p_got, p_want = (got.pop("age_mann_whitney_p"),
+                     committed.pop("age_mann_whitney_p"))
+    if got != committed:
+        failures.append(f"exp00 metrics {got} != {committed}")
+    failures += [f"exp00 p-value {k}: {p_got.get(k)} vs {v}"
+                 for k, v in p_want.items()
+                 if not math.isclose(p_got.get(k, math.nan), v,
+                                     rel_tol=1e-12, abs_tol=0.0)]
+    log(f"[check] etl exp00 p-values {p_got} (committed {p_want})")
+
+    m, want = res.parity.metrics, json.loads(ETL_PARITY_METRICS.read_text())
+    lb, ub = res.parity.bounds
+    golden = np.load(ETL_PARITY)
+    golden_lb = min(golden["betas_train"].min(), golden["betas_test"].min())
+    for tag, fit in res.parity.fits.items():
+        # the fits clamp to the bounds in float32
+        at_lb = np.flatnonzero(fit["beta"] <= np.float32(lb)).tolist()
+        at_ub = np.flatnonzero(fit["beta"] >= np.float32(ub)).tolist()
+        flat = np.flatnonzero(golden[f"betas_{tag}"] <= golden_lb).tolist()
+        log(f"[check] etl exp_parity {tag}: bounds ({lb:.6f}, {ub:.6f}), β "
+            f"range ({fit['beta'].min():.6f}, {fit['beta'].max():.6f}); at "
+            f"the lower bound {at_lb}, at the upper {at_ub}; the golden fit "
+            f"at its own lower bound {flat}")
+        # where the golden fit sits at the reference's lower bound the
+        # likelihood falls toward β → −∞, and a wider bound moves there too
+        if at_ub or not set(at_lb) <= set(flat):
+            failures.append(f"exp_parity {tag}: β at the lower bound "
+                            f"{at_lb}, the upper {at_ub}; only {flat} may "
+                            "sit at the lower one")
+    log(f"[check] etl exp_parity metrics {json.dumps(m)}")
+    for key in ("sse_per_type_combined", "sse_per_type_train",
+                "sse_per_type_test"):
+        for t, v in want[key].items():
+            if not abs(m[key].get(t, math.inf) / v - 1) <= ETL_SSE_RTOL:
+                failures.append(f"exp_parity {key} {t}: {m[key].get(t)} vs "
+                                f"{v} ± {ETL_SSE_RTOL:.0%}")
+    if not abs(m["beta_mean_train_refit"]
+               - want["beta_mean_train_refit"]) <= ETL_BETA_ATOL:
+        failures.append(f"exp_parity beta_mean_train_refit "
+                        f"{m['beta_mean_train_refit']} vs "
+                        f"{want['beta_mean_train_refit']} ± {ETL_BETA_ATOL}")
+    if m["solver_agreement_ok"] is not True:
+        failures.append(f"exp_parity solvers apart by "
+                        f"{m['solver_max_abs_delta']}")
+
+    c = res.crosscheck
+    log(f"[check] etl section 3: {json.dumps(c)}")
+    numbers = [v for k, v in c.items() if k not in ("note", "n_files")]
+    numbers = [x for v in numbers for x in (v if isinstance(v, list)
+                                            else [v])]
+    if c["n_files"] != ETL_RUNS or not np.isfinite(numbers).all():
+        failures.append(f"section 3: {c['n_files']} runs, statistics "
+                        f"{numbers}")
+    return failures
 
 
 def check_mesh_path(res) -> list[str]:

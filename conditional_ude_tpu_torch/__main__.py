@@ -21,7 +21,9 @@
     python -m conditional_ude_tpu_torch --experiment exp_suppression --selection-sensitivity --out runs/sup
     python -m conditional_ude_tpu_torch --experiment exp_symreg_search --search-seeds 3 --out runs/symreg
     python -m conditional_ude_tpu_torch --experiment exp_symreg_search --smoke --out runs/symreg_smoke
-    python -m conditional_ude_tpu_torch --experiment exp_figures --out runs/gallery [--sections cude saem] [--smoke]
+    python -m conditional_ude_tpu_torch --experiment exp_figures --out runs/gallery [--sections cude saem] [--smoke] [--data-dir D]
+    python -m conditional_ude_tpu_torch --experiment exp00 --data-dir D --out runs/etl   # the ETL of the raw CSVs
+    python -m conditional_ude_tpu_torch --experiment exp_parity --data-dir D [--weights W] [--smoke]
     python -m conditional_ude_tpu_torch --out runs/exp02   # also write the metrics and outputs there
     python -m conditional_ude_tpu_torch --device cpu    # the plain versions, on the CPU
 
@@ -58,9 +60,21 @@ JSON line a seed.  exp06, exp06a and exp06b write their metrics with the
 JAX keys only and print their stage seconds on the standard error;
 exp_advi's, exp_suppression's and exp_symreg_search's metrics carry their
 ``stage_seconds`` (exp_symreg_search: each GP run's) in place of the JAX
-scripts' timers.  Last,
-on the standard error, the kernels the run launched: ``{"launches":
-{module: count}}``.
+scripts' timers.
+
+``--data-dir D`` is the reference repository's raw-data folder (``D
+/ohashi_csv``, ``D/fujita_csv``, and beside it ``D/../source_data``).
+exp00, the ETL, needs it and ``--out``: it writes ``ohashi.npz``,
+``fujita.npz`` and ``exp00_metrics.json`` there.  exp_parity needs it: it
+refits (β, σ) on its cohorts at the reference's trained network
+(``--weights``, by default ``D/../source_data/cude_neural_parameters
+.jld2``; reading it needs h5py) and checks RK4 against Tsit5.  With it,
+exp_advi runs its cross-check against ``D/../source_data/advi`` (JLD2,
+h5py) where that folder exists, and exp_figures draws the clamp insulin
+from ``D/ohashi_csv``.
+
+Last, on the standard error, the kernels the run launched:
+``{"launches": {module: count}}``.
 """
 
 from __future__ import annotations
@@ -77,7 +91,9 @@ import torch
 from conditional_ude_tpu_torch import (
     ablation,
     advi_pipeline,
+    etl_pipeline,
     figures_pipeline,
+    parity_pipeline,
     saem_pipeline,
     seeds,
     suppression_pipeline,
@@ -114,9 +130,9 @@ SYMBOLIC = {"exp03": run_exp03, "exp04": run_exp04,
             "symreg_production": run_symreg_production}
 SAEM = {"exp06": saem_pipeline.run_exp06, "exp06a": saem_pipeline.run_exp06a,
         "exp06b": saem_pipeline.run_exp06b}
-EXPERIMENTS = ("exp01", "exp02", "exp02_seeds", "exp05", *SAEM, "exp_advi",
-               "exp_suppression", "exp_symreg_search", "exp_figures",
-               *SYMBOLIC)
+EXPERIMENTS = ("exp00", "exp01", "exp02", "exp02_seeds", "exp05", *SAEM,
+               "exp_advi", "exp_suppression", "exp_symreg_search",
+               "exp_figures", "exp_parity", *SYMBOLIC)
 XL_RESTARTS = 96        # --xl --retrain's restarts unless --restarts says
 
 
@@ -166,6 +182,30 @@ def launches() -> dict[str, int]:
     return out
 
 
+def _advi_crosscheck(args, run) -> None:
+    """exp_advi's section 3 where ``--data-dir``'s ``../source_data/advi``
+    exists: its statistics into ``run.metrics``; else the JAX script's
+    line that it skipped."""
+    advi_dir = (None if args.data_dir is None
+                else args.data_dir.parent / "source_data" / "advi")
+    if advi_dir is None or not advi_dir.exists():
+        why = ("no --data-dir" if advi_dir is None
+               else f"not found at {advi_dir}")
+        print(f"[exp_advi] reference ADVI cross-check skipped ({why})",
+              file=sys.stderr)
+        return
+    from conditional_ude_tpu_torch.data.jld2 import load_reference_advi
+    from conditional_ude_tpu_torch.data.ohashi import load_npz
+
+    train, _ = load_npz(args.artifacts / "ohashi.npz")
+    stats = advi_pipeline.reference_crosscheck(
+        args.device, load_reference_advi(advi_dir), train)
+    run.metrics["reference_advi_crosscheck"] = stats
+    print(f"[exp_advi] reference ADVI cross-check: median quantile-corr "
+          f"{stats['quantile_corr_per_restart_median']:.3f}, offset "
+          f"{stats['quantile_offset_median']:.3f}", file=sys.stderr)
+
+
 def main(argv=None) -> None:
     _main(argv)
     print(json.dumps({"launches": launches()}), file=sys.stderr)
@@ -175,7 +215,9 @@ def _main(argv) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--experiment", default="exp02", choices=EXPERIMENTS,
                    help="exp02 (default; --covariate and --xl select exp07 "
-                        "and exp02_xl), exp01 (the non-conditional UDE), "
+                        "and exp02_xl), exp00 (the ETL of the raw CSV "
+                        "files), exp_parity (the refit at the reference's "
+                        "weights), exp01 (the non-conditional UDE), "
                         "exp02_seeds (exp02's retrain at several seeds), "
                         "exp05 (the less-data ablation), exp06, exp06a or "
                         "exp06b (SAEM on the cUDE, the symbolic model and "
@@ -198,6 +240,15 @@ def _main(argv) -> None:
     p.add_argument("--out", type=Path, default=None,
                    help="directory for the metrics and the outputs (none "
                         "written without it)")
+    p.add_argument("--data-dir", type=Path, default=None,
+                   help="the reference's raw-data folder (ohashi_csv/, "
+                        "fujita_csv/; ../source_data beside it): exp00 and "
+                        "exp_parity read it, exp_advi's cross-check and "
+                        "exp_figures' clamp insulin use it where present")
+    p.add_argument("--weights", type=Path, default=None,
+                   help="exp_parity: the reference's cUDE weight cache "
+                        "(default DATA_DIR/../source_data/"
+                        "cude_neural_parameters.jld2)")
     p.add_argument("--lbfgs-iters", type=int, default=None,
                    help="L-BFGS steps of the fits: 1000 by default (exp05 "
                         "keeps its own 500 and 1000); exp_suppression's "
@@ -247,7 +298,9 @@ def _main(argv) -> None:
     sym.add_argument("--smoke", action="store_true",
                      help="one GP run at depth 2, population 256, 15 "
                           "generations; exp_figures: 8 subjects a split, "
-                          "100 L-BFGS steps, 200 profile and CI points")
+                          "100 L-BFGS steps, 200 profile and CI points; "
+                          "exp_parity: 8 subjects a split, 100 L-BFGS "
+                          "steps")
     gal = p.add_argument_group("exp_figures")
     gal.add_argument("--sections", nargs="+", default=None,
                      choices=figures_pipeline.SECTIONS,
@@ -290,9 +343,18 @@ def _main(argv) -> None:
     if args.experiment == "exp_suppression" and args.retrain:
         p.error("exp_suppression always fits; --test-only and "
                 "--selection-sensitivity read the committed artifacts")
-    if args.experiment not in ("exp_symreg_search", "exp_figures") \
-            and args.smoke:
-        p.error("--smoke is exp_symreg_search's and exp_figures'")
+    if args.experiment not in ("exp_symreg_search", "exp_figures",
+                               "exp_parity") and args.smoke:
+        p.error("--smoke is exp_symreg_search's, exp_figures' and "
+                "exp_parity's")
+    if args.experiment in ("exp00", "exp_parity") and args.data_dir is None:
+        p.error(f"{args.experiment} reads the raw data: give --data-dir")
+    if args.experiment == "exp00" and args.out is None:
+        p.error("exp00 writes its npz files and metrics into --out DIR")
+    if args.experiment in ("exp00", "exp_parity") and args.retrain:
+        p.error(f"{args.experiment} has no --retrain")
+    if args.weights is not None and args.experiment != "exp_parity":
+        p.error("--weights is exp_parity's")
     if args.experiment != "exp_symreg_search" and args.search_seeds != 1:
         p.error("--search-seeds is exp_symreg_search's")
     if args.sections is not None and args.experiment != "exp_figures":
@@ -316,6 +378,11 @@ def _main(argv) -> None:
             p.error("--merge needs --out, the directory of the records")
         print(json.dumps(seeds.merge_directory(out_dir(args.out,
                                                        args.artifacts))))
+        return
+    if args.experiment == "exp00":
+        run = etl_pipeline.run_exp00(args.data_dir)
+        etl_pipeline.write_outputs(out_dir(args.out, args.artifacts), run)
+        print(json.dumps(run.metrics))
         return
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
@@ -348,12 +415,22 @@ def _main(argv) -> None:
         print(json.dumps(metrics))
         return
 
+    if args.experiment == "exp_parity":
+        weights = args.weights or (args.data_dir.parent / "source_data"
+                                   / "cude_neural_parameters.jld2")
+        run = parity_pipeline.run_exp_parity(args.device, weights,
+                                             args.data_dir, smoke=args.smoke)
+        print(json.dumps({"stage_seconds": run.seconds}), file=sys.stderr)
+        if out is not None:
+            (out / "exp_parity_metrics.json").write_text(
+                json.dumps(run.metrics, indent=2))
+        print(json.dumps(run.metrics))
+        return
     if args.experiment == "exp_advi":
         run = advi_pipeline.run_exp_advi(args.device, args.artifacts,
                                          seed=args.seed,
                                          restarts=args.restarts)
-        print("[exp_advi] reference ADVI cross-check skipped (this package "
-              "reads no JLD2 file)", file=sys.stderr)
+        _advi_crosscheck(args, run)
         if out is not None:
             advi_pipeline.write_outputs(out, run)
         print(json.dumps(run.metrics))
@@ -377,7 +454,7 @@ def _main(argv) -> None:
     if args.experiment == "exp_figures":
         run = figures_pipeline.run_exp_figures(
             args.device, args.artifacts, out=out, sections=args.sections,
-            smoke=args.smoke)
+            smoke=args.smoke, data_dir=args.data_dir)
         print(json.dumps({"stage_seconds": run.seconds}), file=sys.stderr)
         print(json.dumps(run.manifest))
         return

@@ -13,9 +13,9 @@ as the JAX front door resolves them: the exact stem, then ``exp{NAME}_``,
 ``exp{NAME}`` and ``NAME`` as prefixes.  Each stem maps to the port's own
 entry point (``python -m conditional_ude_tpu_torch`` with the flags that
 select it, or the replication runner); the remaining arguments go to that
-entry point's flags.  Two scripts read the reference's raw CSV files, which
-the port does not read: they are refused.  There is no ``bench``: the port
-has no benchmark yet.
+entry point's flags.  exp00 and exp_parity read the reference's raw data
+(``--data-dir``; exp_parity's weights are a JLD2 file, which needs h5py).
+There is no ``bench``: the port has no benchmark yet.
 """
 
 from __future__ import annotations
@@ -23,12 +23,12 @@ from __future__ import annotations
 import argparse
 import sys
 
-# stem -> (the port's arguments, or None where the port does not run it;
-# one line on what it does)
+# stem -> (the port's arguments; one line on what it does)
 EXPERIMENTS = {
-    "exp00_prepare_data": (None, "the ETL of the reference's raw CSVs into "
-                                 "artifacts/ohashi.npz (reads the reference "
-                                 "data, M21: not ported)"),
+    "exp00_prepare_data": (["--experiment", "exp00"],
+                           "the ETL of the reference's raw CSVs into "
+                           "ohashi.npz and fujita.npz (needs --data-dir and "
+                           "--out)"),
     "exp01_non_conditional": (["--experiment", "exp01"],
                               "the non-conditional UDE"),
     "exp02_conditional": (["--experiment", "exp02"],
@@ -53,9 +53,10 @@ EXPERIMENTS = {
     "exp_advi": (["--experiment", "exp_advi"], "ADVI posteriors of the cUDE"),
     "exp_figures": (["--experiment", "exp_figures"],
                     "the figure gallery (needs --out)"),
-    "exp_parity": (None, "the cross-check against the reference's Julia "
-                         "outputs (reads the reference data, M21: not "
-                         "ported)"),
+    "exp_parity": (["--experiment", "exp_parity"],
+                   "the (β, σ) refit at the reference's trained weights "
+                   "and the RK4-Tsit5 check (needs --data-dir; JLD2 "
+                   "weights, h5py)"),
     "exp_replicate": ([], "an experiment at several seeds, a child process "
                           "a seed (the replication runner)"),
     "exp_suppression": (["--experiment", "exp_suppression"],
@@ -106,11 +107,6 @@ def _cmd_list() -> int:
 def _run(stem: str, rest: list[str]) -> int:
     """Run the port's entry point of ``stem`` with ``rest``; its exit code."""
     argv, _ = EXPERIMENTS[stem]
-    if argv is None:
-        print(f"{stem} reads the reference's raw data files, which the port "
-              "does not read (M21); it has no counterpart here",
-              file=sys.stderr)
-        return 2
     if stem == "exp_replicate":
         from conditional_ude_tpu_torch.replicate import main as entry
     else:

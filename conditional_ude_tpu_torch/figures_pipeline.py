@@ -23,8 +23,10 @@ still computes and nothing is drawn.
   ``saem``, ``replication``: the remaining figures of those experiments.
 
 The cohorts and the Fujita cohort come from ``artifacts/ohashi.npz`` and
-``artifacts/fujita.npz``; the clamp insulin lies only in the reference's raw
-CSVs, so its figure is skipped.
+``artifacts/fujita.npz``.  The clamp insulin lies only in the reference's
+raw CSV files: its figure is drawn when ``data_dir`` holds
+``ohashi_csv/ohashi_clamp_blood.csv`` (``data/ohashi.py::load_clamp_insulin``)
+and skipped with a note otherwise.
 """
 
 from __future__ import annotations
@@ -45,7 +47,11 @@ from conditional_ude_tpu_torch.analysis.profiles import (
 )
 from conditional_ude_tpu_torch.convert import params_from_jax
 from conditional_ude_tpu_torch.data.fujita import load_fujita_npz
-from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
+from conditional_ude_tpu_torch.data.ohashi import (
+    OhashiSplit,
+    load_clamp_insulin,
+    load_npz,
+)
 from conditional_ude_tpu_torch.fit.train import fit_betas, fit_betas_sigma
 from conditional_ude_tpu_torch.models import suppression as sup
 from conditional_ude_tpu_torch.models.cpeptide import (
@@ -69,6 +75,7 @@ from conditional_ude_tpu_torch.pipeline import (
     _Stages,
     dense_grid,
     ude_model,
+    widened_bounds,
 )
 from conditional_ude_tpu_torch.suppression_pipeline import (
     DATA_SEED,
@@ -145,8 +152,9 @@ class Gallery:
     here for the symbolic section's overlays."""
 
     def __init__(self, device, artifacts_dir: Path, results_dir: Path,
-                 sizes: Sizes):
+                 sizes: Sizes, data_dir: Path | None = None):
         self.dev = torch.device(device)
+        self.data_dir = data_dir
         self.art, self.results, self.sizes = (Path(artifacts_dir),
                                               Path(results_dir), sizes)
         train, test = load_npz(self.art / "ohashi.npz")
@@ -227,12 +235,18 @@ def _ci_curves(ci: dict) -> dict:
 
 # ---------------------------------------------------------------- sections
 def section_data(g: Gallery) -> dict:
-    """The cohort overview and the ages' Mann-Whitney p-values
+    """The cohort overview, the clamp insulin where ``g.data_dir`` holds
+    the raw CSV files, and the ages' Mann-Whitney p-values
     (``exp_figures.py:133-162``)."""
-    note("skip", "illustration_clamp_insulin.png",
-         "[Errno 2] No such file or directory: 'ohashi_csv/"
-         "ohashi_clamp_blood.csv' (the clamp insulin is only in the "
-         "reference's raw CSVs, which this package does not read)")
+    csv_dir = Path(g.data_dir or ".") / "ohashi_csv"
+    clamp = None
+    if (csv_dir / "ohashi_clamp_blood.csv").exists():
+        clamp = load_clamp_insulin(csv_dir)
+    else:
+        note("skip", "illustration_clamp_insulin.png",
+             "[Errno 2] No such file or directory: "
+             f"'{csv_dir / 'ohashi_clamp_blood.csv'}' (no --data-dir with "
+             "the reference's raw CSV files)")
     b = g.both
     pvals = {}
     for x, y in (("NGT", "IGT"), ("NGT", "T2DM"), ("IGT", "T2DM")):
@@ -241,12 +255,15 @@ def section_data(g: Gallery) -> dict:
             pvals[(x, y)] = mann_whitney_u(xa, xb)
     return {"timepoints": b.timepoints, "glucose": b.glucose,
             "cpeptide": b.cpeptide, "types": b.types, "ages": b.ages,
-            "pvalues": pvals}
+            "pvalues": pvals, "clamp_insulin": clamp}
 
 
 def draw_data(a: dict):
     yield "data_overview.png", lambda: figures.data_overview(
         a["timepoints"], a["glucose"], a["cpeptide"], a["types"])
+    if a["clamp_insulin"] is not None:
+        yield "illustration_clamp_insulin.png", \
+            lambda: figures.clamp_insulin_illustration(*a["clamp_insulin"])
     yield "supp_age.png", lambda: figures.age_distributions(
         a["ages"], a["types"], a["pvalues"])
 
@@ -268,13 +285,6 @@ def _best_index(g: Gallery, objectives: np.ndarray, n_cand: int) -> int:
         except Exception:
             best = int(np.argmin(objectives))
     return min(int(best), n_cand - 1)
-
-
-def _bounds(betas: np.ndarray) -> tuple[float, float]:
-    """The training-β range ±10 %."""
-    b = np.asarray(betas).ravel()
-    return (float(b.min() - 0.1 * abs(b.min())),
-            float(b.max() + 0.1 * abs(b.max())))
 
 
 def production_curves(model: CPeptideModel, nn: torch.Tensor, beta_grid,
@@ -299,7 +309,7 @@ def section_cude(g: Gallery) -> dict | None:
     candidates, betas_cand = z["nn_params"], z["betas"]
     best = _best_index(g, z["objectives"], candidates.shape[0])
     nn_best = params_from_jax(candidates[best], model.net, dev)
-    lb, ub = _bounds(betas_cand[best])
+    lb, ub = widened_bounds(betas_cand[best])
     out = {"best": best, "bounds": (lb, ub)}
 
     fit_path = g.art / "cude_fit.npz"
@@ -381,7 +391,7 @@ def section_cude(g: Gallery) -> dict | None:
         order = np.argsort(np.asarray(z["objectives"]))
         second = int(order[1]) if int(order[0]) == best else int(order[0])
         nn_second = params_from_jax(candidates[second], model.net, dev)
-        lb2, ub2 = _bounds(betas_cand[second])
+        lb2, ub2 = widened_bounds(betas_cand[second])
         b2 = [_np(fit_betas(model, nn_second, c, initial_beta=-1.0,
                             bounds=(lb2, ub2), lbfgs_iters=it)[0])
               for c in (g.cohort_train, g.cohort_test)]
@@ -884,19 +894,22 @@ class GalleryRun:
 def run_exp_figures(device: torch.device | str, artifacts_dir: str | Path,
                     out: str | Path | None = None, sections=None,
                     smoke: bool = False,
-                    results_dir: str | Path = RESULTS) -> GalleryRun:
+                    results_dir: str | Path = RESULTS,
+                    data_dir: str | Path | None = None) -> GalleryRun:
     """The gallery on ``device``: each section of ``sections`` (all by
     default) in ``SECTIONS``' order computed from ``artifacts_dir`` and
     ``results_dir``; with ``out``, the figures drawn into ``out/figures``
     (when matplotlib is there) and ``out/exp_figures_manifest.json``
     merged with the figures an earlier run left there.  ``smoke`` takes
-    the JAX script's smoke sizes (``SMOKE``)."""
+    the JAX script's smoke sizes (``SMOKE``); ``data_dir``, the raw CSV
+    files' folder, gives the clamp insulin's figure."""
     unknown = set(sections or ()) - set(SECTIONS)
     if unknown:
         raise ValueError(f"unknown sections {sorted(unknown)}; choose from "
                          f"{SECTIONS}")
     g = Gallery(device, Path(artifacts_dir), Path(results_dir),
-                SMOKE if smoke else FULL)
+                SMOKE if smoke else FULL,
+                None if data_dir is None else Path(data_dir))
     stage = _Stages(g.dev)
     draw = out is not None and figures.available()
     outdir = None if out is None else Path(out) / "figures"

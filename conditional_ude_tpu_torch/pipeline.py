@@ -233,6 +233,14 @@ def sse_per_type(types: np.ndarray, sse: np.ndarray) -> dict[str, float]:
             if (types == t).any()}
 
 
+def widened_bounds(betas) -> tuple[float, float]:
+    """The range of training β's ``betas`` widened by 10 % of each end's
+    magnitude, in their dtype (``02-conditional.jl:91-106``)."""
+    b = np.asarray(betas).ravel()
+    return (float(b.min() - 0.1 * abs(b.min())),
+            float(b.max() + 0.1 * abs(b.max())))
+
+
 def _counts(census: np.ndarray) -> dict[str, int]:
     return {str(c): int((census == c).sum()) for c in np.unique(census)}
 

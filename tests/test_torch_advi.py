@@ -26,6 +26,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.analysis import (
     cohort_beta_profiles as jax_profiles,

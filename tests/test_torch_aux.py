@@ -4,7 +4,8 @@
   (``tests/test_cli.py``'s cases, against the JAX package's own
   ``_resolve_experiment`` on ``experiments/``), ``list`` names every
   script, ``exp 02_c --help`` reaches the port's entry point, and the two
-  scripts that read the reference's raw CSVs are refused;
+  scripts that read the reference's raw CSVs are refused without
+  ``--data-dir``;
 * ``utils.profiling``: ``scope`` prints its seconds; ``checked`` names the
   aten op that made a NaN (``log(-1)``) or divided by zero and passes clean
   input and the port's population loss; ``device_trace`` writes a Chrome
@@ -24,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu import cli as jax_cli
 from conditional_ude_tpu.utils import checkpoint as jckpt
@@ -88,8 +90,8 @@ def test_exp_help_reaches_the_entry_point():
 
 @pytest.mark.parametrize("name", ["00", "exp_parity"])
 def test_exp_refuses_what_reads_the_raw_csvs(name, capsys):
-    assert cli.main(["exp", name, "--smoke"]) != 0
-    assert "M21" in capsys.readouterr().err
+    assert cli.main(["exp", name]) != 0
+    assert "--data-dir" in capsys.readouterr().err
 
 
 def test_info_names_torch(capsys):

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.fit.losses import population_sse as jax_population_sse
 from conditional_ude_tpu.fit.losses import sse as jax_sse

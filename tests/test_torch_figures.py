@@ -37,6 +37,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.data.ohashi import load_npz as jax_load_npz
 from conditional_ude_tpu.utils import stats as jstats
@@ -64,14 +65,6 @@ def _reference():
 @pytest.fixture(scope="module")
 def ref():
     return _reference()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

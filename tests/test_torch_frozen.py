@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.analysis import profiles as jprof
 from conditional_ude_tpu.fit.train import fit_betas_sigma as jax_fit_betas_sigma

@@ -30,6 +30,7 @@ import operator
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu_torch.models.cpeptide import build_cohort
 from conditional_ude_tpu_torch.nn import chain

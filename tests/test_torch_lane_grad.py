@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.models import cpeptide as jcp
 from conditional_ude_tpu.nn import chain as jax_chain

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.ops.lbfgs import lbfgs_minimize as jax_lbfgs
 from conditional_ude_tpu_torch.ops.lbfgs import lbfgs_minimize

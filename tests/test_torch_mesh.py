@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.models import cpeptide as jcp
 from conditional_ude_tpu.nn import chain as jax_chain
@@ -53,16 +54,6 @@ TP = np.array([0.0, 30.0, 60.0, 90.0, 120.0])
 MODEL = CPeptideModel(chain(4, 2))
 JMODEL = jcp.CPeptideModel(kind="conditional",
                            net=jax_chain(4, 2, "tanh", input_dims=2))
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Thousands of tiny operations, one thread: more threads beside the
-    other test processes only slow them and those processes down."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def cpus(k=8):

@@ -4,19 +4,9 @@ every sharded subsystem runs at its tiny shapes, and SAEM's ``nll_trace``
 is held to the unsharded run within atol 1e-4 inside it.  No JAX."""
 
 import pytest
-import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu_torch.parallel.dryrun import dryrun_mesh
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Thousands of tiny operations, one thread: more threads beside the
-    other test processes only slow them and those processes down."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("k", [2, 5])

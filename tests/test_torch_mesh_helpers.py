@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.models import cpeptide as jcp
 from conditional_ude_tpu.parallel import mesh as jmesh

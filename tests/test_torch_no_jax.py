@@ -1,10 +1,13 @@
 """PyTorch port: importing every module of the port loads neither ``jax`` nor
-the JAX package, nor ``matplotlib`` (the card's machine has none: the
-figure functions import it when they run)."""
+the JAX package, nor ``matplotlib``, ``pandas`` or ``h5py`` (the card's
+machine has none of the three: the figure functions import matplotlib and
+the JLD2 readers h5py when they run, and the CSV readers need neither)."""
 
 import subprocess
 import sys
 from pathlib import Path
+
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -16,7 +19,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "conditional_ude_tpu",
-                                    "matplotlib"))
+                                    "matplotlib", "pandas", "h5py"))
 print(len(names), bad)
 assert not bad, bad
 for m in ("fit.optim", "ops.tsit5", "ops.rk4_population", "ops.lane_grad",
@@ -25,7 +28,8 @@ for m in ("fit.optim", "ops.tsit5", "ops.rk4_population", "ops.lane_grad",
           "fit.advi", "advi_pipeline", "models.suppression",
           "suppression_pipeline", "analysis.symreg", "symreg_pipeline",
           "utils.figures", "utils.profiling", "cli", "figures_pipeline",
-          "parallel.mesh", "parallel.dryrun"):
+          "parallel.mesh", "parallel.dryrun", "data.jld2", "etl_pipeline",
+          "parity_pipeline"):
     assert pkg.__name__ + "." + m in names, m
 assert "torch" in sys.modules
 """

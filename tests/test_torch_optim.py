@@ -5,6 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.fit.losses import population_sse as jax_population_sse
 from conditional_ude_tpu.fit.optim import adam_minimize as jax_adam

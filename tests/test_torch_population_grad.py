@@ -35,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 import conditional_ude_tpu.ops.pallas_grad as jpg
 from conditional_ude_tpu.fit import train as jtrain

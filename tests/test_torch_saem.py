@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 from jax import lax
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.fit import saem as jsaem
 from conditional_ude_tpu.models import cpeptide as jcp

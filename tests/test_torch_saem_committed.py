@@ -12,6 +12,7 @@ but subject 84, 1.003e-3; subject 84's MLE, where the likelihood is flat,
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
 from conditional_ude_tpu_torch.fit import saem

@@ -11,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu_torch import __main__ as cli
 from conditional_ude_tpu_torch import replicate, saem_pipeline

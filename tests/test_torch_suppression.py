@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.models import suppression as jsup
 from conditional_ude_tpu_torch.convert import params_from_jax

@@ -30,6 +30,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.models import suppression as jsup
 from conditional_ude_tpu_torch import __main__ as entry

@@ -23,21 +23,12 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.analysis import symreg as jsr
 from conditional_ude_tpu_torch.analysis import symreg as tsr
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def _few_threads():
-    """Two intra-op threads: the search is thousands of small operations,
-    which many threads beside other test processes slow down ~30-fold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 TINY = np.finfo(np.float32).tiny

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.analysis import symreg as jsr
 from conditional_ude_tpu_torch import __main__ as entry
@@ -36,16 +37,6 @@ ARTIFACTS = REPO / "artifacts"
 COMMITTED = json.loads((REPO / "results" / "exp_symreg_metrics.json")
                        .read_text())
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def _few_threads():
-    """Two intra-op threads: the search is thousands of small operations,
-    which many threads beside other test processes slow down ~30-fold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def test_split_and_reference_equation_equal_committed():

@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu.fit import train as jtrain
 from conditional_ude_tpu.models import cpeptide as jcp

@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu_torch.nn import chain
 from conditional_ude_tpu_torch.ops import tsit5 as tableau

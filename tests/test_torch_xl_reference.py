@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 if __name__ == "__main__":      # pytest's conftest does both for the tests
