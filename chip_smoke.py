@@ -196,7 +196,34 @@
     run: this machine has no h5py, so exp_parity's and section 3's entry
     points, which read the reference's JLD2 files, are driven through
     their computations.
-    12-25 are bound by the host, so they run in seven child processes (this
+26. runs the generic route of training (``train_conditional`` where no
+    kernel computes the model) and the fits' solver options after
+    exp_symreg_search in its child, at full width (exp02's 57-subject fit
+    split, its 25 validation and 35 test subjects) with the design count
+    and depth cut as ``scripts/generic_reference.py`` cuts them: A, the
+    canonical cUDE trained with ``solver="tsit5"`` (20 Adam and 2 L-BFGS
+    steps), and B, two conditional parameters on ``chain(4, 2, "gelu",
+    input_dims=3)`` at RK4 (100 Adam and 10 L-BFGS steps), each from the
+    JAX package's 2,500 designs (``tests/golden/generic_designs.npz``, the
+    LHS rebuilt from the seed) and 15 restarts; C,
+    ``fit_betas_sigma(solver="tsit5")`` of the 35 test subjects at exp02's
+    best candidate (2 steps) and ``evaluate_model(solver="tsit5")`` of
+    three candidates on the 25 validation subjects (1 step).  Eager
+    autograd through Tsit5 is ~46,600 launches and ~0.7 s a value+grad on
+    the card, so A and C are cut further than B.  Each is held to the JAX package on the CPU at the same cut
+    (``scripts/generic_reference.json``): every design's screen loss (A at
+    Tsit5's rtol 2e-2 + atol 1e-3, B at RK4's rtol 1e-4), the first 10
+    Adam losses (B rtol 1e-4), the best objective at most 1.10 x JAX's.
+    What comes through Tsit5's gradient (A's Adam losses, C's β, σ and
+    selection objectives) moves in JAX itself when u0 moves one float32 ulp
+    (Tsit5 from the steady state, F7: the gradient through the adaptive
+    steps moves with them; C's β by up to 1.77), so it is held as the F7
+    test holds the MSEs: the port's median miss within JAX's median move,
+    its largest within twice JAX's largest; how many subjects meet exp02
+    frozen's limits (β 1e-2, σ 2e-2 relative) is printed.  A's best
+    objective may also reach the worst of JAX's runs from u0 one ulp away.
+    No kernel may launch.
+    12-26 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -1503,10 +1530,11 @@ def main() -> None:
 # exp_symreg_production, and the gallery (K4 and K4c) and the mesh path
 # (K1-K4, K4c) after exp01's retrains at two seeds, the child that ended
 # first, and the ETL path (K2 in its section-3 stage) after the symbolic
-# refits, the child that ended first after that
+# refits, the child that ended first after that, and the generic route (no
+# kernel) after exp_symreg_search, the child that ended first after that
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04", "etl"),
         ("exp_symreg_production", "exp_advi", "exp_suppression",
-         "exp_symreg_search"),
+         "exp_symreg_search", "generic"),
         (*(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
          "exp_figures", "mesh"),
         ("exp02_seeds",),
@@ -1828,6 +1856,22 @@ ETL_STAGE_KERNELS = {"exp00": {}, "exp_parity": {},
                      "section 3": {"lane_grad": ETL_RUNS * 800}}
 MESH_KERNELS = frozenset({"rk4_population", "lane_grad", "tsit5_cohort",
                           "rk4_cohort", "rk4_cohort (3-input)"})
+# the generic route: A (the cUDE trained with Tsit5) and B (two conditional
+# parameters, a gelu network) from the JAX package's designs, C (the
+# (β, σ) fit and the selection with Tsit5), each held to the JAX package on
+# the CPU at the same cut (scripts/generic_reference.py); what comes through
+# Tsit5's gradient is held to JAX's own spread from u0 one ulp away (F7:
+# the gradient through the adaptive steps moves with them)
+GENERIC_REFERENCE = REPO / "scripts" / "generic_reference.json"
+GENERIC_DESIGNS = REPO / "tests" / "golden" / "generic_designs.npz"
+GENERIC_SCREEN = {"A": dict(rtol=2e-2, atol=1e-3),     # the Tsit5 kernel's
+                  "B": dict(rtol=1e-4, atol=0.0)}
+GENERIC_TRACE_STEPS = 10
+GENERIC_TRACE_RTOL = 1e-4        # B: RK4
+GENERIC_BEST_RATIO = 1.10
+GENERIC_BETA_ATOL = 1e-2         # C: exp02 frozen's limits (PERF.md §2)
+GENERIC_SIGMA_RTOL = 2e-2
+GENERIC_STAGES = ("A", "B", "C fit", "C evaluate")
 
 
 def new_paths(dev):
@@ -1877,6 +1921,8 @@ def new_paths(dev):
         "mesh": (lambda: run_mesh_path(dev), check_mesh_path, MESH_KERNELS),
         "etl": (lambda: run_etl_path(dev), check_etl_path,
                 frozenset({"lane_grad"})),
+        "generic": (lambda: run_generic_path(dev), check_generic_path,
+                    none),
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
                    lambda res: check_saem_spread(res.metrics, "exp06a"), none),
         "exp06b": (lambda: run_exp06b(dev, ARTIFACTS),
@@ -2250,6 +2296,96 @@ def run_etl_path(dev):
     return SimpleNamespace(out=root / "out", exp00=exp00, parity=parity,
                            crosscheck=crosscheck, seconds=seconds,
                            launched=launched)
+
+
+def run_generic_path(dev, reference: Path = GENERIC_REFERENCE,
+                     designs: Path = GENERIC_DESIGNS):
+    """The generic route at full width (exp02's 57-subject fit split, its
+    25 validation and 35 test subjects) at ``scripts/generic_reference.py``'s
+    cut: training A (``chain(4, 2)``, ``solver="tsit5"``) and B
+    (``chain(4, 2, "gelu", input_dims=3)``, ``n_conditional=2``) from the
+    JAX package's designs (the networks committed, the LHS rebuilt from the
+    seed), then C: ``fit_betas_sigma(solver="tsit5")`` of the test subjects
+    at the committed best candidate and ``evaluate_model(solver="tsit5")`` of
+    three candidates on the validation subjects; each stage's seconds and
+    launches."""
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch.data.ohashi import load_npz
+    from conditional_ude_tpu_torch.fit import train as ptrain
+    from conditional_ude_tpu_torch.models.cpeptide import (
+        CPeptideModel,
+        build_cohort,
+    )
+    from conditional_ude_tpu_torch.nn import chain
+    from conditional_ude_tpu_torch.utils.stats import (
+        latin_hypercube,
+        stratified_split,
+    )
+    cfg0 = json.loads(Path(reference).read_text())["config"]
+    train, test = load_npz(ARTIFACTS / "ohashi.npz")
+    idx_fit, idx_val = stratified_split(np.random.default_rng(cfg0["seed"]),
+                                        train.types, 0.7)
+
+    def cohort(split):
+        return build_cohort(split.glucose, split.timepoints, split.cpeptide,
+                            split.ages, split.t2dm, dev)
+
+    fit = cohort(train.subset(idx_fit))
+    nets = np.load(designs)
+    seconds, launched, out = {}, {}, {}
+
+    def stage(name, fn):
+        before, t0 = _launch_counts(), time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds[name], launched[name] = (time.perf_counter() - t0,
+                                         _launched_since(before))
+        return res
+
+    for path in ("A", "B"):
+        t = cfg0["trainings"][path]
+        model = CPeptideModel(chain(t["width"], t["depth"], t["activation"],
+                                    input_dims=t["input_dims"]), t["kind"])
+        cfg = ptrain.TrainConfig(
+            initial_guesses=cfg0["initial_guesses"],
+            selected_initials=cfg0["selected_initials"],
+            adam_iters=t["adam_iters"], lbfgs_iters=t["lbfgs_iters"],
+            max_steps=cfg0["max_steps"], substeps=cfg0["substeps"],
+            solver=t.get("solver", "rk4"),
+            n_conditional=t.get("n_conditional", 1))
+        g, k = cfg.initial_guesses, cfg.n_conditional
+        lhs = latin_hypercube(np.random.default_rng(cfg0["seed"]), g,
+                              fit.n * k, cfg.lhs_lower, cfg.lhs_upper)
+        lhs = lhs.astype(np.float32).reshape(g, fit.n, k)
+        res = stage(path, lambda: ptrain.train_conditional(
+            model, fit, cfg, designs=(nets[f"nn_{path}"], lhs)))
+        seconds.update({f"{path} {k_}": v for k_, v in res.timings.items()
+                        if not k_.endswith("_path")})
+        out[path] = SimpleNamespace(res=res, lhs_sum=float(
+            lhs.astype(np.float64).sum()))
+
+    with np.load(ARTIFACTS / "cude_neural_parameters.npz") as z:
+        cand = torch.as_tensor(z["nn_params"], device=dev)
+        betas = torch.as_tensor(z["betas"], device=dev)
+    model = CPeptideModel(chain(4, 2))
+    best, rows = cfg0["best"], cfg0["evaluate_rows"]
+    bb = np.asarray(betas[best].cpu(), np.float32).ravel()
+    bounds = (float(bb.min() - 0.1 * abs(bb.min())),
+              float(bb.max() + 0.1 * abs(bb.max())))
+    test_cohort, val_cohort = cohort(test), cohort(train.subset(idx_val))
+    kw = dict(solver="tsit5", max_steps=cfg0["max_steps"],
+              substeps=cfg0["substeps"])
+    out["C"] = SimpleNamespace(bounds=bounds, fit=stage(
+        "C fit", lambda: ptrain.fit_betas_sigma(
+            model, cand[best], test_cohort, -1.0, bounds,
+            cfg0["fit_iters"], **kw)), evaluate=stage(
+        "C evaluate", lambda: ptrain.evaluate_model(
+            model, cand[rows], betas[rows], val_cohort,
+            lbfgs_iters=cfg0["evaluate_iters"], **kw)))
+    return SimpleNamespace(**out, seconds=seconds, launched=launched,
+                           reference=Path(reference))
 
 
 def run_mesh_path(dev):
@@ -2652,6 +2788,134 @@ def check_etl_path(res) -> list[str]:
     if c["n_files"] != ETL_RUNS or not np.isfinite(numbers).all():
         failures.append(f"section 3: {c['n_files']} runs, statistics "
                         f"{numbers}")
+    return failures
+
+
+def _held(got, want, lim, what: str) -> list[str]:
+    """``got`` against ``want`` entry by entry within ``lim`` (absolute,
+    an array or a number)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    miss = np.abs(got - want)
+    lim = np.broadcast_to(lim, miss.shape)
+    log(f"[check] generic {what}: largest miss {miss.max():.6g}, largest "
+        f"share of its limit {(miss / lim).max():.4g}")
+    bad = np.flatnonzero(~(miss <= lim))
+    return [f"{what}: entry {i} {got.flat[i]} vs {want.flat[i]} (limit "
+            f"{lim.flat[i]:.6g})" for i in bad[:5]] + (
+        [f"{what}: {len(bad)} entries out in all"] if len(bad) > 5 else [])
+
+
+def _within_spread(got, ref: dict, key: str, relative: bool, limit: float,
+                   what: str, count: int | None = None) -> list[str]:
+    """A Tsit5 result against JAX's, as ``tests/test_torch_tsit5.py``'s F7
+    test holds the MSEs: over all entries, the port's median miss at most
+    JAX's median move from u0 one ulp away (``u0_ulp_runs``: each entry's
+    largest over the directions) and its largest miss within twice JAX's
+    largest.  How many entries also meet the fixed ``limit`` is logged,
+    beside JAX's own count."""
+    want = np.asarray(ref[key], np.float64)
+    runs = [np.asarray(r[key], np.float64) for r in ref["u0_ulp_runs"]]
+    got = np.asarray(got, np.float64)
+    if count is not None:
+        got, want = got[..., :count], want[..., :count]
+        runs = [r[..., :count] for r in runs]
+    scale = np.abs(want) if relative else 1.0
+    miss = np.abs(got - want) / scale
+    move = np.max([np.abs(r - want) / scale for r in runs], 0)
+    log(f"[check] generic {what} ({'relative' if relative else 'absolute'})"
+        f": miss median {np.median(miss):.4g}, largest {miss.max():.4g}; "
+        f"JAX's u0-ulp move median {np.median(move):.4g}, largest "
+        f"{move.max():.4g}; within {limit:g}: {int((miss <= limit).sum())} "
+        f"of {miss.size} (JAX's own: {int((move <= limit).sum())})")
+    failures = []
+    if not np.median(miss) <= np.median(move):
+        failures.append(f"{what}: median miss {np.median(miss)} above JAX's "
+                        f"median move {np.median(move)}")
+    if not miss.max() <= 2.0 * move.max():
+        failures.append(f"{what}: largest miss {miss.max()} beyond twice "
+                        f"JAX's largest move {move.max()}")
+    return failures
+
+
+def check_generic_path(res) -> list[str]:
+    """The generic route against the JAX package on the CPU at the same cut
+    (``scripts/generic_reference.json``): the LHS rebuilt bit for bit; A's
+    and B's routes (``torch_batched``, ``autograd``) and β shapes as
+    JAX's, B's orientations None and A's ±1; each design's screen loss (A:
+    Tsit5 rtol 2e-2 + atol 1e-3; B: RK4 rtol 1e-4); B's first 10 Adam
+    losses rtol 1e-4; the best objective ≤ 1.10 × JAX's, or for A within
+    JAX's own runs from u0 one ulp away.  A's first 10 Adam losses and C's
+    β, σ and selection objectives are Tsit5 results through its gradient,
+    which moves with the steps in JAX too: held to JAX's u0-ulp spread
+    (:func:`_within_spread`), with the count inside exp02 frozen's limits
+    (β 1e-2, σ 2e-2 relative; the selection 2e-2 relative) logged.  No
+    kernel launched in any stage."""
+    ref = json.loads(res.reference.read_text())
+    failures = []
+    for stage in GENERIC_STAGES:
+        log(f"[check] generic {stage}: launches "
+            f"{res.launched[stage] or 'none'} (must be none)")
+        if res.launched[stage]:
+            failures.append(f"{stage} launched {res.launched[stage]}")
+    for path in ("A", "B"):
+        tr, want = getattr(res, path).res, ref[path]
+        routes = (tr.timings["screen_path"], tr.timings["refine_path"])
+        log(f"[check] generic {path}: routes {routes}, LHS sum "
+            f"{getattr(res, path).lhs_sum!r} (JAX {want['lhs_sum']!r})")
+        if routes != ("torch_batched", "autograd"):
+            failures.append(f"{path} routes {routes}")
+        if getattr(res, path).lhs_sum != want["lhs_sum"]:
+            failures.append(f"{path}: the LHS is not JAX's")
+        if list(tr.betas.shape) != want["betas_shape"]:
+            failures.append(f"{path} betas {tuple(tr.betas.shape)}")
+        orients = (None if tr.orientations is None
+                   else tr.orientations.cpu().tolist())
+        # A's networks are not JAX's (Tsit5's gradient), so neither are
+        # their gauges
+        if (orients is None) != (want["orientations"] is None) or (
+                orients is not None and (
+                    len(orients) != len(want["orientations"])
+                    or not set(orients) <= {1.0, -1.0})):
+            failures.append(f"{path} orientations {orients} vs "
+                            f"{want['orientations']}")
+        tol = GENERIC_SCREEN[path]
+        failures += _held(tr.screen_losses.cpu().numpy(),
+                          want["screen_losses"], tol["atol"] + tol["rtol"]
+                          * np.abs(np.asarray(want["screen_losses"])),
+                          f"{path} screen (rtol {tol['rtol']} + atol "
+                          f"{tol['atol']})")
+        trace = tr.loss_traces[:, :GENERIC_TRACE_STEPS].cpu().numpy()
+        what = f"{path} first {GENERIC_TRACE_STEPS} Adam losses"
+        if "u0_ulp_runs" in want:
+            failures += _within_spread(trace, want, "loss_traces", True,
+                                       GENERIC_TRACE_RTOL, what,
+                                       GENERIC_TRACE_STEPS)
+        else:
+            want_tr = np.asarray(want["loss_traces"])[:, :GENERIC_TRACE_STEPS]
+            failures += _held(trace, want_tr,
+                              GENERIC_TRACE_RTOL * np.abs(want_tr),
+                              f"{what} (rtol {GENERIC_TRACE_RTOL})")
+        best, jax_best = float(tr.objectives[0]), want["objectives"][0]
+        moved = [r["objectives"][0] for r in want.get("u0_ulp_runs", [])]
+        limit = max([GENERIC_BEST_RATIO * jax_best, *moved])
+        log(f"[check] generic {path}: best objective {best:.6f}, JAX "
+            f"{jax_best:.6f}, from u0 one ulp away "
+            f"{[round(m, 6) for m in moved] or 'not run'} (limit "
+            f"{limit:.6f}); finite {int(torch.isfinite(tr.objectives).sum())}"
+            f"/{tr.objectives.numel()}")
+        if not best <= limit:
+            failures.append(f"{path} best objective {best} (limit {limit})")
+    c, want = res.C, ref["C"]
+    if list(c.bounds) != want["bounds"]:
+        failures.append(f"C bounds {c.bounds} vs {want['bounds']}")
+    beta, sigma, _ = (t.cpu().numpy() for t in c.fit)
+    failures += _within_spread(beta, want, "beta", False, GENERIC_BETA_ATOL,
+                               "C β")
+    failures += _within_spread(sigma, want, "sigma", True,
+                               GENERIC_SIGMA_RTOL, "C σ")
+    failures += _within_spread(c.evaluate.cpu().numpy(), want, "evaluate",
+                               True, GENERIC_SIGMA_RTOL,
+                               "C selection objectives")
     return failures
 
 

@@ -41,10 +41,15 @@ class Profile(NamedTuple):
     minimum: torch.Tensor   # [N]
 
 
-def fused_kernel_eligible(model: CPeptideModel) -> bool:
-    """Whether K4 computes this model: the canonical network on [ΔG, e^β]
-    or, for the covariate model, on [ΔG, e^β, age]."""
-    if model.kind not in ("conditional", "conditional_covariate"):
+def fused_kernel_eligible(model: CPeptideModel,
+                          solver_kwargs: dict | None = None) -> bool:
+    """Whether the kernels compute this model: the canonical network on
+    [ΔG, e^β] or, for the covariate model, on [ΔG, e^β, age] (one
+    conditional parameter), with no solver keyword but ``substeps`` in
+    ``solver_kwargs``, as the JAX package's predicate decides."""
+    if (model.kind not in ("conditional", "conditional_covariate")
+            or model.n_conditional != 1
+            or not set(solver_kwargs or ()) <= {"substeps"}):
         return False
     try:
         rk4_cohort.check_net_canonical(model.net)
@@ -71,14 +76,17 @@ def cohort_beta_profiles(model: CPeptideModel,
                          upper: float = 1.0, steps: int = 10_000,
                          chunk: int = 500, center=None,
                          substeps: int = 8, solver: str = "rk4",
-                         require_kernel: bool = False) -> Profile:
+                         require_kernel: bool = False,
+                         **solver_kwargs) -> Profile:
     """β-profiles of every individual at once: ``values[N, S]``; for the
     analytic head (``nn_params`` None) the profiles of its θ.
 
     ``center[N]``: individual *i* is profiled at ``center[i] + grid``, so the
     grid is a shared Δβ axis (the identifiability census).  The scan runs in
-    chunks of ``chunk`` grid points, by RK4 at ``substeps`` or by Tsit5 at
-    the JAX defaults (``solver="tsit5"``, which K4 does not compute).
+    chunks of ``chunk`` grid points, by RK4 at ``substeps`` or by Tsit5
+    (``solver="tsit5"``, which K4 does not compute) at the JAX defaults or
+    at ``solver_kwargs``' ``rtol``, ``atol`` and ``max_steps``; K4 runs
+    only where no such keyword is given, as in the JAX package.
     ``require_kernel=True`` raises ``ValueError`` where K4 cannot compute
     the model (the JAX package's ``use_pallas=True``).
     """
@@ -88,10 +96,11 @@ def cohort_beta_profiles(model: CPeptideModel,
     sig = torch.as_tensor(sigmas, **f32).expand(n)
     ctr = (torch.zeros(n, **f32) if center is None
            else torch.as_tensor(center, **f32))
-    fused = solver == "rk4" and fused_kernel_eligible(model)
+    fused = solver == "rk4" and fused_kernel_eligible(model, solver_kwargs)
     if require_kernel and not fused:
         raise ValueError("require_kernel=True needs the canonical "
-                         "conditional or covariate model and solver='rk4'")
+                         "conditional or covariate model, solver='rk4' and "
+                         "no solver keyword but substeps")
     if fused:
         kin = cohort.kinetics(with_age=model.with_age)
         nn_params = nn_params.contiguous()    # a row of a strided table
@@ -114,7 +123,8 @@ def cohort_beta_profiles(model: CPeptideModel,
         else:
             with torch.no_grad():
                 sse_lanes = sse(model, nn_params, betas, cohort,
-                                substeps=substeps, solver=solver)
+                                substeps=substeps, solver=solver,
+                                **solver_kwargs)
         parts.append(sse_lanes.T / (2.0 * sig[:, None] ** 2))
     values = torch.cat(parts, dim=1)
     return Profile(grid=grid, values=values, minimum=values.amin(1))

@@ -1,6 +1,7 @@
 """Loss functions (counterpart of ``conditional_ude_tpu/fit/losses.py``).
 
-Batched over every lane: ``betas[..., N]`` gives losses ``[..., N]``; the
+Batched over every lane: ``betas[..., N]`` (``[..., N, k]`` for k > 1
+conditional parameters) gives losses ``[..., N]``; the
 lanes are β, θ for the analytic head (``nn_params`` None), or None for the
 UDE head (``models/cpeptide.py::lanes``).  A failed (non-finite) solve
 gives ``inf``.  ``solver`` is ``"rk4"`` (fixed steps, ``substeps`` per save
@@ -26,17 +27,22 @@ from conditional_ude_tpu_torch.parallel.mesh import ShardedCohort
 
 def sse(model: CPeptideModel, nn_params: torch.Tensor | None, betas,
         cohort: Cohort, substeps: int = 16, solver: str = "rk4",
-        max_steps: int = 256) -> torch.Tensor:
-    """Sum of squared errors on the plasma compartment; ``inf`` on failure."""
+        max_steps: int = 256, rtol: float = 1e-3,
+        atol: float = 1e-6) -> torch.Tensor:
+    """Sum of squared errors on the plasma compartment; ``inf`` on failure.
+    ``rtol`` and ``atol`` are Tsit5's tolerances."""
     if isinstance(cohort, ShardedCohort):
         if betas is None:
             raise ValueError("a sharded cohort needs lanes with an "
                              "individual axis")
         return cohort.map(lambda c, b, nn: sse(
             model, nn, b, c, substeps=substeps, solver=solver,
-            max_steps=max_steps), torch.as_tensor(betas), nn_params)
+            max_steps=max_steps, rtol=rtol, atol=atol),
+            torch.as_tensor(betas), nn_params,
+            dim=-2 if model.n_conditional > 1 else -1)
     res = simulate_cohort(model, nn_params, betas, cohort, substeps=substeps,
-                          solver=solver, max_steps=max_steps)
+                          solver=solver, max_steps=max_steps, rtol=rtol,
+                          atol=atol)
     err = torch.square(res.ys[..., 0] - cohort.cpeptide).sum(-1)
     return torch.where(res.success, err, torch.inf)
 
@@ -64,6 +70,7 @@ def population_sse(model: CPeptideModel, nn_params: torch.Tensor,
                    substeps: int = 16, solver: str = "rk4",
                    max_steps: int = 256) -> torch.Tensor:
     """Mean over individuals of the per-individual SSE: ``[...]`` for
-    ``betas[..., N]``; one diverged individual makes it ``inf``."""
+    ``betas[..., N]`` (or ``[..., N, k]``); one diverged individual makes
+    it ``inf``."""
     return sse(model, nn_params, betas, cohort, substeps=substeps,
                solver=solver, max_steps=max_steps).mean(-1)

@@ -15,6 +15,7 @@ records its ELBO after each update and reads its step size from
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -140,6 +141,7 @@ def adam_minimize(
     lr: float = 1e-2,
     opt_state: AdamState | None = None,
     fun_and_grad: Callable | None = None,
+    log_every: int = 0,
 ) -> AdamResult:
     """Run ``iters`` Adam steps from ``x0``, a tuple of tensors whose
     leading axis is the restart axis.
@@ -147,15 +149,20 @@ def adam_minimize(
     ``fun(x) -> f[R]`` is differentiated by autograd unless ``fun_and_grad``
     (``x -> (f[R], grads like x)``) is given; ``fval`` is ``fun(x)`` at the
     end, or None when there is no ``fun`` (no evaluation after the last
-    step).
+    step).  ``log_every > 0`` prints every row's loss on stderr before
+    steps 0, k, 2k, … (the reference's ProgressMeter display); each print
+    waits for the device, so the default 0 prints nothing and never waits.
     """
     vg = fun_and_grad if fun_and_grad is not None else _autograd_vg(fun)
     x = tuple(a.detach() for a in x0)
     state = adam_init(x) if opt_state is None else opt_state
     trace = []
-    for _ in range(iters):
+    for i in range(iters):
         f, grads = vg(x)
         trace.append(f)
+        if log_every > 0 and i % log_every == 0:
+            loss = " ".join(f"{v:.6f}" for v in f.reshape(-1).tolist())
+            print(f"adam it={i} loss={loss}", file=sys.stderr)
         grads = [torch.where(torch.isfinite(g), g, 0.0) for g in grads]
         x, state = adam_step(x, grads, state, lr)
     fval = None

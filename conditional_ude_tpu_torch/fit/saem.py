@@ -42,11 +42,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from conditional_ude_tpu_torch.analysis.profiles import fused_kernel_eligible
 from conditional_ude_tpu_torch.fit.losses import sse
 from conditional_ude_tpu_torch.fit.optim import adam_minimize
 from conditional_ude_tpu_torch.models.cpeptide import (
@@ -84,6 +86,10 @@ class SAEMConfig:
     pop_adam_lr: float = 1e-2
     update_prior_mean: bool = True          # cUDE yes, symbolic no
     omega_as_variance: bool = False         # False: the reference's quirk
+    # > 0: NLL, acceptance, σ and Ω on stderr every log_every iterations
+    # (the reference's ProgressMeter display, src/saem.jl:219-224); each
+    # print waits for the device
+    log_every: int = 0
 
     @property
     def burnin_steps(self) -> int:
@@ -171,14 +177,8 @@ class CohortLogLik(LogLik):
         self.n, self.device = cohort.n, cohort.device
         self.n_t = cohort.timepoints.shape[0]
         self.parts = None
-        self.kernels = (solver == "rk4" and model.kind in (
-            "conditional", "conditional_covariate")
-            and 1 <= substeps <= lane_grad.MAX_SUBSTEPS)
-        if self.kernels:
-            try:
-                rk4_cohort.check_net_canonical(model.net)
-            except ValueError:
-                self.kernels = False
+        self.kernels = (solver == "rk4" and fused_kernel_eligible(model)
+                        and 1 <= substeps <= lane_grad.MAX_SUBSTEPS)
         if self.kernels:
             dev = "cuda" if self.device.type == "cuda" else "plain"
             self.route = f"{dev}_k4_k2"
@@ -438,6 +438,10 @@ def run_saem(loglik: LogLik, theta0, config: SAEMConfig = SAEMConfig(),
         nll.append(-ll_total)
         acc_trace.append(acc_rate)
         pstd.append(proposal_std)
+        if cfg.log_every > 0 and it % cfg.log_every == 0:
+            print(f"SAEM it={it}  nll={float(-ll_total):.4f}  "
+                  f"acc={float(acc_rate):.3f}  sigma={float(sigma):.4f}  "
+                  f"omega={float(omega):.4f}", file=sys.stderr)
     return SAEMResult(theta=theta, random_effects=rand, omega=omega,
                       sigma=sigma, eta=eta, nll_trace=torch.stack(nll),
                       acceptance_trace=torch.stack(acc_trace),

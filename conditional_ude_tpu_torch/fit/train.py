@@ -2,22 +2,34 @@
 ``conditional_ude_tpu/fit/train.py``).
 
 * ``train_conditional``: joint multi-start training of the shared network
-  and one β per individual.  Screen every initial design with K1
-  (``ops/rk4_population.py``), keep the best, refine them with Adam then
-  L-BFGS on the value and exact gradient of K2 (``ops/lane_grad.py``; of K5,
-  ``ops/population_grad.py``, above 131,072 restart × individual lanes), and
-  re-rank with adaptive Tsit5, K3 (``ops/tsit5_cohort.py``).  CUDA tensors
-  launch the kernels; CPU tensors run their plain versions.  With a
-  ``mesh`` the restarts split over its ``"restarts"`` axis
-  (``parallel/mesh.py``), the JAX package's fused-mesh path.
+  and k β's per individual, by one of two routes, chosen from the model and
+  the config alone (:func:`kernels_compute`, the JAX package's
+  ``_pallas_eligible``):
+
+  - the kernel route, for the canonical cUDE (``chain(4, 2)``, tanh, a
+    softplus head, one β) trained by RK4: screen every initial design with
+    K1 (``ops/rk4_population.py``), keep the best, refine them with Adam
+    then L-BFGS on the value and exact gradient of K2 (``ops/lane_grad.py``;
+    of K5, ``ops/population_grad.py``, above 131,072 restart × individual
+    lanes), and re-rank with adaptive Tsit5, K3 (``ops/tsit5_cohort.py``).
+    CUDA tensors launch the kernels; CPU tensors run their plain versions;
+  - the generic route, for every other network, k ≥ 1 conditional
+    parameters and either solver (the JAX package's ``xla_vmap`` screen and
+    ``xla_reverse_ad`` refinement): the same stages on the plain batched
+    solvers, the gradients by autograd, the re-rank by the plain Tsit5.  It
+    launches no kernel.
+
+  With a ``mesh`` the restarts split over its ``"restarts"`` axis
+  (``parallel/mesh.py``) on either route.
 * ``train_ude``: the non-conditional UDE on one series (experiment 01): a
   screen of Glorot designs, the best refined by Adam then L-BFGS, every
-  restart a row; plain batched RK4 with autograd gradients, as the JAX
-  package takes them through XLA (no Pallas kernel computes this head).
+  restart a row; the plain batched solver with autograd gradients, as the
+  JAX package takes them through XLA (no Pallas kernel computes this head).
 * ``fit_betas``, ``fit_betas_sigma``, ``evaluate_model``: with the network
   fixed, each individual's β (and σ) is re-estimated by the batched L-BFGS,
   every individual a row.  Gradients go through torch autograd on the plain
-  batched RK4, as the JAX package takes them through XLA autodiff.
+  batched solver (RK4, or Tsit5 with ``solver="tsit5"``), as the JAX
+  package takes them through XLA autodiff.
 """
 
 from __future__ import annotations
@@ -25,13 +37,14 @@ from __future__ import annotations
 import dataclasses
 import sys
 import time
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from conditional_ude_tpu_torch.fit.losses import sse, sse_sigma
-from conditional_ude_tpu_torch.fit.optim import adam_minimize
+from conditional_ude_tpu_torch.analysis.profiles import fused_kernel_eligible
+from conditional_ude_tpu_torch.fit.losses import population_sse, sse, sse_sigma
+from conditional_ude_tpu_torch.fit.optim import _autograd_vg, adam_minimize
 from conditional_ude_tpu_torch.models.cpeptide import (
     Cohort,
     CPeptideModel,
@@ -40,7 +53,6 @@ from conditional_ude_tpu_torch.models.cpeptide import (
 from conditional_ude_tpu_torch.nn import MLP
 from conditional_ude_tpu_torch.ops import lane_grad
 from conditional_ude_tpu_torch.ops.lbfgs import lbfgs_minimize
-from conditional_ude_tpu_torch.ops.rk4_cohort import check_net_canonical
 from conditional_ude_tpu_torch.parallel import mesh as pmesh
 from conditional_ude_tpu_torch.utils.stats import latin_hypercube
 
@@ -60,13 +72,15 @@ class TrainConfig:
     adam_iters: int = 1000
     lbfgs_iters: int = 1000
     adam_lr: float = 1e-2
-    # training runs fixed-step RK4 with `substeps` per observation segment;
-    # the final objectives are re-evaluated with adaptive Tsit5
+    # training runs fixed-step RK4 with `substeps` per observation segment
+    # (or adaptive Tsit5 of at most `max_steps` steps, solver="tsit5", on
+    # the generic route); RK4's final objectives are re-evaluated with
+    # adaptive Tsit5
     solver: str = "rk4"
     substeps: int = 8
     max_steps: int = 256
-    # designs per screening evaluation of the plain version (bounds its
-    # memory on the CPU); the CUDA kernel screens all designs in one launch
+    # designs per screening evaluation on the CPU (bounds its memory); on
+    # a card all designs are screened at once
     screen_chunk: int = 4096
     final_eval_tsit5: bool = True
     # stage timers on stderr
@@ -77,11 +91,12 @@ class TrainResult(NamedTuple):
     """Per-restart trained parameters, best first."""
 
     nn_params: torch.Tensor      # [R, P]
-    betas: torch.Tensor          # [R, N, c]
+    betas: torch.Tensor          # [R, N, k]
     objectives: torch.Tensor     # [R]
     screen_losses: torch.Tensor  # [G] losses of all initial designs
     loss_traces: torch.Tensor    # [R, adam_iters]
-    # canonical ±1 β gauge per restart (models.cpeptide.production_orientation)
+    # canonical ±1 β gauge per restart (models.cpeptide.production_orientation);
+    # None for k > 1 conditional parameters
     orientations: torch.Tensor | None = None
     # {"screen"/"adam"/"lbfgs"/"final_eval": seconds,
     #  "screen_path"/"refine_path": the route that ran}
@@ -111,26 +126,24 @@ def initial_designs(net: MLP, n: int, generator: torch.Generator,
 
 
 def _check_trainable(model: CPeptideModel, cfg: TrainConfig) -> None:
-    """The kernels take the canonical cUDE only: one conditional parameter,
-    chain(4, 2) on [ΔG, e^β] (or, for the covariate model, on [ΔG, e^β,
-    age]), training with fixed-step RK4.  A kind that does not match the
-    network's input count cannot be built (``CPeptideModel``)."""
+    """A conditional head whose network reads ``cfg.n_conditional`` β's."""
     if model.kind not in ("conditional", "conditional_covariate"):
-        raise NotImplementedError(
+        raise ValueError(
             f"train_conditional trains the conditional heads, got "
             f"{model.kind!r} (train_ude fits the 'ude' head)")
-    if cfg.n_conditional != 1:
-        raise NotImplementedError(
-            f"train_conditional takes n_conditional=1 only, got "
-            f"{cfg.n_conditional}")
-    if cfg.solver != "rk4":
-        raise NotImplementedError(
-            f"train_conditional trains with solver='rk4' only, got "
-            f"{cfg.solver!r}")
-    try:
-        check_net_canonical(model.net)
-    except ValueError as err:
-        raise NotImplementedError(str(err)) from None
+    if cfg.n_conditional != model.n_conditional:
+        raise ValueError(
+            f"n_conditional={cfg.n_conditional}, but the {model.kind!r} "
+            f"network's {model.net.input_dims} inputs read "
+            f"{model.n_conditional} conditional parameters")
+
+
+def kernels_compute(model: CPeptideModel, cfg: TrainConfig) -> bool:
+    """Whether the kernels compute this training (the JAX package's
+    ``_pallas_eligible``): the canonical cUDE or covariate model at one
+    conditional parameter, trained by RK4.  Otherwise the generic route
+    runs."""
+    return cfg.solver == "rk4" and fused_kernel_eligible(model)
 
 
 def train_conditional(model: CPeptideModel, cohort: Cohort,
@@ -139,22 +152,30 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
                       seed: int | None = None,
                       designs=None, mesh: pmesh.Mesh | None = None
                       ) -> TrainResult:
-    """Joint training of the shared network and every individual's β
+    """Joint training of the shared network and every individual's β's
     (``src/parameter-estimation.jl:340-386``), on ``cohort.device``.
 
     The designs come from ``generator`` (a ``torch.Generator`` on the
     cohort's device; a fresh one seeded with ``seed`` when absent) and the
     LHS from ``seed``, or are given as ``designs=(nn_inits[G, P],
-    betas_init[G, N, 1])``, e.g. the JAX package's, for parity.
+    betas_init[G, N, k])``, e.g. the JAX package's, for parity.
+
+    The kernels train the canonical model (:func:`kernels_compute`); any
+    other network, k > 1 or ``solver="tsit5"`` takes the generic route,
+    which launches no kernel.  ``timings`` names the route:
+    ``screen_path`` ``cuda_k1`` / ``plain`` or ``torch_batched``,
+    ``refine_path`` ``cuda_k2`` / ``cuda_k5`` / ``plain`` / ``plain_k5`` or
+    ``autograd``.
 
     With ``mesh`` (``parallel.make_mesh``, a ``"restarts"`` axis) every
     evaluation splits its restarts over that axis, the whole cohort on each
     device (the first device of each row of a 2-D mesh), as the JAX
-    package's fused-mesh path (``fit/train.py:263-372``): the designs are
+    package's mesh paths (``fit/train.py:263-372``): the designs are
     padded to the axis and the padded screen entries set to inf before the
     top-k; the selected restarts are padded with the last of them, refined,
-    and sliced off before ranking.  The optimizers' state stays on the
-    cohort's device, so a padded row never touches a real one.
+    and sliced off before ranking; the routes' names end in ``+meshN``.
+    The optimizers' state stays on the cohort's device, so a padded row
+    never touches a real one.
     """
     cfg = config
     _check_trainable(model, cfg)
@@ -180,17 +201,20 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
         nn_inits, betas_init = (torch.as_tensor(np.array(a), dtype=torch.float32)
                                 for a in designs)
     nn_inits, betas_init = nn_inits.to(dev), betas_init.to(dev)
+    # the lanes' layout: betas[..., N] at k = 1, [..., N, k] above
+    if cfg.n_conditional == 1:
+        betas_init = betas_init.reshape(*betas_init.shape[:2])
     # unsharded, the whole run is one shard on the cohort's device
     g_orig, k = nn_inits.shape[0], cfg.selected_initials
-    shards = 1 if mesh is None else len(mesh.axis_devices("restarts"))
-    split = mesh or pmesh.make_mesh(("restarts",), devices=[dev])
+    devices = [dev] if mesh is None else mesh.axis_devices("restarts")
+    shards = len(devices)
     nn_inits = pmesh.pad_to_multiple(nn_inits, shards)
     betas_init = pmesh.pad_to_multiple(betas_init, shards)
+    stages = (_kernel_stages if kernels_compute(model, cfg)
+              else _generic_stages)(model, cohort, cfg, devices)
 
-    # -- screen every design (K1; the plain version in chunks) --------------
-    screen = pmesh.sharded_screen(net, nn_inits, betas_init[:, :, 0], cohort,
-                                  split, substeps=cfg.substeps,
-                                  chunk=None if cuda else cfg.screen_chunk)
+    # -- screen every design -------------------------------------------------
+    screen = stages.screen(nn_inits, betas_init)
     # padded designs repeat the last one: keep them out of the top-k
     screen[g_orig:] = torch.inf
     sync()
@@ -200,48 +224,39 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
     top = torch.argsort(torch.where(torch.isfinite(screen), screen, torch.inf),
                         stable=True)[:k]
     nn0 = pmesh.pad_to_multiple(nn_inits[top], shards)
-    b0 = pmesh.pad_to_multiple(betas_init[top, :, 0], shards)
+    b0 = pmesh.pad_to_multiple(betas_init[top], shards)
 
-    # -- Adam, then L-BFGS on the flat [nn, β] rows (K2 or K5 value + gradient)
-    vg = pmesh.sharded_population_vg(
-        net, pmesh.cohort_args(cohort, net.input_dims == 3), split,
-        substeps=cfg.substeps)
-
-    def loss(nn, b):
-        return lane_grad.PopulationSSE.apply(nn, b, vg)
-
-    adam = adam_minimize(lambda x: loss(*x), (nn0, b0), iters=cfg.adam_iters,
-                         lr=cfg.adam_lr)
+    # -- Adam, then L-BFGS on the flat [nn, β] rows --------------------------
+    vg = stages.value_and_grad((nn0, b0))
+    adam = adam_minimize(stages.loss, (nn0, b0), iters=cfg.adam_iters,
+                         lr=cfg.adam_lr, fun_and_grad=vg)
     nn1, b1 = adam.x
     sync()
     t2 = time.perf_counter()
 
     p = nn1.shape[1]
     if cfg.lbfgs_iters > 0:
-        res = lbfgs_minimize(lambda x: loss(x[:, :p], x[:, p:]),
-                             torch.cat([nn1, b1], dim=1),
-                             max_iters=cfg.lbfgs_iters)
-        nn2, b2, objs = res.x[:, :p], res.x[:, p:], res.fval
+        def value_and_grad(x):
+            f, (g_nn, g_b) = vg((x[:, :p], x[:, p:].reshape(b1.shape)))
+            return f, torch.cat([g_nn, g_b.flatten(1)], dim=1)
+
+        res = lbfgs_minimize(None, torch.cat([nn1, b1.flatten(1)], dim=1),
+                             max_iters=cfg.lbfgs_iters,
+                             value_and_grad=value_and_grad)
+        nn2, b2, objs = res.x[:, :p], res.x[:, p:].reshape(b1.shape), res.fval
     else:
+        # objectives from one evaluation of the training loss
         nn2, b2 = nn1, b1
-        objs = pmesh.sharded_screen(net, nn2, b2, cohort, split,
-                                    substeps=cfg.substeps)
+        objs = stages.value(nn2, b2)
     sync()
     t3 = time.perf_counter()
 
-    # -- re-rank with adaptive Tsit5 (K3) -------------------------------------
-    if cfg.final_eval_tsit5:
-        objs = pmesh.sharded_screen_tsit5(net, nn2, b2, cohort, split,
-                                          max_steps=cfg.max_steps)
+    # -- re-rank with adaptive Tsit5 ------------------------------------------
+    if cfg.final_eval_tsit5 and cfg.solver != "tsit5":
+        objs = stages.rerank(nn2, b2)
     sync()
     t4 = time.perf_counter()
-    # the value+grad kernel that ran: K2 on packed lanes, K5 above its limit,
-    # decided by a shard's own restarts
-    if lane_grad.takes_restart_kernel(nn0.shape[0] // shards, cohort.n):
-        refine_path = "cuda_k5" if cuda else "plain_k5"
-    else:
-        refine_path = "cuda_k2" if cuda else "plain"
-    screen_path = "cuda_k1" if cuda else "plain"
+    screen_path, refine_path = stages.paths(nn0.shape[0] // shards)
     if mesh is not None:
         screen_path += f"+mesh{shards}"
         refine_path += f"+mesh{shards}"
@@ -258,15 +273,118 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
               f"screen_path={timings['screen_path']} "
               f"refine_path={timings['refine_path']}", file=sys.stderr)
 
-    # the covariate model's gauge is taken at the cohort's mean age
-    mean_age = cohort.age.mean()
-    orients = production_orientations(model, nn2, age=mean_age)
     order = torch.argsort(torch.where(torch.isfinite(objs), objs, torch.inf),
                           stable=True)
-    return TrainResult(nn_params=nn2[order], betas=b2[order, :, None],
+    orients = None
+    if cfg.n_conditional == 1:
+        # the covariate model's gauge is taken at the cohort's mean age
+        orients = production_orientations(model, nn2,
+                                          age=cohort.age.mean())[order]
+    return TrainResult(nn_params=nn2[order],
+                       betas=b2[order].reshape(nn2.shape[0], cohort.n, -1),
                        objectives=objs[order], screen_losses=screen,
                        loss_traces=loss_trace[order],
-                       orientations=orients[order], timings=timings)
+                       orientations=orients, timings=timings)
+
+
+class _Stages(NamedTuple):
+    """A route's evaluations, each over rows split evenly over the
+    devices and gathered in order: ``screen(nn[G, P], b[G, N(, k)]) ->
+    [G]``; ``value_and_grad(x0)`` -> ``(nn, b) -> (f[R], (∇nn, ∇b))`` at
+    the shapes of ``x0``; ``loss((nn, b))``, the training loss after Adam;
+    ``value(nn, b)``, the objectives where L-BFGS takes no step;
+    ``rerank(nn, b)``, the Tsit5 objectives; ``paths(restarts of a
+    shard)``, the route's names."""
+
+    screen: Callable
+    value_and_grad: Callable
+    loss: Callable
+    value: Callable
+    rerank: Callable
+    paths: Callable
+
+
+def _kernel_stages(model: CPeptideModel, cohort: Cohort, cfg: TrainConfig,
+                   devices) -> _Stages:
+    """K1 screens, K2 (K5) refines, K3 re-ranks; each shard on its device
+    (``parallel/mesh.py``)."""
+    net, cuda = model.net, cohort.device.type == "cuda"
+    split = pmesh.make_mesh(("restarts",), devices=devices)
+    pop_vg = pmesh.sharded_population_vg(
+        net, pmesh.cohort_args(cohort, model.with_age), split,
+        substeps=cfg.substeps)
+
+    def screen(nn, b, chunk=None if cuda else cfg.screen_chunk):
+        return pmesh.sharded_screen(net, nn, b, cohort, split,
+                                    substeps=cfg.substeps, chunk=chunk)
+
+    def vg(x):
+        f, g_nn, g_b = pop_vg(*x)
+        return f, (g_nn, g_b)
+
+    def paths(restarts):
+        # the value+grad kernel that ran: K2 on packed lanes, K5 above its
+        # limit, decided by a shard's own restarts
+        if lane_grad.takes_restart_kernel(restarts, cohort.n):
+            refine = "cuda_k5" if cuda else "plain_k5"
+        else:
+            refine = "cuda_k2" if cuda else "plain"
+        return ("cuda_k1" if cuda else "plain"), refine
+
+    return _Stages(
+        screen=screen, value_and_grad=lambda _: vg,
+        loss=lambda x: lane_grad.PopulationSSE.apply(*x, pop_vg),
+        value=lambda nn, b: screen(nn, b, chunk=None),
+        rerank=lambda nn, b: pmesh.sharded_screen_tsit5(
+            net, nn, b, cohort, split, max_steps=cfg.max_steps),
+        paths=paths)
+
+
+def _generic_stages(model: CPeptideModel, cohort: Cohort, cfg: TrainConfig,
+                    devices) -> _Stages:
+    """The plain batched ``population_sse`` at ``cfg.solver`` (the JAX
+    package's ``xla_vmap`` screen and ``xla_reverse_ad`` refinement): the
+    screen in chunks of ``screen_chunk`` on the CPU, autograd for the
+    refinement, the plain Tsit5 for the re-rank; each shard on its device
+    with its own copy of the cohort."""
+    dev = cohort.device
+    cohorts = [cohort if d == dev else pmesh.cohort_to(cohort, d)
+               for d in devices]
+    train_kw = dict(solver=cfg.solver, substeps=cfg.substeps,
+                    max_steps=cfg.max_steps)
+
+    def losses(**kw):
+        """``(nn[R, P], b[R, N(, k)]) -> [R]``, one a shard."""
+        return [lambda x, c=c: population_sse(model, x[0][:, None, :], x[1],
+                                              c, **kw)
+                for c in cohorts]
+
+    def values(**kw):
+        value = pmesh.shard_value(losses(**kw), devices)
+        return lambda nn, b: value((nn, b))
+
+    def screen(nn, b):
+        outs = []
+        with torch.no_grad():
+            for nn_k, b_k, loss in zip(pmesh.split(nn, devices),
+                                       pmesh.split(b, devices),
+                                       losses(**train_kw)):
+                step = (nn_k.shape[0] if dev.type == "cuda"
+                        else max(1, cfg.screen_chunk))
+                outs.append(torch.cat([
+                    loss((nn_k[i:i + step], b_k[i:i + step]))
+                    for i in range(0, nn_k.shape[0], step)]))
+        return pmesh.gather(outs, dev)
+
+    value = values(**train_kw)
+    return _Stages(
+        screen=screen,
+        value_and_grad=lambda x0: pmesh.shard_value_and_grad(
+            losses(**train_kw), x0, devices,
+            lambda fun, _: _autograd_vg(fun)),
+        loss=lambda x: value(*x), value=value,
+        rerank=values(solver="tsit5", max_steps=cfg.max_steps),
+        paths=lambda restarts: ("torch_batched", "autograd"))
 
 
 class UDETrainResult(NamedTuple):
@@ -285,14 +403,16 @@ def train_ude(model: CPeptideModel, individual: Cohort, data,
               adam_lr: float = 1e-2, substeps: int = 8,
               screen_chunk: int = 4096,
               generator: torch.Generator | None = None,
-              designs=None) -> UDETrainResult:
+              designs=None, solver: str = "rk4",
+              max_steps: int = 256) -> UDETrainResult:
     """The UDE head's network fitted to one series
     (``src/parameter-estimation.jl:211-247``), on ``individual.device``.
 
     ``individual`` is one row (``build_individual``) and ``data[T]`` its
     c-peptide on ``individual.timepoints``.  ``initial_guesses`` Glorot
     designs from ``generator`` (or ``designs[G, P]``, e.g. the JAX
-    package's ``init_batch``) are screened by RK4 SSE at ``substeps``; the
+    package's ``init_batch``) are screened by the SSE at ``solver`` (RK4
+    at ``substeps``, or Tsit5 of at most ``max_steps`` steps); the
     ``selected_initials`` best are refined by Adam, then L-BFGS, every
     restart a row.
     """
@@ -312,8 +432,8 @@ def train_ude(model: CPeptideModel, individual: Cohort, data,
     nn_inits = nn_inits.to(dev)
 
     def loss(nn: torch.Tensor) -> torch.Tensor:
-        return sse(model, nn[:, None, :], None, series,
-                   substeps=substeps)[:, 0]
+        return sse(model, nn[:, None, :], None, series, substeps=substeps,
+                   solver=solver, max_steps=max_steps)[:, 0]
 
     def sync():
         if dev.type == "cuda":
@@ -349,12 +469,14 @@ def _initial(initial_beta, cohort: Cohort) -> torch.Tensor:
 
 def fit_betas(model: CPeptideModel, nn_params: torch.Tensor, cohort: Cohort,
               initial_beta=-2.0, bounds=(-4.0, 1.0), lbfgs_iters: int = 1000,
-              substeps: int = 8):
+              substeps: int = 8, solver: str = "rk4", max_steps: int = 256):
     """Per-individual bounded β re-estimation with the network frozen.
 
     ``nn_params[..., P]`` broadcasts against ``[..., N, P]`` and
-    ``initial_beta`` against ``[..., N]``.  Returns ``(betas, objectives)``
-    of that batch shape.
+    ``initial_beta`` against ``[..., N]``.  The SSE is RK4's at
+    ``substeps`` or Tsit5's of at most ``max_steps`` steps
+    (``solver="tsit5"``).  Returns ``(betas, objectives)`` of that batch
+    shape.
     """
     b0 = _initial(initial_beta, cohort)
     batch = b0.shape
@@ -363,7 +485,8 @@ def fit_betas(model: CPeptideModel, nn_params: torch.Tensor, cohort: Cohort,
 
     def loss(x):
         return sse(model, nn_params, x.reshape(batch), cohort,
-                   substeps=substeps).reshape(-1)
+                   substeps=substeps, solver=solver,
+                   max_steps=max_steps).reshape(-1)
 
     res = lbfgs_minimize(loss, b0.reshape(-1, 1),
                          lower=torch.tensor([lb], **opts),
@@ -374,8 +497,10 @@ def fit_betas(model: CPeptideModel, nn_params: torch.Tensor, cohort: Cohort,
 
 def fit_betas_sigma(model: CPeptideModel, nn_params: torch.Tensor,
                     cohort: Cohort, initial_beta=-2.0, bounds=(-4.0, 1.0),
-                    lbfgs_iters: int = 1000, substeps: int = 8):
-    """(β, σ) re-estimation by the Gaussian NLL; initial σ 1.0.
+                    lbfgs_iters: int = 1000, substeps: int = 8,
+                    solver: str = "rk4", max_steps: int = 256):
+    """(β, σ) re-estimation by the Gaussian NLL; initial σ 1.0; the solver
+    as :func:`fit_betas`'.
 
     σ is floored at 1e-6: the NLL is even in σ, and the positive floor
     keeps the optimizer on the positive one of two equal minima.  Returns
@@ -387,7 +512,8 @@ def fit_betas_sigma(model: CPeptideModel, nn_params: torch.Tensor,
 
     def loss(x):
         return sse_sigma(model, nn_params, x[:, 0], x[:, 1], cohort,
-                         substeps=substeps)
+                         substeps=substeps, solver=solver,
+                         max_steps=max_steps)
 
     res = lbfgs_minimize(loss, torch.stack([b0, torch.ones_like(b0)], -1),
                          lower=torch.tensor([lb, 1e-6], **opts),
@@ -398,16 +524,19 @@ def fit_betas_sigma(model: CPeptideModel, nn_params: torch.Tensor,
 
 def evaluate_model(model: CPeptideModel, candidates_nn: torch.Tensor,
                    betas_train: torch.Tensor, cohort: Cohort,
-                   lbfgs_iters: int = 1000, substeps: int = 8) -> torch.Tensor:
+                   lbfgs_iters: int = 1000, substeps: int = 8,
+                   solver: str = "rk4", max_steps: int = 256) -> torch.Tensor:
     """Validation objectives ``[R, N_valid]`` for model selection: for each
     candidate network ``candidates_nn[R, P]``, an unbounded β fit on every
-    validation individual, started from the mean of that candidate's
-    training β's (``betas_train[R, N_train(, 1)]``)."""
+    validation individual (the solver as :func:`fit_betas`'), started from
+    the mean of that candidate's training β's (``betas_train[R,
+    N_train(, 1)]``)."""
     init = betas_train.reshape(betas_train.shape[0], -1).mean(1)
     _, objectives = fit_betas(
         model, candidates_nn[:, None, :], cohort,
         initial_beta=init[:, None].expand(-1, cohort.n),
-        bounds=(-_BIG, _BIG), lbfgs_iters=lbfgs_iters, substeps=substeps)
+        bounds=(-_BIG, _BIG), lbfgs_iters=lbfgs_iters, substeps=substeps,
+        solver=solver, max_steps=max_steps)
     return objectives
 
 

@@ -8,8 +8,9 @@ with ΔG(t) = glucose(t) − glucose(0) from linear interpolation of the
 measured glucose, and the steady state u0 = [c0, (k2/k1)·c0].  The heads:
 
 * ``"conditional"``: NN([ΔG, e^β]) − NN([0, e^β]), one β per individual;
-* ``"conditional_covariate"`` (experiment 07): the age as a third input,
-  NN([ΔG, e^β, age]) − NN([0, e^β, age]);
+  with k conditional parameters NN([ΔG, e^β₁…e^β_k]) − NN([0, e^β₁…e^β_k]);
+* ``"conditional_covariate"`` (experiment 07): the age as the last input,
+  NN([ΔG, e^β, age]) − NN([0, e^β, age]) (k β's as above);
 * ``"ude"`` (experiment 01): NN([ΔG]) − NN([0]), nothing per individual;
 * ``"analytic"`` (the symbolic refits): ``fn(ΔG, θ)``, one scalar θ per
   individual (the Michaelis constant k, the gate b).
@@ -17,7 +18,9 @@ measured glucose, and the steady state u0 = [c0, (k2/k1)·c0].  The heads:
 A cohort is a set of tensors with the individual axis last.  The lane
 tensor of a head (β, or θ) may carry leading batch axes (candidate
 networks, profile grid points) in front of it; the UDE head's lanes carry
-only the batch shape.
+only the batch shape.  With k > 1 conditional parameters the β's of a lane
+are a trailing axis, ``betas[..., N, k]``; at k = 1 the lanes are
+``betas[..., N]``.
 """
 
 from __future__ import annotations
@@ -124,18 +127,20 @@ def build_individual(glucose, glucose_t, age, c0, t2dm,
                   c0=torch.as_tensor(np.float32(c0), **f32).reshape(1))
 
 
-# the network's input count of each production head (the analytic head has
-# no network)
+# the network's input count of each production head at one conditional
+# parameter (the analytic head has no network); a conditional head with k
+# reads k − 1 more, one e^β each
 KINDS = {"analytic": 0, "ude": 1, "conditional": 2,
          "conditional_covariate": 3}
 
 
 @dataclasses.dataclass(frozen=True)
 class CPeptideModel:
-    """Kinetics plus a production head: ``net([ΔG, e^β])``
-    (``kind="conditional"``), ``net([ΔG, e^β, age])``
-    (``kind="conditional_covariate"``), ``net([ΔG])`` (``kind="ude"``) or
-    ``analytic_fn(ΔG, θ)`` (``kind="analytic"``, no network)."""
+    """Kinetics plus a production head: ``net([ΔG, e^β₁…e^β_k])``
+    (``kind="conditional"``, a 1 + k-input network), ``net([ΔG,
+    e^β₁…e^β_k, age])`` (``kind="conditional_covariate"``, 2 + k inputs),
+    ``net([ΔG])`` (``kind="ude"``) or ``analytic_fn(ΔG, θ)``
+    (``kind="analytic"``, no network)."""
 
     net: MLP | None
     kind: str = "conditional"
@@ -150,25 +155,44 @@ class CPeptideModel:
             if self.analytic_fn is None or self.net is not None:
                 raise ValueError("the analytic head takes analytic_fn and "
                                  "no network")
-        elif self.net is None or self.net.input_dims != KINDS[self.kind]:
-            raise ValueError(
-                f"a {self.kind!r} model needs a {KINDS[self.kind]}-input "
-                f"network, got "
-                f"{None if self.net is None else self.net.input_dims}")
+        else:
+            need = KINDS[self.kind]
+            got = None if self.net is None else self.net.input_dims
+            if self.kind == "ude" and got != need:
+                raise ValueError(f"a 'ude' model needs a 1-input network, "
+                                 f"got {got}")
+            if got is None or got < need:
+                raise ValueError(
+                    f"a {self.kind!r} model needs a network of at least "
+                    f"{need} inputs, got {got}")
 
     @property
     def with_age(self) -> bool:
-        """Whether the network takes the age as its third input."""
+        """Whether the network takes the age as its last input."""
         return self.kind == "conditional_covariate"
+
+    @property
+    def n_conditional(self) -> int:
+        """k, the conditional parameters of an individual (the e^β inputs
+        of the network); 0 for the UDE and analytic heads."""
+        if self.kind in ("ude", "analytic"):
+            return 0
+        return self.net.input_dims - KINDS[self.kind] + 1
+
+    def lane_shape(self, betas: torch.Tensor) -> torch.Size:
+        """The lanes' shape ``[..., N]`` of ``betas``: without the trailing
+        axis of k > 1 conditional parameters."""
+        return betas.shape[:-1] if self.n_conditional > 1 else betas.shape
 
     def production(self, nn_params: torch.Tensor | None, betas: torch.Tensor,
                    age=None):
-        """``prod(dg)`` of the head for the lanes ``betas[..., N]``:
-        NN([ΔG, e^β(, age)]) − NN([0, e^β(, age)]), NN([ΔG]) − NN([0]) (the
-        UDE head reads only the lanes' shape) or ``analytic_fn(ΔG, θ)`` with
-        θ the lanes.  The baseline and e^β are computed once, outside the
-        time loop.  ``age`` (broadcast against ``betas``) is required by the
-        covariate model and ignored otherwise."""
+        """``prod(dg)`` of the head for the lanes ``betas[..., N]`` (or
+        ``[..., N, k]``): NN([ΔG, e^β(, age)]) − NN([0, e^β(, age)]),
+        NN([ΔG]) − NN([0]) (the UDE head reads only the lanes' shape) or
+        ``analytic_fn(ΔG, θ)`` with θ the lanes.  The baseline and e^β are
+        computed once, outside the time loop.  ``age`` (broadcast against
+        the lanes) is required by the covariate model and ignored
+        otherwise."""
         if self.kind == "analytic":
             return lambda dg: self.analytic_fn(dg, betas)
         extra = []
@@ -179,12 +203,22 @@ class CPeptideModel:
                 raise ValueError("the covariate model needs the age")
             extra.append(torch.as_tensor(age, dtype=betas.dtype,
                                          device=betas.device))
+        k = self.n_conditional
+        lane_shape = self.lane_shape(betas)
 
         def net(dg: torch.Tensor) -> torch.Tensor:
-            dg, _, *x = torch.broadcast_tensors(dg, betas, *extra)
-            return self.net.scalar(nn_params, torch.stack([dg, *x], dim=-1))
+            if k <= 1:
+                dg, _, *x = torch.broadcast_tensors(dg, betas, *extra)
+                return self.net.scalar(nn_params,
+                                       torch.stack([dg, *x], dim=-1))
+            # the k e^β's are a trailing axis of their own
+            shape = torch.broadcast_shapes(dg.shape, lane_shape,
+                                           *(a.shape for a in extra[1:]))
+            cols = [dg.expand(shape)[..., None], extra[0].expand(*shape, k),
+                    *(a.expand(shape)[..., None] for a in extra[1:])]
+            return self.net.scalar(nn_params, torch.cat(cols, dim=-1))
 
-        base = net(torch.zeros_like(betas))
+        base = net(betas.new_zeros(lane_shape))
 
         def prod(dg: torch.Tensor) -> torch.Tensor:
             return net(dg) - base
@@ -193,7 +227,8 @@ class CPeptideModel:
 
     def vector_field(self, nn_params: torch.Tensor, betas: torch.Tensor,
                      cohort: Cohort, times):
-        """``f(t, y[..., N, 2])`` for ``betas[..., N]`` and network
+        """``f(t, y[..., N, 2])`` for ``betas[..., N]`` (or ``[..., N, k]``)
+        and network
         ``nn_params[..., P]`` (broadcast against ``[..., N, P]``).
 
         ``times`` lists every time ``f`` will be called at.  The production
@@ -206,7 +241,8 @@ class CPeptideModel:
         glucose = LinearInterp(cohort.timepoints, cohort.glucose)
         # ΔG is measured from absolute t = 0, not from the first knot
         dg = glucose(times) - glucose(0.0)[:, None]          # [N, U]
-        dg = dg.T.reshape(len(times), *[1] * (betas.ndim - 1), cohort.n)
+        dg = dg.T.reshape(len(times), *[1] * (len(self.lane_shape(betas))
+                                              - 1), cohort.n)
         table = self.production(nn_params, betas, cohort.age)(dg)  # [U, ..., N]
         decay = -(cohort.k0 + cohort.k2)
         inflow = cohort.k0 * cohort.c0
@@ -278,7 +314,7 @@ def simulate_cohort(model: CPeptideModel, nn_params: torch.Tensor | None,
     saveat = cohort.timepoints if saveat is None else saveat
     betas = lanes(nn_params, betas, cohort)
     t0 = cohort.timepoints[0]
-    batch = torch.broadcast_shapes(betas.shape, (cohort.n,))
+    batch = torch.broadcast_shapes(model.lane_shape(betas), (cohort.n,))
     y0 = cohort.u0.to(betas.dtype).expand(*batch, 2)
     if solver == "tsit5":
         f = model.vector_field_lanes(nn_params, betas, cohort)
@@ -301,7 +337,9 @@ def simulate(model: CPeptideModel, nn_params: torch.Tensor | None, betas,
     if individual.n != 1:
         raise ValueError(f"simulate takes one individual, got {individual.n}")
     if betas is not None:
-        betas = lanes(nn_params, betas, individual)[..., None]
+        # the individual axis goes in front of the k β's (k > 1)
+        betas = lanes(nn_params, betas, individual).unsqueeze(
+            -2 if model.n_conditional > 1 else -1)
     res = simulate_cohort(model, nn_params, betas, individual, saveat,
                           solver=solver, **solver_kwargs)
     return SolveResult(ys=res.ys[..., 0, :, :], success=res.success[..., 0])

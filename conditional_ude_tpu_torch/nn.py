@@ -47,11 +47,20 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return _Softplus.apply(x)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation
+    ``x·½(1 + tanh(√(2/π)(x + 0.044715x³)))``; the exact erf form differs
+    from it."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh": torch.tanh,
     "relu": torch.relu,
     "softplus": softplus,
     "identity": lambda x: x,
+    "gelu": gelu,
+    "sigmoid": torch.sigmoid,
 }
 
 

@@ -136,6 +136,12 @@ def pad_cohort(cohort: Cohort, multiple: int) -> Cohort:
         for f in _row_fields(cohort)})
 
 
+def cohort_to(cohort: Cohort, device: torch.device) -> Cohort:
+    """A copy of ``cohort`` on ``device``."""
+    return dataclasses.replace(cohort, **{
+        f: getattr(cohort, f).to(device) for f in _row_fields(cohort)})
+
+
 def gather(parts: Sequence[torch.Tensor], device: torch.device,
            dim: int = 0) -> torch.Tensor:
     """The shards' results concatenated in shard order on ``device``."""
@@ -226,13 +232,15 @@ class ShardedCohort:
         return [p.to(s.device) for p, s in zip(parts, self.shards)]
 
     def map(self, fn: Callable, lanes: torch.Tensor,
-            nn_params: torch.Tensor | None = None) -> torch.Tensor:
+            nn_params: torch.Tensor | None = None,
+            dim: int = -1) -> torch.Tensor:
         """``fn(shard, lanes_k, nn_params)`` on every shard, its lanes
-        ``[..., N]`` split on the last axis and ``nn_params`` (shared by the
-        individuals) copied to its device; gathered on the last axis."""
+        ``[..., N]`` split on the individual axis ``dim`` (−2 for
+        ``[..., N, k]``) and ``nn_params`` (shared by the individuals)
+        copied to its device; gathered on the last axis."""
         outs = [fn(s, b, None if nn_params is None
                    else nn_params.to(s.device))
-                for s, b in zip(self.shards, self.split(lanes, -1))]
+                for s, b in zip(self.shards, self.split(lanes, dim))]
         return gather(outs, self.device, dim=-1)
 
 
@@ -402,7 +410,8 @@ def sharded_beta_profiles(model, nn_params: torch.Tensor, cohort: Cohort,
                           require_kernel: bool = False,
                           lower: float = -4.0, upper: float = 1.0,
                           steps: int = 10_000, chunk: int = 500,
-                          substeps: int = 8, solver: str = "rk4"):
+                          substeps: int = 8, solver: str = "rk4",
+                          **solver_kwargs):
     """Every individual's β-profile with the individuals split over
     ``axis_name`` (``mesh.py:236-333``): the cohort, the σ's and the centres
     are padded to the axis, each shard scans the full grid in chunks of
@@ -410,9 +419,9 @@ def sharded_beta_profiles(model, nn_params: torch.Tensor, cohort: Cohort,
     is gathered on the first device.
 
     As ``cohort_beta_profiles``, K4 (K4c for the covariate model) runs
-    where it computes the model, else the batched RK4 or Tsit5 scan;
-    ``require_kernel=True`` raises ``ValueError`` for a model the kernel
-    cannot compute."""
+    where it computes the model, else the batched RK4 or Tsit5 scan (at
+    ``solver_kwargs``' rtol, atol, max_steps); ``require_kernel=True``
+    raises ``ValueError`` for a model the kernel cannot compute."""
     from conditional_ude_tpu_torch.analysis.profiles import (
         Profile,
         cohort_beta_profiles,
@@ -429,7 +438,8 @@ def sharded_beta_profiles(model, nn_params: torch.Tensor, cohort: Cohort,
                                   sigmas=s, lower=lower, upper=upper,
                                   steps=steps, chunk=chunk, center=m,
                                   substeps=substeps, solver=solver,
-                                  require_kernel=require_kernel)
+                                  require_kernel=require_kernel,
+                                  **solver_kwargs)
              for c, s, m in zip(sharded.shards, sharded.split(sig, 0),
                                 sharded.split(ctr, 0))]
     values = gather([p.values for p in profs], sharded.device)[:n]

@@ -390,11 +390,14 @@ def test_params_from_jax_takes_the_covariate_candidates():
 
 
 def test_mismatched_kind_or_kinetics_width_raises():
-    """A kind must match the network's input count, and every kernel wrapper
-    refuses a kinetics width that does not match it, in either direction
+    """A kind must match the network's input count (a conditional network
+    with one input more reads two β's), and every kernel wrapper refuses a
+    kinetics width that does not match it, in either direction
     (``tests/test_pallas_covariate.py:126-137``)."""
     with pytest.raises(ValueError):
-        cp.CPeptideModel(chain(4, 2, input_dims=3))
+        cp.CPeptideModel(chain(4, 2, input_dims=1))
+    assert cp.CPeptideModel(chain(4, 2, input_dims=3)).n_conditional == 2
+    assert cp.CPeptideModel(chain(4, 2, input_dims=3), KIND).n_conditional == 1
     with pytest.raises(ValueError):
         cp.CPeptideModel(chain(4, 2), KIND)
     with pytest.raises(ValueError):

@@ -152,6 +152,9 @@ def test_config_defaults_match_the_jax_package():
 
 
 def test_raises_for_what_the_kernels_do_not_take():
+    """What the kernels do not take trains on the generic route; what no
+    route takes raises: a network whose inputs do not read n_conditional
+    β's, or a head that is not conditional."""
     train, _ = load_npz("artifacts/ohashi.npz")
     s = train.subset(np.arange(3))
     pc = build_cohort(s.glucose, s.timepoints, s.cpeptide, s.ages, s.t2dm,
@@ -160,18 +163,26 @@ def test_raises_for_what_the_kernels_do_not_take():
                              adam_iters=1, lbfgs_iters=0)
     for model, c in (
             (CPeptideModel(chain(4, 2)), dataclasses.replace(cfg, n_conditional=2)),
+            (CPeptideModel(chain(4, 2, input_dims=1), "ude"), cfg)):
+        with pytest.raises(ValueError):
+            ptrain.train_conditional(model, pc, c, seed=1)
+    for model, c in (
+            (CPeptideModel(chain(4, 2, input_dims=3)),
+             dataclasses.replace(cfg, n_conditional=2)),
             (CPeptideModel(chain(4, 2)), dataclasses.replace(cfg, solver="tsit5")),
             (CPeptideModel(chain(8, 2)), cfg)):
-        with pytest.raises(NotImplementedError):
-            ptrain.train_conditional(model, pc, c, seed=1)
-    # a kind that does not match the network's input count cannot be built;
-    # the covariate model, whose kind does, trains
+        res = ptrain.train_conditional(model, pc, c, seed=1)
+        assert res.timings["refine_path"] == "autograd"
+        assert res.betas.shape == (2, 3, c.n_conditional)
+    # a kind whose network has too few inputs cannot be built; the
+    # covariate model, whose kind reads the age, trains on the kernels
     with pytest.raises(ValueError):
-        CPeptideModel(chain(4, 2, input_dims=3))
+        CPeptideModel(chain(4, 2, input_dims=1))
     with pytest.raises(ValueError):
         CPeptideModel(chain(4, 2), "conditional_covariate")
     res = ptrain.train_conditional(
         CPeptideModel(chain(4, 2, input_dims=3), "conditional_covariate"), pc,
         cfg, seed=1)
+    assert res.timings["refine_path"] == "plain"
     assert res.nn_params.shape == (2, 41) and res.betas.shape == (2, 3, 1)
     assert torch.isfinite(res.screen_losses).any()
