@@ -223,7 +223,24 @@
     frozen's limits (β 1e-2, σ 2e-2 relative) is printed.  A's best
     objective may also reach the worst of JAX's runs from u0 one ulp away.
     No kernel may launch.
-    12-26 are bound by the host, so they run in seven child processes (this
+27. runs every experiment at ``--smoke`` (the JAX scripts' CI sizes, as on
+    a clean checkout: ``SMOKE_RUNS``), each in a process of its own through
+    the entry point (``python -m conditional_ude_tpu_torch --experiment
+    NAME --smoke --device cuda --out DIR``), and the replication runner at
+    ``--smoke`` over exp01 at two seeds, in four groups after exp02_seeds,
+    the replication driver, the generic route and the ETL path in their
+    children.  Each must exit 0,
+    have the metric keys of the JAX script's own smoke run
+    (``scripts/smoke_reference.json``, made by
+    ``scripts/smoke_reference.py`` on the CPU) but the timers, its
+    draw-free values within the CPU tests' tolerances
+    (``smoke_reference.check``: the symbolic refits whole, the counts), and
+    launch the kernels its stages reach, read from the ``{"launches":
+    ...}`` line it prints, and no other: K1-K3 in the trainings (exp02,
+    exp02_xl, exp02_seeds, exp05, exp06's pre-train), K4 in the profiles,
+    the census and SAEM, K1c-K4c in exp07, K2 at 4 substeps exactly 100
+    times and K4 once in exp_advi, none in the rest.
+    12-27 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -1531,14 +1548,18 @@ def main() -> None:
 # (K1-K4, K4c) after exp01's retrains at two seeds, the child that ended
 # first, and the ETL path (K2 in its section-3 stage) after the symbolic
 # refits, the child that ended first after that, and the generic route (no
-# kernel) after exp_symreg_search, the child that ended first after that
-SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04", "etl"),
+# kernel) after exp_symreg_search, the child that ended first after that,
+# and the experiments at --smoke in four groups after exp02_seeds, the
+# replication driver, the generic route and the ETL path, the four children
+# that ended first after that, each group sized to end by ~850 s
+SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04", "etl",
+         "smoke 4"),
         ("exp_symreg_production", "exp_advi", "exp_suppression",
-         "exp_symreg_search", "generic"),
+         "exp_symreg_search", "generic", "smoke 3"),
         (*(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
          "exp_figures", "mesh"),
-        ("exp02_seeds",),
-        ("exp05", "replicate"),
+        ("exp02_seeds", "smoke 1"),
+        ("exp05", "replicate", "smoke 2"),
         ("exp06", "exp06a"),
         ("exp06 retrain, seed 11", "exp06b"))
 SIDE_WAIT = 1150.0       # seconds from the start by which the children end
@@ -1874,6 +1895,135 @@ GENERIC_SIGMA_RTOL = 2e-2
 GENERIC_STAGES = ("A", "B", "C fit", "C evaluate")
 
 
+# the experiments at --smoke (27.), each in a process of its own: (name,
+# its arguments beside --smoke, the kernels it must launch, as a set, or
+# their exact launch counts), in four groups (seconds on an NVIDIA H100
+# 80GB HBM3 at 700 W beside the other children, with the runs in two
+# groups: exp02 68 s, exp07 74, exp02_xl 101, exp01 25, replicate 61,
+# exp06a 46; exp02_seeds 120, exp05 111, exp06 64; exp_symreg_production
+# 131, exp_advi 13, exp_suppression 32, exp06b 38; exp03 69, exp04 75)
+K1, K2, K3, K4 = "rk4_population", "lane_grad", "tsit5_cohort", "rk4_cohort"
+TRAIN_KERNELS = frozenset({K1, K2, K3})
+SMOKE_RUNS = {
+    "smoke 1": (
+        ("exp02", (), TRAIN_KERNELS | {K4}),
+        ("exp07", (), frozenset(k + " (3-input)" for k in (K1, K2, K3, K4))),
+        ("exp02_xl", (), TRAIN_KERNELS),
+        ("exp01", (), frozenset()),
+        ("replicate", ("--experiment", "exp01", "--seeds", "11", "22"),
+         frozenset()),
+        ("exp06a", (), frozenset())),
+    "smoke 2": (
+        ("exp02_seeds", ("--seeds", "11", "22"), TRAIN_KERNELS),
+        ("exp05", (), TRAIN_KERNELS),
+        ("exp06", (), TRAIN_KERNELS | {K4})),
+    "smoke 3": (
+        ("exp_symreg_production", (), frozenset()),
+        # 50 joint and 50 test steps, one K2 launch each; the 200-point
+        # profile, one K4 chunk
+        ("exp_advi", (), {K2: 100, K4: 1}),
+        ("exp_suppression", (), frozenset()),
+        ("exp06b", (), frozenset())),
+    "smoke 4": (
+        ("exp03", (), frozenset()),
+        ("exp04", (), frozenset())),
+}
+
+
+def smoke_reference():
+    """``scripts/smoke_reference.py`` (its ``check``) and its JSON."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import smoke_reference as ref
+    return ref, json.loads(ref.OUT.read_text())
+
+
+def run_smoke_path(dev, group: str):
+    """The experiments of ``SMOKE_RUNS[group]`` at ``--smoke`` through the
+    entry points, each in a process of its own on ``dev``, their outputs
+    under ``build/chip_smoke_smoke``: for each, its exit code, seconds,
+    metrics (a ``(name, metrics)`` list: exp02_seeds' last record, then its
+    merge) and the launches its processes printed."""
+    import shutil
+    from types import SimpleNamespace
+    root = REPO / "build" / "chip_smoke_smoke"
+    runs, seconds = {}, {}
+    for name, extra, _ in SMOKE_RUNS[group]:
+        out = root / name
+        shutil.rmtree(out, ignore_errors=True)
+        if name == "replicate":
+            cmds = [["-m", "conditional_ude_tpu_torch.replicate", *extra,
+                     "--out", str(out), "--smoke", "--", "--device",
+                     str(dev)]]
+        else:
+            base = ["-m", "conditional_ude_tpu_torch", "--experiment", name,
+                    "--smoke", "--out", str(out)]
+            cmds = [[*base, "--device", str(dev), *extra]]
+            if name == "exp02_seeds":
+                cmds.append([*base, "--merge"])
+        t0 = time.perf_counter()
+        rc, printed, launched = 0, [], []
+        for cmd in cmds:
+            proc = subprocess.run([sys.executable, *cmd], cwd=REPO,
+                                  capture_output=True, text=True,
+                                  timeout=600)
+            (root / f"{name}.log").parent.mkdir(parents=True, exist_ok=True)
+            with (root / f"{name}.log").open("a") as f:
+                f.write(proc.stderr)
+            rc = rc or proc.returncode
+            lines = proc.stdout.strip().splitlines()
+            if lines and proc.returncode == 0:
+                printed.append(json.loads(lines[-1]))
+            launched += [json.loads(line)["launches"] for line in
+                         proc.stderr.splitlines()
+                         if line.startswith('{"launches"')]
+        seconds[name] = time.perf_counter() - t0
+        if name == "replicate" and rc == 0:
+            printed = [json.loads((out / "smoke" / "replicate_exp01.json")
+                                  .read_text())]
+        total = {}
+        for counts in launched:
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        runs[name] = {"rc": rc, "metrics": printed, "launches": total,
+                      "processes": len(launched)}
+        log(f"[smoke] {name}: exit {rc}, {seconds[name]:.2f} s, launches "
+            f"{total or 'none'}")
+    return SimpleNamespace(group=group, runs=runs, seconds=seconds)
+
+
+def check_smoke_path(res) -> list[str]:
+    """Each run of the group ended, has the JAX smoke run's keys and
+    draw-free values, and launched its kernels and no other."""
+    ref, reference = smoke_reference()
+    failures = []
+    for name, extra, kernels in SMOKE_RUNS[res.group]:
+        got = res.runs[name]
+        if got["rc"] != 0:
+            failures.append(f"{name}: exit {got['rc']}")
+            continue
+        names = {"exp02_seeds": ("exp02_seeds", "exp02_seeds_merge")}.get(
+            name, (name,))
+        for key, metrics in zip(names, got["metrics"]):
+            failures += ref.check(key, metrics, reference[key])
+        if len(got["metrics"]) != len(names):
+            failures.append(f"{name}: printed no metrics")
+        # exp02_seeds runs its seeds then the merge, the replication runner
+        # a process a seed; each prints its launches
+        want_processes = {"exp02_seeds": 2, "replicate": 2}.get(name, 1)
+        if got["processes"] != want_processes:
+            failures.append(f"{name}: {got['processes']} launch lines, "
+                            f"want {want_processes}")
+        launched = got["launches"]
+        if isinstance(kernels, dict):
+            if launched != kernels:
+                failures.append(f"{name} launched {launched}, must launch "
+                                f"exactly {kernels}")
+        elif set(launched) != set(kernels):
+            failures.append(f"{name} launched {launched or 'none'}; it must "
+                            f"launch {sorted(kernels)} and nothing else")
+    return failures
+
+
 def new_paths(dev):
     """Name -> (run, check, the kernels it must launch) of each path beside
     the main one; every other kernel must launch 0 times."""
@@ -1923,6 +2073,8 @@ def new_paths(dev):
                 frozenset({"lane_grad"})),
         "generic": (lambda: run_generic_path(dev), check_generic_path,
                     none),
+        **{group: (lambda group=group: run_smoke_path(dev, group),
+                   check_smoke_path, none) for group in SMOKE_RUNS},
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
                    lambda res: check_saem_spread(res.metrics, "exp06a"), none),
         "exp06b": (lambda: run_exp06b(dev, ARTIFACTS),

@@ -22,3 +22,23 @@ The package never imports ``jax`` or ``conditional_ude_tpu``.
 """
 
 __version__ = "0.1.0"
+
+
+def lazy_exports(package: str, modules: dict[str, list[str]]):
+    """``(__all__, __getattr__, __dir__)`` of a subpackage whose public
+    names live in its ``modules`` (module → names) and are imported at
+    their first use, so that the subpackages, which import one another's
+    modules, import in any order."""
+    import importlib
+
+    where = {name: mod for mod, names in modules.items() for name in names}
+    names = sorted(where, key=str.lower)
+
+    def __getattr__(name: str):
+        if name not in where:
+            raise AttributeError(f"module {package!r} has no attribute "
+                                 f"{name!r}")
+        return getattr(importlib.import_module(f"{package}.{where[name]}"),
+                       name)
+
+    return names, __getattr__, lambda: names

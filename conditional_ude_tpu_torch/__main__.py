@@ -26,6 +26,22 @@
     python -m conditional_ude_tpu_torch --experiment exp_parity --data-dir D [--weights W] [--smoke]
     python -m conditional_ude_tpu_torch --out runs/exp02   # also write the metrics and outputs there
     python -m conditional_ude_tpu_torch --device cpu    # the plain versions, on the CPU
+    python -m conditional_ude_tpu_torch --experiment exp07 --smoke --out runs/ci   # any experiment at its CI sizes
+
+``--experiment exp07``, ``exp02_xl`` and ``exp_symreg_production`` name
+the JAX scripts: they are ``--covariate``, ``--xl`` and
+``symreg_production``.
+
+``--smoke`` runs an experiment at the JAX script's ``--smoke`` sizes (its CI
+mode) as it runs on a clean checkout, whose ``artifacts/smoke/`` holds
+nothing: the first 8 subjects of each split (exp04: 4 Fujita subjects;
+exp05 the whole cohorts), tiny multi-starts and step counts, and training
+wherever the JAX script would train into that empty cache (exp01, exp02,
+exp07, exp02_xl, exp02_seeds, exp06's pre-train).  exp_advi takes the JAX
+script's fallback for its missing candidates, two Glorot networks at β = −1;
+exp02's outputs leave out the UDE comparison, whose weights are missing.
+Its outputs go to ``DIR/smoke`` of ``--out DIR``.  Every experiment but
+exp00 has it.
 
 With ``--out DIR`` the run writes its metrics (``<experiment>_metrics.json``)
 and its outputs into DIR: exp02's canonical fits (``cude_fit.npz``: the
@@ -109,13 +125,20 @@ from conditional_ude_tpu_torch.ops import (
 )
 from conditional_ude_tpu_torch.pipeline import (
     SEED,
+    SMOKE_STAGES,
+    SMOKE_TRAIN,
+    SMOKE_UDE,
+    SMOKE_XL_INITS,
     draw_sampled_bands,
     fit_export,
     run_frozen_pipeline,
     run_training_pipeline,
     run_ude_pipeline,
+    script_metrics,
 )
 from conditional_ude_tpu_torch.symbolic_pipeline import (
+    SMOKE_SIZES,
+    SMOKE_SUBJECTS as SMOKE_SYMBOLIC,
     draw_external_quantiles,
     run_exp03,
     run_exp04,
@@ -130,9 +153,12 @@ SYMBOLIC = {"exp03": run_exp03, "exp04": run_exp04,
             "symreg_production": run_symreg_production}
 SAEM = {"exp06": saem_pipeline.run_exp06, "exp06a": saem_pipeline.run_exp06a,
         "exp06b": saem_pipeline.run_exp06b}
+# the JAX scripts' names of exp02's variants and of symreg_production
+ALIASES = {"exp07": ("exp02", "covariate"), "exp02_xl": ("exp02", "xl"),
+           "exp_symreg_production": ("symreg_production", None)}
 EXPERIMENTS = ("exp00", "exp01", "exp02", "exp02_seeds", "exp05", *SAEM,
                "exp_advi", "exp_suppression", "exp_symreg_search",
-               "exp_figures", "exp_parity", *SYMBOLIC)
+               "exp_figures", "exp_parity", *SYMBOLIC, *ALIASES)
 XL_RESTARTS = 96        # --xl --retrain's restarts unless --restarts says
 
 
@@ -182,15 +208,15 @@ def launches() -> dict[str, int]:
     return out
 
 
-def _advi_crosscheck(args, run) -> None:
+def _advi_crosscheck(args, run, smoke: bool = False) -> None:
     """exp_advi's section 3 where ``--data-dir``'s ``../source_data/advi``
-    exists: its statistics into ``run.metrics``; else the JAX script's
-    line that it skipped."""
+    exists, but at ``smoke``: its statistics into ``run.metrics``; else
+    the JAX script's line that it skipped."""
     advi_dir = (None if args.data_dir is None
                 else args.data_dir.parent / "source_data" / "advi")
-    if advi_dir is None or not advi_dir.exists():
-        why = ("no --data-dir" if advi_dir is None
-               else f"not found at {advi_dir}")
+    if smoke or advi_dir is None or not advi_dir.exists():
+        why = ("smoke run" if smoke else "no --data-dir"
+               if advi_dir is None else f"not found at {advi_dir}")
         print(f"[exp_advi] reference ADVI cross-check skipped ({why})",
               file=sys.stderr)
         return
@@ -211,7 +237,8 @@ def main(argv=None) -> None:
     print(json.dumps({"launches": launches()}), file=sys.stderr)
 
 
-def _main(argv) -> None:
+def parser() -> argparse.ArgumentParser:
+    """The entry point's flags."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--experiment", default="exp02", choices=EXPERIMENTS,
                    help="exp02 (default; --covariate and --xl select exp07 "
@@ -221,13 +248,15 @@ def _main(argv) -> None:
                         "exp02_seeds (exp02's retrain at several seeds), "
                         "exp05 (the less-data ablation), exp06, exp06a or "
                         "exp06b (SAEM on the cUDE, the symbolic model and "
-                        "the discovered equation), exp_advi (ADVI "
+                        "the discovered equation), exp07 and exp02_xl "
+                        "(--covariate and --xl), exp_advi (ADVI "
                         "posteriors of the cUDE), exp_suppression (the "
                         "simulated suppression model), exp_symreg_search "
                         "(the GP search for closed-form equations of the "
                         "production surface), exp_figures (the figure "
                         "gallery), exp03, exp04 or "
-                        "symreg_production (the symbolic refits)")
+                        "symreg_production (exp_symreg_production; the "
+                        "symbolic refits)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "kernels' plain versions)")
@@ -253,7 +282,7 @@ def _main(argv) -> None:
                    help="L-BFGS steps of the fits: 1000 by default (exp05 "
                         "keeps its own 500 and 1000); exp_suppression's "
                         "sweep, validations and test stage take 2000 "
-                        "unless given")
+                        "unless given; --smoke sets its own")
     p.add_argument("--retrain", action="store_true",
                    help="train the candidates (exp02: train_conditional on "
                         "the seed's fit split; exp01: train_ude on the mean "
@@ -289,18 +318,19 @@ def _main(argv) -> None:
                    help="exp02_seeds: merge the exp02_seed_*.json records "
                         "under --out into exp02_seeds_metrics.json and "
                         "exp02_seeds.csv instead of running seeds")
-    p.add_argument("--ablation-seeds", type=int, default=5,
-                   help="exp05: ablation seeds, from --seed on")
+    p.add_argument("--ablation-seeds", type=int, default=None,
+                   help="exp05: ablation seeds, from --seed on (5; 1 with "
+                        "--smoke)")
+    p.add_argument("--smoke", action="store_true",
+                   help="the JAX script's --smoke sizes, as on a clean "
+                        "checkout (8 subjects a split, tiny multi-starts "
+                        "and step counts; exp_symreg_search: one GP run at "
+                        "depth 2, population 256, 15 generations); the "
+                        "outputs go to DIR/smoke of --out DIR")
     sym = p.add_argument_group("exp_symreg_search")
     sym.add_argument("--search-seeds", type=int, default=1,
                      help="independent searches, each its own GP runs and "
                           "front, merged into one front")
-    sym.add_argument("--smoke", action="store_true",
-                     help="one GP run at depth 2, population 256, 15 "
-                          "generations; exp_figures: 8 subjects a split, "
-                          "100 L-BFGS steps, 200 profile and CI points; "
-                          "exp_parity: 8 subjects a split, 100 L-BFGS "
-                          "steps")
     gal = p.add_argument_group("exp_figures")
     gal.add_argument("--sections", nargs="+", default=None,
                      choices=figures_pipeline.SECTIONS,
@@ -328,7 +358,20 @@ def _main(argv) -> None:
     sup.add_argument("--merge-fine", action="store_true",
                      help="no fitting: merge the per-λ partials under --out "
                           "into the _fine CSV and metrics")
+    return p
+
+
+def _main(argv) -> None:
+    p = parser()
     args = p.parse_args(argv)
+    if args.experiment in ALIASES:
+        if args.covariate or args.xl:
+            p.error(f"{args.experiment} is a variant of exp02 already")
+        args.experiment, flag = ALIASES[args.experiment]
+        if flag is not None:
+            setattr(args, flag, True)
+    if args.smoke and args.lbfgs_iters is not None:
+        p.error("--smoke sets the L-BFGS steps of each stage")
     if args.lbfgs_iters is None and args.experiment != "exp_suppression":
         args.lbfgs_iters = 1000
     if args.experiment != "exp02" and (args.covariate or args.xl):
@@ -343,10 +386,13 @@ def _main(argv) -> None:
     if args.experiment == "exp_suppression" and args.retrain:
         p.error("exp_suppression always fits; --test-only and "
                 "--selection-sensitivity read the committed artifacts")
-    if args.experiment not in ("exp_symreg_search", "exp_figures",
-                               "exp_parity") and args.smoke:
-        p.error("--smoke is exp_symreg_search's, exp_figures' and "
-                "exp_parity's")
+    if args.experiment == "exp00" and args.smoke:
+        p.error("exp00 has no --smoke: it converts the raw data whole")
+    if args.smoke and (args.test_only or args.selection_sensitivity):
+        p.error("--test-only and --selection-sensitivity read the committed "
+                "full-size artifacts, which --smoke has none of")
+    if args.smoke and args.out is not None:
+        args.out = args.out / "smoke"
     if args.experiment in ("exp00", "exp_parity") and args.data_dir is None:
         p.error(f"{args.experiment} reads the raw data: give --data-dir")
     if args.experiment == "exp00" and args.out is None:
@@ -391,10 +437,12 @@ def _main(argv) -> None:
     out = out_dir(args.out, args.artifacts)
 
     if args.experiment == "exp02_seeds":
+        sizes = (dict(SMOKE_STAGES, config=SMOKE_TRAIN) if args.smoke
+                 else dict(lbfgs_iters=args.lbfgs_iters))
+        sizes.update(profile_steps=0, census_steps=0)
         for s in args.seeds:
             res = run_training_pipeline(args.device, args.artifacts, seed=s,
-                                        lbfgs_iters=args.lbfgs_iters,
-                                        profile_steps=0, census_steps=0)
+                                        **sizes)
             record = seeds.seed_record(res, s)
             if out is not None:
                 arrays, meta = seeds.training_checkpoint(res)
@@ -406,12 +454,20 @@ def _main(argv) -> None:
             print(json.dumps(record), flush=True)
         return
     if args.experiment == "exp05":
+        fractions = ablation.SMOKE_FRACTIONS if args.smoke \
+            else ablation.FRACTIONS
+        sizes = (dict(fractions=fractions, sweep=fractions,
+                      config=ablation.SMOKE_CONFIG,
+                      steps=ablation.SMOKE_STEPS) if args.smoke else {})
+        n_seeds = args.ablation_seeds
+        if n_seeds is None:
+            n_seeds = 1 if args.smoke else 5
         rows = ablation.run_ablation(args.device, args.artifacts, args.seed,
-                                     n_seeds=args.ablation_seeds)
+                                     n_seeds=n_seeds, **sizes)
         if out is not None:
-            metrics = ablation.write_ablation(out, rows, ablation.FRACTIONS)
+            metrics = ablation.write_ablation(out, rows, fractions)
         else:
-            metrics = ablation.aggregate_ablation(rows, ablation.FRACTIONS)
+            metrics = ablation.aggregate_ablation(rows, fractions)
         print(json.dumps(metrics))
         return
 
@@ -427,16 +483,22 @@ def _main(argv) -> None:
         print(json.dumps(run.metrics))
         return
     if args.experiment == "exp_advi":
+        # --smoke reads exp02's selection from its own outputs, as the JAX
+        # script reads results/smoke/exp02_metrics.json
+        best = (None if not args.smoke else 0 if out is None
+                else advi_pipeline.best_model_index(out))
         run = advi_pipeline.run_exp_advi(args.device, args.artifacts,
                                          seed=args.seed,
-                                         restarts=args.restarts)
-        _advi_crosscheck(args, run)
+                                         restarts=args.restarts,
+                                         smoke=args.smoke, best=best)
+        _advi_crosscheck(args, run, args.smoke)
         if out is not None:
             advi_pipeline.write_outputs(out, run)
         print(json.dumps(run.metrics))
         return
     if args.experiment == "exp_suppression":
-        sizes = suppression_pipeline.FULL
+        sizes = (suppression_pipeline.SMOKE if args.smoke
+                 else suppression_pipeline.FULL)
         if args.lbfgs_iters is not None:
             sizes = dataclasses.replace(sizes, fit=dataclasses.replace(
                 sizes.fit, lbfgs_iters=args.lbfgs_iters))
@@ -466,9 +528,11 @@ def _main(argv) -> None:
         print(json.dumps(run.metrics, default=float))
         return
     if args.experiment in SAEM:
-        kw = {"retrain": args.retrain} if args.experiment == "exp06" else {}
+        # --smoke trains exp06's pre-train, whose smoke cache is missing
+        kw = ({"retrain": args.retrain or args.smoke}
+              if args.experiment == "exp06" else {})
         run = SAEM[args.experiment](args.device, args.artifacts,
-                                    seed=args.seed, **kw)
+                                    seed=args.seed, smoke=args.smoke, **kw)
         if out is not None:
             saem_pipeline.write_outputs(out, args.experiment, run)
         print(json.dumps({"stage_seconds": run.seconds, "route": run.route}),
@@ -476,8 +540,9 @@ def _main(argv) -> None:
         print(json.dumps(run.metrics))
         return
     if args.experiment in SYMBOLIC:
-        res = SYMBOLIC[args.experiment](args.device, args.artifacts,
-                                        lbfgs_iters=args.lbfgs_iters)
+        sizes = (dict(SMOKE_SIZES, subjects=SMOKE_SYMBOLIC[args.experiment])
+                 if args.smoke else dict(lbfgs_iters=args.lbfgs_iters))
+        res = SYMBOLIC[args.experiment](args.device, args.artifacts, **sizes)
         metrics, name = res.metrics, args.experiment
         if out is not None:
             save_checkpoint(out / res.checkpoint, res.fits,
@@ -486,24 +551,41 @@ def _main(argv) -> None:
                 _draw(draw_external_quantiles, res.figure, out,
                       "model_fit_external_quantiles.png")
     elif args.experiment == "exp01":
+        # --smoke trains at its sizes: its smoke cache is missing
+        sizes = SMOKE_UDE if args.smoke else dict(
+            lbfgs_iters=args.lbfgs_iters)
         res = run_ude_pipeline(args.device, args.artifacts,
-                               retrain=args.retrain, seed=args.seed,
-                               lbfgs_iters=args.lbfgs_iters)
+                               retrain=args.retrain or args.smoke,
+                               seed=args.seed, **sizes)
         metrics, name = res.metrics(), "exp01"
-        if out is not None and args.retrain:
+        if out is not None and (args.retrain or args.smoke):
             save_checkpoint(out / "ude_neural_parameters.npz",
                             {"nn_params": res.nn_params,
                              "objectives": res.objectives},
                             metadata={"script": "exp01",
-                                      "guesses": 10_000, "seed": args.seed})
+                                      "guesses": sizes.get(
+                                          "initial_guesses", 10_000),
+                                      "seed": args.seed})
     else:
-        if args.retrain:
-            config = TrainConfig()
-            if args.xl:
-                config = TrainConfig(
-                    initial_guesses=args.inits,
-                    selected_initials=(XL_RESTARTS if args.restarts is None
-                                       else args.restarts))
+        config = TrainConfig()
+        if args.xl:
+            config = TrainConfig(
+                initial_guesses=args.inits,
+                selected_initials=(XL_RESTARTS if args.restarts is None
+                                   else args.restarts))
+        if args.smoke:
+            # the smoke cache is missing, so the JAX scripts train; exp02_xl
+            # runs no profile
+            config = dataclasses.replace(
+                SMOKE_TRAIN, **({"initial_guesses": SMOKE_XL_INITS}
+                                if args.xl else {}))
+            sizes = dict(SMOKE_STAGES, **(
+                {"profile_steps": 0, "census_steps": 0} if args.xl else {}))
+            res = run_training_pipeline(args.device, args.artifacts,
+                                        seed=args.seed, config=config,
+                                        covariate=args.covariate, xl=args.xl,
+                                        **sizes)
+        elif args.retrain:
             res = run_training_pipeline(args.device, args.artifacts,
                                         seed=args.seed, config=config,
                                         lbfgs_iters=args.lbfgs_iters,
@@ -513,9 +595,9 @@ def _main(argv) -> None:
                                       lbfgs_iters=args.lbfgs_iters,
                                       covariate=args.covariate, xl=args.xl,
                                       seed=args.seed)
-        metrics = res.metrics()
         name = "exp07" if args.covariate else "exp02_xl" if args.xl \
             else "exp02"
+        metrics = script_metrics(res, name, config)
         if out is not None and res.dose_response is not None:
             _write_csv(out / "ohashi_production.csv",
                        ["Beta", "Glucose", "Production"], res.dose_response)

@@ -55,20 +55,26 @@ from conditional_ude_tpu_torch.utils.stats import stratified_split
 FRACTIONS = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0)
 CONFIG = TrainConfig(initial_guesses=10_000, selected_initials=10)
 SELECT_ITERS, REFIT_ITERS = 500, 1000
+# --smoke (experiments/exp05_less_data.py:62,69,118-127): two fractions,
+# drawn in that order, one ablation seed, a small multi-start
+SMOKE_FRACTIONS = (0.2, 0.6)
+SMOKE_CONFIG = TrainConfig(initial_guesses=100, selected_initials=2,
+                           adam_iters=20, lbfgs_iters=20)
+SMOKE_STEPS = dict(select_iters=50, refit_iters=100)
 ACROSS = (("test_sse_median_across_seeds", "test_sse_median"),
           ("test_sse_mean_across_seeds", "test_sse_mean"),
           ("test_sse_inlier_mean_across_seeds", "test_sse_mean_inliers"))
 
 
-def subsets(types: np.ndarray, seed: int
+def subsets(types: np.ndarray, seed: int, sweep=FRACTIONS
             ) -> dict[float, tuple[np.ndarray, np.ndarray]]:
     """``{fraction: (subset, held out)}`` indices into the training subjects
-    for every fraction of ``FRACTIONS``, drawn in that order from one
+    for every fraction of the ``sweep``, drawn in that order from one
     generator of ``seed``
     (``experiments/exp05_less_data.py:40-43,129-137``)."""
     rng = np.random.default_rng(seed)
     out = {}
-    for frac in FRACTIONS:
+    for frac in sweep:
         if frac >= 1.0:
             out[frac] = (np.arange(len(types)), np.zeros(0, np.int64))
         else:
@@ -133,21 +139,24 @@ def select_and_refit(trained: TrainResult, train: OhashiSplit,
 def run_ablation(device: torch.device | str, artifacts_dir: str | Path,
                  seed: int, n_seeds: int = 5,
                  fractions: tuple[float, ...] = FRACTIONS,
-                 config: TrainConfig = CONFIG) -> list[dict]:
+                 config: TrainConfig = CONFIG, sweep=FRACTIONS,
+                 steps: dict | None = None) -> list[dict]:
     """The rows of ``n_seeds`` ablation seeds from ``seed`` at
-    ``fractions`` (each fraction's subset as the full sweep draws it)."""
+    ``fractions``, each fraction's subset as a sweep over ``sweep`` draws
+    it; ``steps`` (``select_iters``, ``refit_iters``) replaces
+    ``select_and_refit``'s step counts."""
     train, test = load_npz(Path(artifacts_dir) / "ohashi.npz")
     rows = []
     for seed_i in range(n_seeds):
         s = seed + seed_i
-        drawn = subsets(train.types, s)
+        drawn = subsets(train.types, s, sweep)
         for frac in fractions:
             idx, held = drawn[frac]
             t0 = time.perf_counter()
             trained = train_fraction(device, train, idx, s, config)
             t1 = time.perf_counter()
             row = select_and_refit(trained, train, held, test, seed_i=seed_i,
-                                   fraction=frac)
+                                   fraction=frac, **(steps or {}))
             t2 = time.perf_counter()
             row["seconds"] = round(t2 - t0, 1)
             # the row, and the stage times that its "seconds" sums

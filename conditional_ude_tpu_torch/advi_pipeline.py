@@ -55,7 +55,13 @@ from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
 from conditional_ude_tpu_torch.fit import advi
 from conditional_ude_tpu_torch.models.cpeptide import CPeptideModel
 from conditional_ude_tpu_torch.nn import chain
-from conditional_ude_tpu_torch.pipeline import SEED, _cohort, _Stages
+from conditional_ude_tpu_torch.pipeline import (
+    SEED,
+    SMOKE_SUBJECTS,
+    _cohort,
+    _Stages,
+    first_subjects,
+)
 from conditional_ude_tpu_torch.utils.checkpoint import save_checkpoint
 from conditional_ude_tpu_torch.utils.stats import spearman
 
@@ -64,6 +70,8 @@ REFERENCE_SEED = 100    # run r's draws: REFERENCE_SEED + r
 REFERENCE_STEPS = 800
 SUBSTEPS = 4            # RK4 substeps of both ELBOs
 JOINT_SAMPLES = 4
+SMOKE_RESTARTS = 2
+SMOKE_STEPS = (50, 50, 200)   # --smoke: joint, test steps; profile points
 
 
 @dataclasses.dataclass
@@ -93,31 +101,52 @@ def run_exp_advi(device: torch.device | str, artifacts_dir: str | Path,
                  seed: int = SEED, restarts: int | None = None,
                  fit_subjects: int | None = None, joint_steps: int = 2000,
                  test_steps: int = 1500, profile_steps: int = 2000,
-                 draws=None) -> AdviRun:
+                 draws=None, smoke: bool = False,
+                 best: int | None = None) -> AdviRun:
     """exp_advi on ``device``: every committed candidate (the first
     ``restarts``) on its fit subjects (the first ``fit_subjects``), then
-    the test stage.  ``draws = (joint normals [joint_steps, R, 4, P + N +
-    1], test normals [test_steps, 35, 8, 2])`` replace the generators'."""
+    the test stage on candidate ``best`` (exp02's selected one, from
+    ``results/exp02_metrics.json`` beside ``artifacts_dir``, unless
+    given).  ``draws = (joint normals [joint_steps, R, 4, P + N + 1], test
+    normals [test_steps, 35, 8, 2])`` replace the generators'.
+
+    ``smoke`` runs the JAX script's ``--smoke`` on a clean checkout, whose
+    smoke candidates are missing (``experiments/exp_advi.py:50-58,75-84,
+    146``): the first 8 subjects of each split, two Glorot networks from a
+    generator seeded 0 (the script's ``init_batch(key(0), 2)``) at β = −1
+    on every training subject, 50 joint and 50 test steps and a profile of
+    200 points."""
     dev = torch.device(device)
     artifacts_dir = Path(artifacts_dir)
+    model = CPeptideModel(chain(4, 2))
     train, test = load_npz(artifacts_dir / "ohashi.npz")
-    candidates, betas_cand, idx_fit, _ = load_candidates(
-        artifacts_dir / "cude_neural_parameters.npz")
+    if smoke:
+        train, test = first_subjects(train, test, SMOKE_SUBJECTS)
+        nn_all = model.net.init_batch(
+            SMOKE_RESTARTS, torch.Generator().manual_seed(0)).to(dev)
+        betas_cand = np.full((SMOKE_RESTARTS, len(train.ages), 1), -1.0,
+                             np.float32)
+        idx_fit = np.arange(len(train.ages))
+        restarts = min(restarts or SMOKE_RESTARTS, SMOKE_RESTARTS)
+        joint_steps, test_steps, profile_steps = SMOKE_STEPS
+    else:
+        candidates, betas_cand, idx_fit, _ = load_candidates(
+            artifacts_dir / "cude_neural_parameters.npz")
+        nn_all = params_from_jax(candidates, model.net, dev)
     if fit_subjects is not None:
         idx_fit = idx_fit[:fit_subjects]
-    n_restarts = candidates.shape[0] if restarts is None else min(
-        restarts, candidates.shape[0])
+    n_restarts = nn_all.shape[0] if restarts is None else min(
+        restarts, nn_all.shape[0])
     if n_restarts < 1:
         raise ValueError(f"exp_advi needs at least one restart, got "
                          f"{restarts}")
-    model = CPeptideModel(chain(4, 2))
     cohort_fit = _cohort(train.subset(idx_fit), dev)
     cohort_test = _cohort(test, dev)
     joint_normals, test_normals = (None, None) if draws is None else draws
     stage = _Stages(dev)
 
     # -- 1. the joint posterior of every restart ------------------------------
-    nn0 = params_from_jax(candidates[:n_restarts], model.net, dev)
+    nn0 = nn_all[:n_restarts]
     b0 = betas_cand[:n_restarts, :cohort_fit.n, 0]
     with stage("joint"):
         joint = advi.advi_joint(
@@ -131,9 +160,10 @@ def run_exp_advi(device: torch.device | str, artifacts_dir: str | Path,
     elbo_final = _host(joint.elbo_trace[:, -1])
 
     # -- 2. the test subjects' β posteriors on the selected network ----------
-    best = min(best_model_index(artifacts_dir.parent / "results"),
-               candidates.shape[0] - 1)
-    nn_best = params_from_jax(candidates[best], model.net, dev)
+    if best is None:
+        best = best_model_index(artifacts_dir.parent / "results")
+    best = min(best, nn_all.shape[0] - 1)
+    nn_best = nn_all[best]
     with stage("test_beta"):
         post = advi.advi_betas(
             model, nn_best, cohort_test, initial_beta=-1.0, steps=test_steps,

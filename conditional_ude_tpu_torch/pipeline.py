@@ -51,6 +51,11 @@ The stages, given candidate networks and their training β's:
 training curve (``train_ude`` with ``retrain``; else the committed
 ``ude_neural_parameters.npz``), then every training and test subject's MSE
 with that one network, by Tsit5 at the JAX package's default tolerances.
+
+The JAX scripts' ``--smoke`` sizes are ``SMOKE_TRAIN``, ``SMOKE_STAGES``
+(``run_training_pipeline``'s keywords) and ``SMOKE_UDE``
+(``run_ude_pipeline``'s); ``script_metrics`` gives a run's metrics under
+the keys of exp02's, exp07's or exp02_xl's script.
 """
 
 from __future__ import annotations
@@ -101,6 +106,48 @@ from conditional_ude_tpu_torch.utils.stats import spearman, stratified_split
 
 SEED = 270523   # the flagship's seed (experiments/exp02_conditional.py)
 TYPES = ("NGT", "IGT", "T2DM")
+# --smoke: the first subjects of each split (experiments/common.py:108-110)
+SMOKE_SUBJECTS = 8
+# exp02's, exp07's and exp02_seeds' --smoke multi-start
+# (experiments/exp02_conditional.py:45-47); exp02_xl's screens 300 designs
+SMOKE_TRAIN = TrainConfig(initial_guesses=200, selected_initials=4,
+                          adam_iters=25, lbfgs_iters=25)
+SMOKE_XL_INITS = 300
+# and the stages after it (experiments/common.py:198,220,
+# exp02_conditional.py:72,94,151): the refits' L-BFGS steps, the
+# selection's, the test profile's and the census's points, the bands'
+# samples; the UDE comparison is left out, since a clean checkout has no
+# smoke weights of exp01
+SMOKE_STAGES = dict(subjects=SMOKE_SUBJECTS, lbfgs_iters=100, select_iters=50,
+                    profile_steps=200, census_steps=100, band_samples=50,
+                    compare_ude=False)
+# exp01's --smoke multi-start (experiments/exp01_non_conditional.py:52-54)
+SMOKE_UDE = dict(initial_guesses=100, selected_initials=3, adam_iters=20,
+                 lbfgs_iters=20, subjects=SMOKE_SUBJECTS)
+# the metrics each JAX experiment script writes, in its order; the port's
+# runs add their ``stage_seconds``.  exp07's ``screen_anomaly_note``
+# explains a timer of the JAX package's own runs and is left out
+SCRIPT_KEYS = {
+    "exp02": ("best_model_index", "train_seconds", "train_timings",
+              "ude_vs_cude", "sampled_simulation_bands", "objective_best",
+              "train_sse_per_type", "test_sse_per_type", "train_sse_mean",
+              "test_sse_mean", "beta_bounds", "spearman", "beta_orientation",
+              "identifiability_census_test", "identifiability_census_all"),
+    "exp07": ("best_model_index", "train_seconds", "train_timings",
+              "spearman_age_note", "train_sse_per_type", "test_sse_per_type",
+              "spearman", "beta_orientation", "identifiability_census_test"),
+    "exp02_xl": ("config", "train_seconds", "best_model_index",
+                 "train_sse_per_type", "test_sse_per_type", "train_sse_mean",
+                 "test_sse_mean", "test_sse_median", "spearman_first_phase",
+                 "selection_note", "guarded_best_model_index",
+                 "guarded_test_sse_mean", "guarded_test_sse_median"),
+}
+SPEARMAN_AGE_NOTE = "near-zero expected: age is an NN input"
+SELECTION_NOTE = (
+    "argmin-validation at 96 candidates overfits the 25-subject validation "
+    "split (the winner can be an underfit restart with a val-lucky flat "
+    "surface); guarded_* rows restrict selection to the top half by train "
+    "objective")
 UDE_WEIGHTS = "ude_neural_parameters.npz"   # exp01's committed candidates
 # the DOP853 scores of the reference's own UDE weights (exp01's anchor)
 UDE_GOLDEN = (Path(__file__).resolve().parent.parent / "tests" / "golden"
@@ -226,6 +273,24 @@ class PipelineResult:
         }
 
 
+def script_metrics(result: "PipelineResult", name: str,
+                   config: TrainConfig) -> dict:
+    """``result``'s metrics under the keys of the JAX experiment script
+    ``name`` (exp02, exp07 or exp02_xl), then ``stage_seconds``; exp02_xl's
+    ``config`` names the multi-start ``config`` (the candidates' own for
+    the frozen path)."""
+    m = result.metrics()
+    m.update(spearman_age_note=SPEARMAN_AGE_NOTE,
+             selection_note=SELECTION_NOTE,
+             spearman_first_phase=result.spearman["first_phase"],
+             config=(f"{config.initial_guesses} inits, "
+                     f"{config.selected_initials} restarts "
+                     f"({config.initial_guesses // 25_000}x reference "
+                     "screen)"))
+    return {**{k: m[k] for k in SCRIPT_KEYS[name]},
+            "stage_seconds": m["stage_seconds"]}
+
+
 def sse_per_type(types: np.ndarray, sse: np.ndarray) -> dict[str, float]:
     """Mean SSE of each NGT / IGT / T2DM class present
     (``experiments/common.py:259-262``)."""
@@ -319,16 +384,27 @@ def run_training_pipeline(device: torch.device | str,
                           census_steps: int = 1_000,
                           covariate: bool = False,
                           xl: bool = False,
-                          band_samples: int = 500) -> PipelineResult:
+                          band_samples: int = 500,
+                          subjects: int | None = None,
+                          select_iters: int | None = None,
+                          compare_ude: bool = True) -> PipelineResult:
     """Run the retrain path of exp02 (exp07 with ``covariate``, exp02_xl
     with ``xl``, whose ``config`` carries the wider multi-start) on
     ``device``: the fit/validation split and the training designs from
     ``seed``, ``train_conditional`` with ``config`` on the fit split, then
     the shared stages on the trained candidates, which training returns
-    best first (a step count of 0 skips that profile scan)."""
+    best first (a step count of 0 skips that profile scan).
+
+    ``subjects`` keeps the first subjects of the training and the test
+    split before the fit/validation split is drawn, as the JAX scripts'
+    ``--smoke`` does; the selection takes ``select_iters`` L-BFGS steps
+    (``lbfgs_iters`` unless given), the refits ``lbfgs_iters``; without
+    ``compare_ude`` exp02's outputs leave out the UDE comparison, as the
+    JAX script does where exp01's weights are missing."""
     exp = _experiment(covariate, xl)
     dev = torch.device(device)
-    train, test = load_npz(Path(artifacts_dir) / "ohashi.npz")
+    train, test = first_subjects(*load_npz(Path(artifacts_dir)
+                                           / "ohashi.npz"), subjects)
     idx_fit, idx_val = stratified_split(np.random.default_rng(seed),
                                         train.types, 0.7)
     model = exp.model()
@@ -341,13 +417,23 @@ def run_training_pipeline(device: torch.device | str,
     result = _select_and_analyse(
         dev, exp, model, trained.nn_params, trained.betas.cpu().numpy(),
         trained.orientations.cpu().numpy(), train, train.subset(idx_val),
-        test, stage, lbfgs_iters, profile_steps, census_steps)
+        test, stage, lbfgs_iters, profile_steps, census_steps, select_iters)
     result.training, result.idx_fit = trained, idx_fit
     result.objective_best = float(trained.objectives[result.best])
     if exp.outputs:
         _add_outputs(result, model, trained.nn_params[result.best], train,
-                     test, Path(artifacts_dir), seed, band_samples, stage)
+                     test, Path(artifacts_dir) if compare_ude else None,
+                     seed, band_samples, stage)
     return result
+
+
+def first_subjects(train: OhashiSplit, test: OhashiSplit, n: int | None
+                   ) -> tuple[OhashiSplit, OhashiSplit]:
+    """The first ``n`` subjects of each split (both whole for ``None``)."""
+    if n is None:
+        return train, test
+    return tuple(s.subset(np.arange(min(n, len(s.ages))))
+                 for s in (train, test))
 
 
 def dose_response(model: CPeptideModel, nn_params: torch.Tensor,
@@ -485,11 +571,11 @@ def ude_mse(nn_params: torch.Tensor, split: OhashiSplit,
 
 def _add_outputs(result: PipelineResult, model: CPeptideModel,
                  nn_best: torch.Tensor, train: OhashiSplit,
-                 test: OhashiSplit, artifacts_dir: Path, seed: int,
+                 test: OhashiSplit, artifacts_dir: Path | None, seed: int,
                  band_samples: int, stage: _Stages) -> None:
     """exp02's outputs on the selected network: the dose-response table,
-    the sampled bands and, when exp01's weights are there, the UDE
-    comparison on the test subjects."""
+    the sampled bands and, when exp01's weights are in ``artifacts_dir``,
+    the UDE comparison on the test subjects."""
     with stage("outputs"):
         result.dose_response = dose_response(model, nn_best, result.b_train,
                                              train.glucose)
@@ -497,8 +583,8 @@ def _add_outputs(result: PipelineResult, model: CPeptideModel,
             model, nn_best, np.concatenate([result.b_train, result.b_test]),
             OhashiSplit.concatenate(train, test), seed, band_samples)
         result.bands = band_summary(result.band_curves)
-        path = artifacts_dir / UDE_WEIGHTS
-        if path.exists():
+        path = None if artifacts_dir is None else artifacts_dir / UDE_WEIGHTS
+        if path is not None and path.exists():
             ude = load_checkpoint(path)[0]["nn_params"][0]
             result.ude_vs_cude = ude_vs_cude(
                 params_from_jax(ude, ude_model().net, nn_best.device), test,
@@ -554,14 +640,17 @@ def run_ude_pipeline(device: torch.device | str, artifacts_dir: str | Path,
                      retrain: bool = False, seed: int = SEED,
                      initial_guesses: int = 10_000,
                      selected_initials: int = 10, adam_iters: int = 1000,
-                     lbfgs_iters: int = 1000) -> UDEResult:
+                     lbfgs_iters: int = 1000,
+                     subjects: int | None = None) -> UDEResult:
     """exp01 on ``device``: the UDE network fitted to the mean training
     curve by ``train_ude`` (designs from ``seed``) with ``retrain``, else
     the committed ``ude_neural_parameters.npz``; then every subject's MSE
-    with the best network."""
+    with the best network.  ``subjects`` keeps the first subjects of each
+    split (the mean curve is theirs)."""
     dev = torch.device(device)
     artifacts_dir = Path(artifacts_dir)
-    train, test = load_npz(artifacts_dir / "ohashi.npz")
+    train, test = first_subjects(*load_npz(artifacts_dir / "ohashi.npz"),
+                                 subjects)
     model = ude_model()
     stage = _Stages(dev)
     if retrain:
@@ -607,14 +696,17 @@ def _select_and_analyse(dev, exp: Experiment, model: CPeptideModel,
                         betas_np: np.ndarray, orientations: np.ndarray,
                         train: OhashiSplit, val: OhashiSplit,
                         test: OhashiSplit, stage: _Stages, lbfgs_iters: int,
-                        profile_steps: int,
-                        census_steps: int) -> PipelineResult:
+                        profile_steps: int, census_steps: int,
+                        select_iters: int | None = None) -> PipelineResult:
     """Stages 1-5 of ``exp`` on candidates ``cand[R, P]`` with training β's
-    ``betas_np[R, N_fit(, 1)]``; a step count of 0 skips that scan."""
+    ``betas_np[R, N_fit(, 1)]``; a step count of 0 skips that scan.  The
+    selection takes ``select_iters`` L-BFGS steps (``lbfgs_iters`` unless
+    given), the refits ``lbfgs_iters``."""
     with stage("select"):
         objectives = evaluate_model(
             model, cand, torch.as_tensor(betas_np, device=dev),
-            _cohort(val, dev), lbfgs_iters=lbfgs_iters)
+            _cohort(val, dev), lbfgs_iters=(lbfgs_iters if select_iters is None
+                                            else select_iters))
         best = select_best(objectives)
     both = OhashiSplit.concatenate(train, test)
     cohort_both = _cohort(both, dev)

@@ -12,7 +12,10 @@ unless ``--retrain`` is given; a child that fails ends the run with a
 non-zero exit.  Every numeric leaf of the metrics (no bools, nothing
 non-finite) that two seeds or more have gets its mean, sd (ddof 1), min and
 max in ``DIR/replicate_NAME.json`` (keys ``script``, ``seeds``,
-``aggregate``, ``per_seed``, as the JAX experiment script's).
+``aggregate``, ``per_seed``, as the JAX experiment script's).  ``--smoke``
+passes ``--smoke`` to each child, whose metrics are then under its
+``smoke/``, and writes ``DIR/smoke/replicate_NAME.json``
+(``experiments/exp_replicate.py:65-75,121``).
 """
 
 from __future__ import annotations
@@ -64,27 +67,30 @@ def _metrics_in(directory: Path) -> list[Path]:
 
 
 def run_seed(experiment: str, seed: int, out: Path, extra: list[str],
-             retrain: bool, timeout: float) -> dict:
+             retrain: bool, timeout: float, smoke: bool = False) -> dict:
     """Seed ``seed``'s metrics: its child's, run now unless its directory
     holds them already and ``retrain`` is false."""
     seed_dir = out / "seeds" / f"{experiment}_seed{seed}"
-    done = _metrics_in(seed_dir)
+    metrics_dir = seed_dir / "smoke" if smoke else seed_dir
+    done = _metrics_in(metrics_dir)
     if done and not retrain:
         print(f"[replicate] seed {seed}: cached {done[0].name}",
               file=sys.stderr)
         return json.loads(done[0].read_text())
     cmd = [sys.executable, "-m", "conditional_ude_tpu_torch", "--experiment",
-           experiment, "--seed", str(seed), "--out", str(seed_dir), *extra]
+           experiment, "--seed", str(seed), "--out", str(seed_dir),
+           *(["--smoke"] if smoke else []), *extra]
     proc = subprocess.run(cmd, cwd=REPO, timeout=timeout)
     if proc.returncode != 0:
         sys.exit(f"seed {seed}: {experiment} exited {proc.returncode}")
-    done = _metrics_in(seed_dir)
+    done = _metrics_in(metrics_dir)
     if not done:
-        sys.exit(f"seed {seed}: no *_metrics.json under {seed_dir}")
+        sys.exit(f"seed {seed}: no *_metrics.json under {metrics_dir}")
     return json.loads(done[0].read_text())
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
+    """The runner's flags."""
     p = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -95,6 +101,9 @@ def main(argv=None) -> None:
     p.add_argument("--out", type=Path, required=True,
                    help="directory for the seeds' outputs (seeds/) and "
                         "replicate_<experiment>.json")
+    p.add_argument("--smoke", action="store_true",
+                   help="pass --smoke to each child (its CI sizes); the "
+                        "aggregate goes to DIR/smoke")
     p.add_argument("--retrain", action="store_true",
                    help="run seeds whose metrics are already under --out")
     p.add_argument("--timeout", type=float, default=3600.0,
@@ -102,12 +111,18 @@ def main(argv=None) -> None:
     p.add_argument("extra", nargs="*",
                    help="arguments for each child (after --), e.g. "
                         "--retrain or --device cpu")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
     out = out_dir(args.out, ARTIFACTS)
     per_seed = {seed: run_seed(args.experiment, seed, out, args.extra,
-                               args.retrain, args.timeout)
+                               args.retrain, args.timeout, args.smoke)
                 for seed in args.seeds}
     agg = aggregate(per_seed)
+    if args.smoke:
+        out = out_dir(out / "smoke", ARTIFACTS)
     (out / f"replicate_{args.experiment}.json").write_text(json.dumps({
         "script": args.experiment,
         "seeds": list(per_seed),

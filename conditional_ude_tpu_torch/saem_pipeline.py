@@ -42,7 +42,13 @@ from conditional_ude_tpu_torch.models.cpeptide import (
     simulate_cohort,
 )
 from conditional_ude_tpu_torch.nn import chain
-from conditional_ude_tpu_torch.pipeline import SEED, _cohort, _Stages
+from conditional_ude_tpu_torch.pipeline import (
+    SEED,
+    SMOKE_SUBJECTS,
+    _cohort,
+    _Stages,
+    first_subjects,
+)
 from conditional_ude_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -50,7 +56,6 @@ from conditional_ude_tpu_torch.utils.checkpoint import (
 from conditional_ude_tpu_torch.utils.stats import spearman
 
 PRETRAIN = "saem_pretrain.npz"
-SMOKE_SUBJECTS = 8      # a split's subjects at the --smoke sizes
 TYPES = ("NGT", "IGT", "T2DM")
 # the JAX experiment script's notes, written beside the metrics they explain
 ACCEPTANCE_NOTE = (
@@ -77,11 +82,8 @@ class SAEMRun:
 
 
 def _splits(artifacts_dir: Path, smoke: bool):
-    train, test = load_npz(Path(artifacts_dir) / "ohashi.npz")
-    if smoke:
-        train, test = (s.subset(np.arange(min(SMOKE_SUBJECTS, len(s.ages))))
-                       for s in (train, test))
-    return train, test
+    return first_subjects(*load_npz(Path(artifacts_dir) / "ohashi.npz"),
+                          SMOKE_SUBJECTS if smoke else None)
 
 
 def _per_type(types: np.ndarray, values: np.ndarray) -> dict[str, float]:

@@ -78,6 +78,12 @@ class Sizes:
 
 
 FULL = Sizes()
+# --smoke (experiments/exp_suppression.py:131-157,247,274,281)
+SMOKE = Sizes(train=(3, 1, 1, 1, 1, 2), valid=(2, 2, 2, 2, 2, 2), n_test=12,
+              valid_inits=50, test_inits=64, test_lambda=0.1,
+              lambdas=(0.0, 0.1),
+              fit=SuppressionFitConfig(initial_space=50, select_best_n=3,
+                                       adam_iters=30, lbfgs_iters=30))
 
 
 def fine_lambdas() -> list[float]:

@@ -55,11 +55,18 @@ from conditional_ude_tpu_torch.pipeline import (
     _counts,
     _Stages,
     dense_grid,
+    first_subjects,
     sse_per_type,
 )
 from conditional_ude_tpu_torch.utils.stats import spearman
 
 PROFILE_CHUNK = 250     # grid points per profile chunk (the JAX experiment scripts')
+# --smoke (experiments/exp03_symreg.py:39,49,66, exp04_symreg_external.py
+# :29,34,64, exp_symreg_production.py:52,62,82): the first subjects of each
+# Ohashi split (of the Fujita cohort for exp04), the fits' L-BFGS steps and
+# the profiles' points
+SMOKE_SUBJECTS = {"exp03": 8, "exp04": 4, "symreg_production": 8}
+SMOKE_SIZES = dict(lbfgs_iters=100, profile_steps=200)
 
 
 @dataclasses.dataclass
@@ -79,15 +86,18 @@ def _numpy(*tensors):
     return tuple(t.cpu().numpy() for t in tensors)
 
 
-def _ohashi(artifacts_dir: Path, dev: torch.device):
-    both = OhashiSplit.concatenate(*load_npz(artifacts_dir / "ohashi.npz"))
+def _ohashi(artifacts_dir: Path, dev: torch.device, subjects: int | None):
+    both = OhashiSplit.concatenate(*first_subjects(
+        *load_npz(artifacts_dir / "ohashi.npz"), subjects))
     return both, _cohort(both, dev)
 
 
-def _fujita(artifacts_dir: Path, dev: torch.device) -> Cohort:
+def _fujita(artifacts_dir: Path, dev: torch.device,
+            subjects: int | None = None) -> Cohort:
     f = load_fujita_npz(artifacts_dir / "fujita.npz")
-    return build_cohort(f.glucose, f.timepoints, f.cpeptide, f.ages, f.t2dm,
-                        dev)
+    n = slice(subjects)
+    return build_cohort(f.glucose[n], f.timepoints, f.cpeptide[n], f.ages[n],
+                        f.t2dm[n], dev)
 
 
 def _correlations(theta: np.ndarray, both: OhashiSplit) -> dict[str, float]:
@@ -107,11 +117,12 @@ def _census(model, cohort: Cohort, sigmas: np.ndarray, lower: float,
 
 
 def run_exp03(device: torch.device | str, artifacts_dir: str | Path,
-              lbfgs_iters: int = 1000,
-              profile_steps: int = 10_000) -> SymbolicResult:
-    """Experiment 03 on ``device``."""
+              lbfgs_iters: int = 1000, profile_steps: int = 10_000,
+              subjects: int | None = None) -> SymbolicResult:
+    """Experiment 03 on ``device`` (the first ``subjects`` of each Ohashi
+    split, as ``--smoke`` cuts them)."""
     dev = torch.device(device)
-    both, cohort = _ohashi(Path(artifacts_dir), dev)
+    both, cohort = _ohashi(Path(artifacts_dir), dev, subjects)
     stage = _Stages(dev)
     with stage("fit"):
         ks, sigmas, objs = _numpy(*fit_k_sigma(cohort,
@@ -134,11 +145,12 @@ def run_exp03(device: torch.device | str, artifacts_dir: str | Path,
 
 
 def run_exp04(device: torch.device | str, artifacts_dir: str | Path,
-              lbfgs_iters: int = 1000,
-              profile_steps: int = 10_000) -> SymbolicResult:
-    """Experiment 04 on ``device``."""
+              lbfgs_iters: int = 1000, profile_steps: int = 10_000,
+              subjects: int | None = None) -> SymbolicResult:
+    """Experiment 04 on ``device`` (the first ``subjects`` of the Fujita
+    cohort, as ``--smoke`` cuts them)."""
     dev = torch.device(device)
-    cohort = _fujita(Path(artifacts_dir), dev)
+    cohort = _fujita(Path(artifacts_dir), dev, subjects)
     stage = _Stages(dev)
     with stage("fit"):
         ks, sigmas, objs = _numpy(*fit_k_sigma(
@@ -215,12 +227,14 @@ def draw_external_quantiles(figure: dict, path: Path) -> None:
 
 def run_symreg_production(device: torch.device | str,
                           artifacts_dir: str | Path, lbfgs_iters: int = 1000,
-                          profile_steps: int = 10_000) -> SymbolicResult:
+                          profile_steps: int = 10_000,
+                          subjects: int | None = None) -> SymbolicResult:
     """The discovered equation's refits (``exp_symreg_production``) on
-    ``device``."""
+    ``device`` (the first ``subjects`` of each Ohashi split, as ``--smoke``
+    cuts them; the Fujita cohort whole, as the JAX script fits it)."""
     dev = torch.device(device)
     artifacts_dir = Path(artifacts_dir)
-    both, cohort = _ohashi(artifacts_dir, dev)
+    both, cohort = _ohashi(artifacts_dir, dev, subjects)
     fujita = _fujita(artifacts_dir, dev)
     stage = _Stages(dev)
     with stage("fit"):

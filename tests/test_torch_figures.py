@@ -393,6 +393,8 @@ def test_every_figure_function_is_rendered():
 
 # ----------------------------------------------------- the entry point
 def _gallery(out: Path, *args, hide_matplotlib: bool = False):
+    """The gallery at --smoke with ``--out out.parent``: its outputs land in
+    ``out``, the ``smoke`` directory there."""
     code = ("import sys\n"
             + ("sys.modules['matplotlib'] = None\n" if hide_matplotlib
                else "")
@@ -400,14 +402,14 @@ def _gallery(out: Path, *args, hide_matplotlib: bool = False):
             "main(sys.argv[1:])\n")
     return subprocess.run(
         [sys.executable, "-c", code, "--experiment", "exp_figures",
-         "--smoke", "--device", "cpu", "--out", str(out), *args],
+         "--smoke", "--device", "cpu", "--out", str(out.parent), *args],
         cwd=REPO, capture_output=True, text=True, timeout=600,
         env={**os.environ, "OMP_NUM_THREADS": "2",
              "MPLCONFIGDIR": str(out.parent)})
 
 
 def test_gallery_smoke_and_manifest_merge(tmp_path):
-    out = tmp_path / "gallery"
+    out = tmp_path / "gallery" / "smoke"
     r = _gallery(out, "--sections", "data", "external")
     assert r.returncode == 0, r.stderr[-2000:]
     manifest = json.loads((out / fp.MANIFEST).read_text())
@@ -426,7 +428,7 @@ def test_gallery_smoke_and_manifest_merge(tmp_path):
 
 
 def test_gallery_without_matplotlib_computes_every_section(tmp_path):
-    out = tmp_path / "gallery"
+    out = tmp_path / "gallery" / "smoke"
     r = _gallery(out, hide_matplotlib=True)
     assert r.returncode == 0, r.stderr[-2000:]
     assert json.loads(r.stdout.strip().splitlines()[-1]) == {

@@ -161,7 +161,7 @@ def test_exp_parity_smoke_matches_jax(source_data, tmp_path, monkeypatch,
     entry.main(["--experiment", "exp_parity", "--data-dir", str(data),
                 "--smoke", "--device", "cpu", "--out", str(tmp_path / "p")])
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert json.loads((tmp_path / "p" / "exp_parity_metrics.json")
+    assert json.loads((tmp_path / "p" / "smoke" / "exp_parity_metrics.json")
                       .read_text()) == got
 
     jax_parity = _jax_script("exp_parity")

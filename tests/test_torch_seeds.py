@@ -215,24 +215,22 @@ def test_training_matches_jax_from_its_designs(smoke_seed):
 
 @pytest.fixture(scope="module")
 def port_from_jax(smoke_seed):
-    """The port's retrain pipeline at the smoke size with training replaced
-    by JAX's trained candidates, and JAX's selection and refit step
-    counts."""
+    """The port's retrain pipeline at the smoke size (its ``subjects`` cut
+    before the split, its selection and refit step counts: what
+    ``--smoke`` passes) with training replaced by JAX's trained
+    candidates."""
     ref = smoke_seed["trained"]
     given = ptrain.TrainResult(
         **{k: torch.as_tensor(np.array(getattr(ref, k)))
            for k in ("nn_params", "betas", "objectives", "screen_losses",
                      "loss_traces", "orientations")},
         timings=dict(ref.timings))
-    evaluate = pipeline.evaluate_model
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pipeline, "load_npz", lambda path: _smoke_splits())
         mp.setattr(pipeline, "train_conditional", lambda *a, **k: given)
-        mp.setattr(pipeline, "evaluate_model", lambda *a, **k: evaluate(
-            *a, **{**k, "lbfgs_iters": SELECT_ITERS}))
         res = pipeline.run_training_pipeline(
             "cpu", REPO / "artifacts", seed=SEED,
-            config=ptrain.TrainConfig(**SMOKE), lbfgs_iters=REFIT_ITERS,
+            config=ptrain.TrainConfig(**SMOKE), subjects=SMOKE_N,
+            select_iters=SELECT_ITERS, lbfgs_iters=REFIT_ITERS,
             profile_steps=0, census_steps=0, band_samples=8)
     return res, seeds.seed_record(res, SEED)
 
@@ -240,6 +238,7 @@ def port_from_jax(smoke_seed):
 def test_selection_and_refit_match_jax(smoke_seed, port_from_jax):
     res, record = port_from_jax
     p, want = smoke_seed["pipeline"], smoke_seed["record"]
+    np.testing.assert_array_equal(res.idx_fit, p.idx_fit)
     np.testing.assert_allclose(res.val_objectives, p.val_objectives,
                                rtol=1e-4)
     assert res.best == p.best == record["best_model_index"] \

@@ -183,9 +183,9 @@ def test_smoke_through_entry_point_writes_committed_keys(tmp_path, capsys):
     the port's own generator: the metrics' keys (and each block's) are the
     committed JSON's beside ``stage_seconds``, printed as written; the
     results directory is refused as ``--out``."""
-    out = tmp_path / "smoke"
     entry.main(["--experiment", "exp_symreg_search", "--smoke", "--device",
-                "cpu", "--out", str(out)])
+                "cpu", "--out", str(tmp_path)])
+    out = tmp_path / "smoke"
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     written = json.loads((out / "exp_symreg_metrics.json").read_text())
     assert printed == written
@@ -202,4 +202,4 @@ def test_smoke_through_entry_point_writes_committed_keys(tmp_path, capsys):
         entry.main(["--experiment", "exp_symreg_search", "--smoke",
                     "--device", "cpu", "--out", str(REPO / "results")])
     with pytest.raises(SystemExit):
-        entry.main(["--experiment", "exp01", "--smoke", "--device", "cpu"])
+        entry.main(["--experiment", "exp00", "--smoke", "--device", "cpu"])
