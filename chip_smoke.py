@@ -5,9 +5,12 @@
                                            # is {"ok": null, "partial": ...}
 
 1. builds the five kernel sources from ``conditional_ude_tpu_torch/csrc``
-   (one ``nvcc`` each, all started together; each source holds a 2-input
+   for the canonical ``chain(4, 2)`` and for each network shape of
+   ``WIDTHS_KERNEL_NETS`` (one library a source and shape, the shape's
+   hidden widths compile-time constants), and K1, K2 and K5 for each shape
+   of ``WIDTHS_PASSES`` (one ``nvcc`` each, all started together; each source holds a 2-input
    body and the covariate model's 3-input body) and prints ptxas's
-   registers and spills of all ten bodies;
+   registers and spills of every body;
 2. holds each body against its plain PyTorch version on the card, at the
    main path's shape and at a ragged shape with random per-lane weights and
    one lane of huge weights (the covariate bodies with real ages):
@@ -41,7 +44,14 @@
    gradient is what float32 leaves of cancelling terms, so there (and on
    the committed trained candidates, for both bodies) the weight gradient
    of each layout is held to a float64 witness, within 256 float32
-   roundings of the row's largest sum of absolute terms;
+   roundings of the row's largest sum of absolute terms.  Every body is
+   held alike at the networks of ``WIDTHS_KERNEL_NETS``: W = ``chain(8,
+   2)``, D = ``chain(4, 3)``, V = ``chain([6, 3], input_dims=3)`` and W's
+   3-input body W3, at the widths path's shapes and a ragged one with a
+   network of huge weights (``widths_shapes``), and K1, K2 and K5 (both
+   bodies) at ``chain(12, 2)``, whose gradient K2 and K5 sum in 2 passes,
+   bit for bit at 25 and 2,500 restarts, a huge-weight restart and, K5
+   against K2's lanes, 2,304 restarts;
 3. times each body and its plain version at the path's shape (CUDA events
    around calls of the wrapper, the ``ms`` of the kernels line, and the
    device alone, ``device_ms``, by replaying a CUDA graph of the calls), K2
@@ -240,7 +250,23 @@
     exp02_xl, exp02_seeds, exp05, exp06's pre-train), K4 in the profiles,
     the census and SAEM, K1c-K4c in exp07, K2 at 4 substeps exactly 100
     times and K4 once in exp_advi, none in the rest.
-    12-27 are bound by the host, so they run in seven child processes (this
+28. runs the widths path (``run_widths_path``) after the ETL path and
+    smoke group 4 in their child: W, D and V trained at
+    ``scripts/widths_reference.py``'s cut (2,500 designs, 15 restarts, 100
+    Adam and 10 L-BFGS steps, the Tsit5 re-rank) from its numpy designs,
+    each screen loss within rtol 1e-5 of JAX-CPU's, the first 10 Adam
+    losses rtol 1e-4, the re-ranked objectives rtol 2e-2 + atol 1e-3 (V's
+    of JAX's training with an accurate tanh), the best at most 1.10 ×
+    JAX's, each launching K1 1, K3 1 and K2 (K1c, K3c,
+    K2c for V) at its shape and nothing else; W at exp02's training
+    (``TrainConfig()``), the (β, σ) refit of all 117 at the best restart,
+    the test profiles (35 × 10,000) and the census (117 × 1,000), with
+    exp02's retrain limit (objective ≤ 0.30), every output finite and K4
+    exactly 22 launches; then ``WIDTHS_K5_STEPS`` Adam steps at 2,304
+    restarts (131,328 lanes) of W, D and V through K5 (K2 0), K5 against
+    K2's packed route at the trained restarts, and one test-profile chunk
+    of D and of V (K4, K4c).
+    12-28 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -253,6 +279,7 @@ killed when this process ends.  The last line is ``{"ok": true,
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -278,10 +305,6 @@ EPS32, WITNESS_EPS = 2.0 ** -23, 256.0
 # tensor cores, and special-function (SFU) results/s: 16 per SM per clock,
 # 132 SMs at the 1.98 GHz boost clock
 PEAK_BYTES, PEAK_FLOPS, PEAK_SFU = 3.35e12, 67e12, 132 * 16 * 1.98e9
-# operations of the canonical network, counted from csrc/cude_mlp.cuh:
-# 4 + 4 tanh layers and the softplus head (multiplies, adds, the softplus
-# arithmetic), and the transcendentals (8 tanhf, expf, log1pf)
-MLP_FLOPS, MLP_SFU = 59, 10
 
 # the TPU kernel each body replaces: the function that builds its 2-input
 # body, and the line that adds the age input to its 3-input body
@@ -318,10 +341,28 @@ UDE_SEEDS = (270523, 11, 22)
 CSV_ATOL = 1.6e-4
 
 
-def mlp_flops(d: int) -> int:
-    """Arithmetic of one network evaluation on ``d`` inputs: a 3rd input
-    adds a multiply and an add to each of layer 1's four units."""
-    return MLP_FLOPS + 8 * (d - 2)
+def mlp_flops(net) -> int:
+    """Arithmetic of one network evaluation, counted from
+    csrc/cude_mlp.cuh: a multiply and an add a weight (the bias add in
+    place of the first sum's), and the softplus head's 3 (max, |x|, the
+    add): 59 for the canonical chain(4, 2), 8 more on 3 inputs."""
+    return sum(2 * fi * fo for fi, fo in net.layer_dims) + 3
+
+
+def mlp_sfu(net) -> int:
+    """Transcendentals of one network evaluation: a tanhf a hidden unit,
+    the head's expf and log1pf (10 for chain(4, 2))."""
+    return sum(net.widths) + 2
+
+
+def vjp_flops(net) -> int:
+    """Arithmetic of one hand VJP on the stored activations and its
+    accumulation (csrc/cude_grad.cuh): 133 for chain(4, 2) on 2 inputs,
+    141 on 3 (its 4 more weight gradients), scaled for another network by
+    its forward arithmetic."""
+    d = net.input_dims
+    canonical = (95 + 38 + 8 * (d - 2)) * mlp_flops(net)
+    return round(canonical / (59 + 8 * (d - 2)))
 
 
 # the network evaluations of one RK4 lane on the OGTT grid at 8 substeps:
@@ -329,17 +370,17 @@ def mlp_flops(d: int) -> int:
 RK4_POINTS = 1 + 4 * (2 * 8 + 1)
 
 
-def rk4_lane_work(d: int) -> tuple[int, int]:
+def rk4_lane_work(net) -> tuple[int, int]:
     """(float32 operations, transcendentals) of the least work of one RK4
     lane on the OGTT grid: the network once at each of its 69 points (the
     products of layer 1 with e^beta and the age taken once a lane; a point
     adds its dG blend and takes the baseline off), 32 steps of the
     kinetics at four stages and the stage arithmetic, e^beta and the
     residuals."""
-    lane_const = 4 * (d - 1)
-    point = mlp_flops(d) - lane_const + 6
+    lane_const = net.widths[0] * (net.input_dims - 1)
+    point = mlp_flops(net) - lane_const + 6
     flops = RK4_POINTS * point + 32 * (4 * 10 + 30) + lane_const + 10
-    return flops, RK4_POINTS * MLP_SFU + 1
+    return flops, RK4_POINTS * mlp_sfu(net) + 1
 
 
 def tsit5_evaluations(lanes: int, steps: int) -> int:
@@ -351,7 +392,7 @@ def tsit5_evaluations(lanes: int, steps: int) -> int:
     return 3 * lanes + 5 * steps
 
 
-def tsit5_work(d: int, lanes: int, steps: int, accepted: int, finished: int,
+def tsit5_work(net, lanes: int, steps: int, accepted: int, finished: int,
                n_save: int) -> tuple[int, int]:
     """(float32 operations, transcendentals) of K3's least work on these
     inputs: ``lanes`` lanes that attempted ``steps`` steps and accepted
@@ -364,10 +405,10 @@ def tsit5_work(d: int, lanes: int, steps: int, accepted: int, finished: int,
     a finished lane's n_save - 1 save times through the interpolant (~70
     each); a lane's Hairer start (~40, three sqrtf and a powf) and
     e^beta."""
-    flops = (tsit5_evaluations(lanes, steps) * (mlp_flops(d) + 8)
+    flops = (tsit5_evaluations(lanes, steps) * (mlp_flops(net) + 8)
              + steps * (6 * 10 + 2 * 21 * 3 + 75)
              + finished * (n_save - 1) * 70 + lanes * 40)
-    sfu = (tsit5_evaluations(lanes, steps) * MLP_SFU + steps * 3
+    sfu = (tsit5_evaluations(lanes, steps) * mlp_sfu(net) + steps * 3
            + (accepted - finished) * 2 + lanes * 6)
     return flops, sfu
 
@@ -502,13 +543,21 @@ def bound(n_bytes: float, flops: float, sfu: float) -> tuple[float, str]:
     return 1e3 * times[by], by
 
 
-def huge_weights(d: int) -> np.ndarray:
-    """ΔG → head weights of 1e20 on a ``d``-input network: a rising glucose
-    curve drives the trajectory past float32."""
-    w1 = np.zeros((4, d))
-    w1[:, 0] = 1e20
-    return np.concatenate([w1.ravel(), np.zeros(4), np.eye(4).ravel(),
-                           np.zeros(4), np.full(4, 1e20), [0.0]])
+def huge_net(net) -> np.ndarray:
+    """Weights of 1e20 from ΔG to every first-layer unit and from every
+    unit to the head, the layers between passing their first units on: on
+    a rising glucose curve the trajectory passes float32."""
+    parts, last = [], len(net.layer_dims) - 1
+    for li, (fi, fo) in enumerate(net.layer_dims):
+        if li == 0:
+            w = np.zeros((fo, fi))
+            w[:, 0] = 1e20
+        elif li == last:
+            w = np.full((fo, fi), 1e20)
+        else:
+            w = np.eye(fo, fi)
+        parts += [w.ravel(), np.zeros(fo)]
+    return np.concatenate(parts)
 
 
 def glorot(rng: np.random.Generator, net, n: int) -> np.ndarray:
@@ -517,6 +566,351 @@ def glorot(rng: np.random.Generator, net, n: int) -> np.ndarray:
         [np.concatenate([rng.uniform(-b, b, (n, fo * fi)), np.zeros((n, fo))],
                         axis=1)
          for b, (fi, fo) in zip(bounds, net.layer_dims)], axis=1)
+
+
+def float64_witness(net, args, what: str, sfx: str) -> None:
+    """The weight gradient of both layouts against a float64 witness
+    on the same float32 inputs: the packed plain version run in
+    float64, which also gives each entry's sum of absolute
+    per-point terms.  Where the terms cancel, that sum and not the
+    entry is the scale of a float32 route's rounding, in either
+    order of the sum.  Each row of each route must lie within
+    ``WITNESS_EPS`` float32 roundings of its largest sum of terms;
+    rows that are not finite must be the same rows in both."""
+    from conditional_ude_tpu_torch.ops import lane_grad, population_grad
+    a64 = tuple(t.double() if torch.is_tensor(t) else t for t in args)
+    inv_n = 1.0 / args[1].shape[1]
+    _, gnn, _, mag, _ = lane_grad.lane_sse_and_grad_reference(
+        net, *a64, 8, magnitudes=True)
+    g64, terms = gnn.sum(1) * inv_n, mag.sum(1) * inv_n
+    routes = {
+        f"K5{sfx}": population_grad.restart_sse_and_grad(
+            net, *args, 8)[1],
+        f"K2{sfx} packed": lane_grad.packed_sse_and_grad(
+            net, *args, 8)[1]}
+    k5_fin, k2_fin = (torch.isfinite(g).all(-1)
+                      for g in routes.values())
+    if not torch.equal(k5_fin, k2_fin):
+        raise AssertionError(f"{what}: non-finite rows differ "
+                             "between the layouts")
+    fin = k5_fin & torch.isfinite(terms).all(-1)
+    scale = terms[fin].amax(-1, keepdim=True).clamp_min(1e-300)
+    cancel = g64[fin].abs().amax(-1) / scale[:, 0]
+    worst = {k: float(((g[fin].double() - g64[fin]).abs()
+                       / scale).max()) / EPS32
+             for k, g in routes.items()}
+    log(f"[kernel] {what} grad nn against float64: {int(fin.sum())} "
+        "finite rows; a row's largest entry over its largest sum of "
+        f"|terms|: median {float(cancel.median()):.3e}, least "
+        f"{float(cancel.min()):.3e}; worst error in float32 "
+        "roundings of that sum: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+    if max(worst.values()) > WITNESS_EPS:
+        raise AssertionError(
+            f"{what}: {worst} float32 roundings from the float64 "
+            f"witness, limit {WITNESS_EPS}")
+
+
+def widths_shapes(dev, rng, fit_cohort, both, cohort, test,
+                  results: dict) -> None:
+    """Steps 2 and 3 at the networks of ``WIDTHS_KERNEL_NETS`` (W, D, V
+    and W's 3-input body W3), each from the library built for its
+    shape, at the widths path's shapes: K1 at the screen (25,000 x 57
+    for W, the cut's 2,500 x 57 for the others), K2 and K3 at the
+    refinement and re-rank (25 x 57, the cut's 15 x 57), K4 at a
+    test-profile chunk (500 x 35), K5 at 2,304 x 57; each also at a
+    ragged shape with one network of huge weights.  Every body bit for
+    bit its plain version (K3 with the same ``ok`` mask); K5 also bit
+    for bit K2's lanes summed in order, against K2's packed route (the
+    age / 100 for 3 inputs) and, on the ragged shape, both layouts
+    against the float64 witness.  Then K1, K2 and K5 at the networks of
+    ``WIDTHS_PASSES``, bit for bit."""
+    from conditional_ude_tpu_torch.models.cpeptide import build_cohort
+    from conditional_ude_tpu_torch.nn import chain
+    from conditional_ude_tpu_torch.ops import (
+        lane_grad,
+        population_grad,
+        rk4_cohort,
+        rk4_population,
+        tsit5_cohort,
+    )
+    from conditional_ude_tpu_torch.ops.interp import linspace
+    from conditional_ude_tpu_torch.utils.stats import latin_hypercube
+    f32 = dict(dtype=torch.float32, device=dev)
+    tp = tuple(float(t) for t in fit_cohort.timepoints)
+    n_fit = fit_cohort.n
+    c_test = build_cohort(test.glucose, test.timepoints, test.cpeptide,
+                          test.ages, test.t2dm, dev)
+    for name, (widths, d) in WIDTHS_KERNEL_NETS.items():
+        net = chain(list(widths), input_dims=d)
+        with_age = d == 3
+        sfx = "c" if with_age else ""
+        p, n_kin = net.num_params, 4 + with_age
+        kin_fit = fit_cohort.kinetics(with_age=with_age)
+        fit_args = (fit_cohort.glucose, fit_cohort.cpeptide, kin_fit, tp)
+        g_screen, r_refine = WIDTHS_SHAPES["W" if name == "W" else ""]
+        flops, sfu = rk4_lane_work(net)
+        tag = f"{name} {widths}"
+
+        def designs(g: int, n: int, net=net):
+            return (torch.as_tensor(glorot(rng, net, g), **f32),
+                    torch.as_tensor(latin_hypercube(rng, g, n, -2.0,
+                                                    0.0), **f32))
+
+        def ragged(r: int, n: int, net=net, with_age=with_age):
+            pick = np.arange(n)
+            glucose = both.glucose[pick].copy()
+            glucose[-1] = [5.0, 6.0, 7.0, 8.0, 9.0]
+            c = build_cohort(glucose, both.timepoints,
+                             both.cpeptide[pick], both.ages[pick],
+                             both.t2dm[pick], dev)
+            nn = glorot(rng, net, r) * rng.uniform(0.5, 3.0, (r, 1))
+            nn[-1] = huge_net(net)
+            return (torch.as_tensor(nn, **f32),
+                    torch.as_tensor(rng.uniform(-3.0, 0.5, (r, n)),
+                                    **f32),
+                    c.glucose, c.cpeptide,
+                    c.kinetics(with_age=with_age), tp)
+
+        def entry(kid, err, call, plain, shape, bnd, reps, **extra):
+            results[f"{kid}{sfx} {name}"] = dict(
+                err=err, ms=cuda_ms(call, reps),
+                device=graph_ms(call, reps), plain=plain, shape=shape,
+                bound=bnd, kid=kid + sfx, widths=widths, **extra)
+
+        # -- K1 ------------------------------------------------------------
+        nn_s, b_s = designs(g_screen, n_fit)
+        screen = (nn_s, b_s, *fit_args)
+        err = exact(rk4_population.population_sse(net, *screen, 8),
+                    rk4_population.population_sse_reference(
+                        net, *screen, 8),
+                    f"K1{sfx} {tag} screen ({g_screen} x {n_fit})")
+        r_args = ragged(1237, 8)
+        out = rk4_population.population_sse(net, *r_args, 8)
+        if not bool(torch.isinf(out[-1])):
+            raise AssertionError(f"K1{sfx} {tag}: the huge-weight "
+                                 "restart's mean is not inf")
+        err = max(err, exact(out, rk4_population.population_sse_reference(
+            net, *r_args, 8), f"K1{sfx} {tag} ragged (1237 x 8)"))
+        entry("K1", err, lambda: rk4_population.population_sse(
+                  net, *screen, 8),
+              cuda_ms(lambda: rk4_population.population_sse_reference(
+                  net, *screen, 8), 1),
+              f"{g_screen} x {n_fit}",
+              bound(4 * (g_screen * (p + n_fit + 1)
+                         + n_fit * (10 + n_kin)),
+                    g_screen * n_fit * (flops + 1) + g_screen,
+                    g_screen * n_fit * sfu), 5)
+
+        # -- K4: a test-profile chunk, one network over its lanes ----------
+        s_pts, n = 500, c_test.n
+        lanes = s_pts * n
+
+        def expand(x, s_pts=s_pts, lanes=lanes):
+            return x.expand(s_pts, *x.shape).reshape(lanes, *x.shape[1:])
+
+        grid = torch.as_tensor(linspace(-3.0, 1.0, 10_000)[:s_pts],
+                               device=dev)
+        prof = (nn_s[0].expand(lanes, -1),
+                (grid[:, None] + torch.zeros(n, **f32)).reshape(-1),
+                expand(c_test.glucose), expand(c_test.cpeptide),
+                expand(c_test.kinetics(with_age=with_age)))
+        err = exact(rk4_cohort.cohort_sse(net, *prof, tp, 8),
+                    rk4_cohort.cohort_sse_reference(net, *prof, tp, 8),
+                    f"K4{sfx} {tag} test-profile chunk ({s_pts} x {n})")
+        # a network of its own a lane on random subjects, the last of
+        # huge weights on a rising glucose curve
+        n_lanes = 1237
+        pick = rng.integers(0, cohort.n, n_lanes)
+        nn_r = glorot(rng, net, n_lanes)
+        nn_r[-1] = huge_net(net)
+        glucose = both.glucose[pick].copy()
+        glucose[-1] = [5.0, 6.0, 7.0, 8.0, 9.0]
+        k4_ragged = (torch.as_tensor(nn_r, **f32),
+                     torch.as_tensor(rng.uniform(-4.0, 1.0, n_lanes),
+                                     **f32),
+                     torch.as_tensor(glucose, **f32),
+                     torch.as_tensor(both.cpeptide[pick], **f32),
+                     cohort.kinetics(with_age=with_age)[
+                         torch.as_tensor(pick, device=dev)].contiguous())
+        out = rk4_cohort.cohort_sse(net, *k4_ragged, tp, 8)
+        if not bool(torch.isinf(out[-1])):
+            raise AssertionError(f"K4{sfx} {tag}: the huge-weight "
+                                 "lane's SSE is not inf")
+        err = max(err, exact(out, rk4_cohort.cohort_sse_reference(
+            net, *k4_ragged, tp, 8), f"K4{sfx} {tag} ragged (1237 "
+            "lanes, a network a lane)"))
+        entry("K4", err, lambda: rk4_cohort.cohort_sse(net, *prof, tp, 8),
+              cuda_ms(lambda: rk4_cohort.cohort_sse_reference(
+                  net, *prof, tp, 8), 2),
+              f"test-profile chunk ({s_pts} x {n}, {lanes} lanes)",
+              bound(4 * (p + lanes * (12 + n_kin)), lanes * flops,
+                    lanes * sfu), 20)
+
+        # -- K2 ------------------------------------------------------------
+        per_point = mlp_flops(net) + vjp_flops(net)
+
+        def k2_compare(args, what, net=net):
+            sse, gnn, gb = lane_grad.lane_sse_and_grad(net, *args, 8)
+            ref = lane_grad.lane_sse_and_grad_reference(net, *args, 8)
+            e = compare(sse, ref[0], f"{what} value", GRAD_RTOL, 0.0)
+            same((sse, gnn, gb), ref, what)
+            return e
+
+        refine = (nn_s[:r_refine].contiguous(),
+                  b_s[:r_refine].contiguous(), *fit_args)
+        err = k2_compare(refine, f"K2{sfx} {tag} refine ({r_refine} x "
+                         f"{n_fit})")
+        err = max(err, k2_compare(ragged(7, 13), f"K2{sfx} {tag} ragged "
+                                  "(7 x 13)"))
+        lanes = r_refine * n_fit
+        entry("K2", err, lambda: lane_grad.lane_sse_and_grad(
+                  net, *refine, 8),
+              cuda_ms(lambda: lane_grad.lane_sse_and_grad_reference(
+                  net, *refine, 8), 2),
+              f"{r_refine} x {n_fit}",
+              bound(4 * (r_refine * p + lanes * (3 + p)
+                         + n_fit * (10 + n_kin)),
+                    lanes * (RK4_POINTS * per_point + 32 * 47 + 480),
+                    lanes * (RK4_POINTS * (mlp_sfu(net) + 1) + 1)), 20)
+
+        # -- K3 ------------------------------------------------------------
+        def k3_compare(args, what, net=net):
+            sse, ok = tsit5_cohort.cohort_sse_tsit5(net, *args)
+            r_sse, r_ok, steps, accepted = \
+                tsit5_cohort.cohort_sse_tsit5_reference(
+                    net, *args, return_steps=True)
+            if not torch.equal(ok, r_ok):
+                raise AssertionError(f"{what}: ok masks differ")
+            if not bool(torch.isinf(sse[~ok]).all()):
+                raise AssertionError(f"{what}: a failed lane's SSE is "
+                                     "not inf")
+            return exact(sse, r_sse, what), ok, steps, accepted
+
+        err, ok, steps, accepted = k3_compare(
+            refine, f"K3{sfx} {tag} re-rank ({r_refine} x {n_fit})")
+        e, ok_r, _, _ = k3_compare(ragged(1237, 1),
+                                   f"K3{sfx} {tag} ragged (1237 x 1)")
+        if bool(ok_r[-1, 0]):
+            raise AssertionError(f"K3{sfx} {tag}: the huge-weight lane "
+                                 "did not fail")
+        total = int(steps.sum())
+        entry("K3", max(err, e), lambda: tsit5_cohort.cohort_sse_tsit5(
+                  net, *refine),
+              cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5_reference(
+                  net, *refine), 1),
+              f"{r_refine} x {n_fit}, {lanes} lanes, {total} steps",
+              bound(4 * (r_refine * p + lanes * 2
+                         + n_fit * (10 + n_kin)) + lanes,
+                    *tsit5_work(net, lanes, total, int(accepted.sum()),
+                                int(ok.sum()), len(tp))), 20,
+              max_lane_steps=int(steps.max()))
+        k3 = results[f"K3{sfx} {name}"]
+        k3["us_per_step"] = k3["device"] * 1e3 / k3["max_lane_steps"]
+
+        # -- K5 ------------------------------------------------------------
+        nn_w, b_w = designs(XL_RESTARTS, n_fit)
+        wide_args = (nn_w, b_w, *fit_args)
+        ref, plain = timed_ms(
+            lambda: population_grad.restart_sse_and_grad_reference(
+                net, *wide_args, 8))
+        got = population_grad.restart_sse_and_grad(net, *wide_args, 8)
+        err = compare(got[0], ref[0], f"K5{sfx} {tag} value "
+                      f"({XL_RESTARTS} x {n_fit})", GRAD_RTOL, 0.0)
+        same(got, ref, f"K5{sfx} {tag} ({XL_RESTARTS} x {n_fit})")
+        del ref
+        sse, gnn, gb = lane_grad.lane_sse_and_grad(net, *wide_args, 8)
+        inv_n = np.float32(1.0 / n_fit)
+        mean = population_grad.sum_in_order(sse) * inv_n
+        same(got, (torch.where(torch.isfinite(mean), mean, torch.inf),
+                   population_grad.sum_in_order(gnn) * inv_n,
+                   gb * inv_n),
+             f"K5{sfx} {tag} against K2{sfx}'s lanes summed in order")
+        del sse, gnn, gb
+        kin = kin_fit.clone()
+        if with_age:           # the first layer not saturated
+            kin[:, 4] /= 100.0
+        scaled = (nn_w, b_w, fit_args[0], fit_args[1], kin, tp)
+        f_k, g_k, b_k = population_grad.restart_sse_and_grad(
+            net, *scaled, 8)
+        f_p, g_p, b_p = lane_grad.packed_sse_and_grad(net, *scaled, 8)
+        what = f"K5{sfx} {tag} against K2{sfx}'s packed route" + (
+            ", age / 100" if with_age else "")
+        compare(f_k, f_p, f"{what} value", GRAD_RTOL, 0.0)
+        compare_scaled(g_k, g_p, f"{what} grad nn")
+        compare_scaled(b_k, b_p, f"{what} grad beta")
+        r_args = ragged(130, 13)
+        same(population_grad.restart_sse_and_grad(net, *r_args, 8),
+             population_grad.restart_sse_and_grad_reference(
+                 net, *r_args, 8), f"K5{sfx} {tag} ragged (130 x 13)")
+        float64_witness(net, r_args, f"K5{sfx} {tag} and K2{sfx}'s "
+                        "packed route, ragged (130 x 13)", sfx)
+        lanes = XL_RESTARTS * n_fit
+        entry("K5", err, lambda: population_grad.restart_sse_and_grad(
+                  net, *wide_args, 8), plain,
+              f"{XL_RESTARTS} x {n_fit}",
+              bound(4 * (XL_RESTARTS * (p + n_fit)
+                         + n_fit * (10 + n_kin)
+                         + XL_RESTARTS * (1 + p + n_fit)),
+                    lanes * (RK4_POINTS * per_point + 32 * 47 + 480),
+                    lanes * (RK4_POINTS * (mlp_sfu(net) + 1) + 1)), 3)
+
+    # past 127 weights K2 and K5 sum the gradient in passes of 128
+    # columns: WIDTHS_PASSES, each body
+    for widths, d in itertools.product(WIDTHS_PASSES, (2, 3)):
+        net = chain(list(widths), input_dims=d)
+        sfx = "c" if d == 3 else ""
+        tag = f"{widths} on {d} inputs"
+        kin = fit_cohort.kinetics(with_age=d == 3)
+        fit_args = (fit_cohort.glucose, fit_cohort.cpeptide, kin, tp)
+
+        def restarts(r: int, net=net, fit_args=fit_args):
+            return (torch.as_tensor(glorot(rng, net, r), **f32),
+                    torch.as_tensor(latin_hypercube(rng, r, n_fit, -2.0,
+                                                    0.0), **f32), *fit_args)
+
+        nn_h = glorot(rng, net, 7)
+        nn_h[-1] = huge_net(net)
+        glucose = fit_cohort.glucose.clone()
+        glucose[-1] = torch.tensor([5.0, 6.0, 7.0, 8.0, 9.0], **f32)
+        huge = (torch.as_tensor(nn_h, **f32),
+                torch.as_tensor(rng.uniform(-3.0, 0.5, (7, n_fit)), **f32),
+                glucose, fit_cohort.cpeptide, kin, tp)
+        refine = restarts(25)
+        for args, what in ((refine, f"25 x {n_fit}"),
+                           (huge, f"7 x {n_fit}, a huge-weight restart")):
+            same(lane_grad.lane_sse_and_grad(net, *args, 8),
+                 lane_grad.lane_sse_and_grad_reference(net, *args, 8),
+                 f"K2{sfx} at {tag} ({what})")
+            same(population_grad.restart_sse_and_grad(net, *args, 8),
+                 population_grad.restart_sse_and_grad_reference(
+                     net, *args, 8), f"K5{sfx} at {tag} ({what})")
+        screen = restarts(2_500)
+        exact(rk4_population.population_sse(net, *screen, 8),
+              rk4_population.population_sse_reference(net, *screen, 8),
+              f"K1{sfx} at {tag} (2500 x {n_fit})")
+        wide_args = restarts(XL_RESTARTS)
+        got = population_grad.restart_sse_and_grad(net, *wide_args, 8)
+        sse, gnn, gb = lane_grad.lane_sse_and_grad(net, *wide_args, 8)
+        inv_n = np.float32(1.0 / n_fit)
+        mean = population_grad.sum_in_order(sse) * inv_n
+        same(got, (torch.where(torch.isfinite(mean), mean, torch.inf),
+                   population_grad.sum_in_order(gnn) * inv_n, gb * inv_n),
+             f"K5{sfx} at {tag} against K2{sfx}'s lanes summed in order "
+             f"({XL_RESTARTS} x {n_fit})")
+        del got, sse, gnn, gb
+        log(f"[kernel] K1{sfx}, K2{sfx}, K5{sfx} at {tag}, past one pass: "
+            "bit for bit")
+        k1_ms = graph_ms(lambda: rk4_population.population_sse(
+            net, *screen, 8), 5)
+        k2_ms = graph_ms(lambda: lane_grad.lane_sse_and_grad(
+            net, *refine, 8), 20)
+        k5_ms = graph_ms(lambda: population_grad.restart_sse_and_grad(
+            net, *wide_args, 8), 3)
+        log(f"[time] {tag}, on the device (CUDA graph): "
+            f"K1 at 2500 x {n_fit} {k1_ms:.4f} ms, K2 at 25 x {n_fit} "
+            f"{k2_ms:.4f} ms, K5 at {XL_RESTARTS} x {n_fit} {k5_ms:.4f} ms"
+            f"  [{card_line()}]")
 
 
 def main() -> None:
@@ -577,21 +971,32 @@ def main() -> None:
     log(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{kind}, {torch.cuda.device_count()} visible")
 
-    # -- build: one nvcc per source, all started together --------------------
+    # -- build: one nvcc per source and network shape, all started together --
     kernels = {"K4": rk4_cohort, "K1": rk4_population, "K2": lane_grad,
                "K3": tsit5_cohort, "K5": population_grad}
+    shapes = sorted({w for w, _ in WIDTHS_KERNEL_NETS.values()})
+    jobs = [(m.kernel.source, w) for w in [cuda_build.CANONICAL_WIDTHS,
+                                           *shapes]
+            for m in kernels.values()]
+    jobs += [(m.kernel.source, w) for w in WIDTHS_PASSES
+             for m in (rk4_population, lane_grad, population_grad)]
     t0 = time.perf_counter()
-    built = cuda_build.build_all([m.kernel.source for m in kernels.values()])
-    log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s")
-    for kid, mod in kernels.items():
-        lib, sec, build_log = built[mod.kernel.source]
-        log(f"[build] {kid} {lib.name} in {sec:.1f} s")
+    built = cuda_build.build_all(jobs)
+    log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s: "
+        f"{len(jobs)} libraries, the canonical network and "
+        f"{[*shapes, *WIDTHS_PASSES]}")
+    for job in jobs:
+        src, shape = job
+        kid = next(k for k, m in kernels.items() if m.kernel.source == src)
+        tag = "" if shape == cuda_build.CANONICAL_WIDTHS else f" {shape}"
+        lib, sec, build_log = built[job]
+        log(f"[build] {kid}{tag} {lib.name} in {sec:.1f} s")
         body = kid
         for line in build_log.splitlines():
             if "entry function" in line:     # the template's input count
                 body = kid + ("c" if "ILi3E" in line else "")
             elif "registers" in line or "spill" in line:
-                log(f"[ptxas] {body}: {line.strip()}")
+                log(f"[ptxas] {body}{tag}: {line.strip()}")
 
     def library(kid: str):
         mod = kernels[kid[:2]]
@@ -603,8 +1008,10 @@ def main() -> None:
 
     def reset_counts(*kids: str) -> None:
         for kid in kids:
-            setattr(kernels[kid[:2]],
-                    "launches_age" if kid.endswith("c") else "launches", 0)
+            counts = kernels[kid[:2]].shape_launches
+            inputs = 3 if kid.endswith("c") else 2
+            for shape in [s for s in counts if s[0] == inputs]:
+                del counts[shape]
 
     f32 = dict(dtype=torch.float32, device=dev)
     train, test = load_npz(ARTIFACTS / "ohashi.npz")
@@ -648,7 +1055,7 @@ def main() -> None:
             c = build_cohort(glucose, both.timepoints, both.cpeptide[pick],
                              both.ages[pick], both.t2dm[pick], dev)
             nn = glorot(rng, net, r) * rng.uniform(0.5, 3.0, (r, 1))
-            nn[-1] = huge_weights(d)
+            nn[-1] = huge_net(net)
             return (torch.as_tensor(nn, **f32),
                     torch.as_tensor(rng.uniform(-3.0, 0.5, (r, n)), **f32),
                     c.glucose, c.cpeptide, c.kinetics(with_age=with_age), tp)
@@ -694,7 +1101,7 @@ def main() -> None:
         n_lanes = 1237
         pick = rng.integers(0, cohort.n, n_lanes)
         nn_r = glorot(rng, net, n_lanes)
-        nn_r[-1] = huge_weights(d)
+        nn_r[-1] = huge_net(net)
         glucose = both.glucose[pick].copy()
         glucose[-1] = [5.0, 6.0, 7.0, 8.0, 9.0]
         k4_ragged = (torch.as_tensor(nn_r, **f32),
@@ -715,7 +1122,7 @@ def main() -> None:
                           reps=50)
         plain = cuda_ms(lambda: rk4_cohort.cohort_sse_reference(
             net, *prof, tp, 8), reps=3)
-        flops, sfu = rk4_lane_work(d)
+        flops, sfu = rk4_lane_work(net)
         results["K4" + sfx] = dict(
             err=err, ms=ms, device=device, plain=plain,
             shape=f"{chunk[:-1]}, {lanes} lanes)",
@@ -754,7 +1161,7 @@ def main() -> None:
         def k1_bound(g, n=n_fit):
             """Every (restart, individual) lane's least work; the mean of
             each restart."""
-            flops, sfu = rk4_lane_work(d)
+            flops, sfu = rk4_lane_work(net)
             return bound(4 * (g * (p + n + 1) + n * (10 + n_kin)),
                          g * n * (flops + 1) + g, g * n * sfu)
 
@@ -790,7 +1197,7 @@ def main() -> None:
         # its stored activations (tanh' from h, one expf for the softplus'
         # sigmoid) and the accumulation; the kernel's second forward is its
         # own cost.  A 3rd input adds its 4 weight gradients.
-        per_point = mlp_flops(d) + 95 + 38 + 8 * (d - 2)
+        per_point = mlp_flops(net) + vjp_flops(net)
 
         def k2_bound(r, n, substeps=8):
             """At ``substeps`` the network runs at 1 + 4 (2 substeps + 1)
@@ -801,7 +1208,7 @@ def main() -> None:
                               + n * (10 + n_kin)),
                          lanes * (points * per_point + 4 * substeps * 47
                                   + 480),
-                         lanes * (points * (MLP_SFU + 1) + 1))
+                         lanes * (points * (mlp_sfu(net) + 1) + 1))
 
         results["K2" + sfx] = dict(
             err=err, ms=ms, device=device, plain=plain,
@@ -843,7 +1250,7 @@ def main() -> None:
                 shape=f"{r} x {n}, {lanes} lanes, {total} steps",
                 bound=bound(4 * (r * p + lanes * 2 + n * (10 + n_kin))
                             + lanes,
-                            *tsit5_work(d, lanes, total, int(accepted.sum()),
+                            *tsit5_work(net, lanes, total, int(accepted.sum()),
                                         int(ok.sum()), len(args[-1]))))
 
         err, path_ok, counts = k3_compare(
@@ -895,47 +1302,6 @@ def main() -> None:
                        (*lane_grad.packed_sse_and_grad(net, *args, 8), False),
                        grad_nn)
 
-        def against_float64(args, what):
-            """The weight gradient of both layouts against a float64 witness
-            on the same float32 inputs: the packed plain version run in
-            float64, which also gives each entry's sum of absolute
-            per-point terms.  Where the terms cancel, that sum and not the
-            entry is the scale of a float32 route's rounding, in either
-            order of the sum.  Each row of each route must lie within
-            ``WITNESS_EPS`` float32 roundings of its largest sum of terms;
-            rows that are not finite must be the same rows in both."""
-            a64 = tuple(t.double() if torch.is_tensor(t) else t for t in args)
-            inv_n = 1.0 / args[1].shape[1]
-            _, gnn, _, mag, _ = lane_grad.lane_sse_and_grad_reference(
-                net, *a64, 8, magnitudes=True)
-            g64, terms = gnn.sum(1) * inv_n, mag.sum(1) * inv_n
-            routes = {
-                f"K5{sfx}": population_grad.restart_sse_and_grad(
-                    net, *args, 8)[1],
-                f"K2{sfx} packed": lane_grad.packed_sse_and_grad(
-                    net, *args, 8)[1]}
-            k5_fin, k2_fin = (torch.isfinite(g).all(-1)
-                              for g in routes.values())
-            if not torch.equal(k5_fin, k2_fin):
-                raise AssertionError(f"{what}: non-finite rows differ "
-                                     "between the layouts")
-            fin = k5_fin & torch.isfinite(terms).all(-1)
-            scale = terms[fin].amax(-1, keepdim=True).clamp_min(1e-300)
-            cancel = g64[fin].abs().amax(-1) / scale[:, 0]
-            worst = {k: float(((g[fin].double() - g64[fin]).abs()
-                               / scale).max()) / EPS32
-                     for k, g in routes.items()}
-            log(f"[kernel] {what} grad nn against float64: {int(fin.sum())} "
-                "finite rows; a row's largest entry over its largest sum of "
-                f"|terms|: median {float(cancel.median()):.3e}, least "
-                f"{float(cancel.min()):.3e}; worst error in float32 "
-                "roundings of that sum: "
-                + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
-            if max(worst.values()) > WITNESS_EPS:
-                raise AssertionError(
-                    f"{what}: {worst} float32 roundings from the float64 "
-                    f"witness, limit {WITNESS_EPS}")
-
         r_args = ragged(130, 13)
         f = population_grad.restart_sse_and_grad(net, *r_args, 8)[0]
         if not bool(torch.isinf(f[-1])):
@@ -948,8 +1314,8 @@ def main() -> None:
         # the float64 witness only (see the wide shape below)
         k5_against_packed(r_args, f"K5{sfx} against K2{sfx}'s packed route, "
                           "ragged (130 x 13)", grad_nn=not with_age)
-        against_float64(r_args, f"K5{sfx} and K2{sfx}'s packed route, ragged "
-                        "(130 x 13)")
+        float64_witness(net, r_args, f"K5{sfx} and K2{sfx}'s packed route, "
+                        "ragged (130 x 13)", sfx)
         r_wide = XL_RESTARTS
         nn_s, b_s = designs(r_wide, n_fit)
         k5_path = (nn_s, b_s, *fit_args)
@@ -979,8 +1345,8 @@ def main() -> None:
             k5_against_packed((nn_s, b_s, fit_args[0], fit_args[1], kin, tp),
                               f"K5c against K2c's packed route, age / 100 "
                               f"({r_wide} x {n_fit})")
-        against_float64(k5_path, f"K5{sfx} and K2{sfx}'s packed route "
-                        f"({r_wide} x {n_fit})")
+        float64_witness(net, k5_path, f"K5{sfx} and K2{sfx}'s packed route "
+                        f"({r_wide} x {n_fit})", sfx)
         # at a trained optimum the individuals' gradients cancel as well:
         # the committed candidates with their training betas on their fit
         # subjects
@@ -992,9 +1358,9 @@ def main() -> None:
         trained = (torch.as_tensor(cand["nn_params"], **f32),
                    torch.as_tensor(cand["betas"][..., 0], **f32).contiguous(),
                    c.glucose, c.cpeptide, c.kinetics(with_age=with_age), tp)
-        against_float64(trained, f"K5{sfx} and K2{sfx}'s packed route on the "
-                        f"committed candidates ({trained[1].shape[0]} x "
-                        f"{c.n})")
+        float64_witness(net, trained, f"K5{sfx} and K2{sfx}'s packed route on "
+                        f"the committed candidates ({trained[1].shape[0]} x "
+                        f"{c.n})", sfx)
         ms = cuda_ms(lambda: population_grad.restart_sse_and_grad(
             net, *k5_path, 8), reps=5)
         device = graph_ms(lambda: population_grad.restart_sse_and_grad(
@@ -1007,7 +1373,7 @@ def main() -> None:
             bound=bound(4 * (r_wide * (p + n_fit) + n_fit * (10 + n_kin)
                              + r_wide * (1 + p + n_fit)),
                         lanes * (69 * per_point + 32 * 47 + 480),
-                        lanes * (69 * (MLP_SFU + 1) + 1)))
+                        lanes * (69 * (mlp_sfu(net) + 1) + 1)))
         ms = cuda_ms(lambda: lane_grad.lane_sse_and_grad(net, *k5_path, 8),
                      reps=20)
         device = graph_ms(lambda: lane_grad.lane_sse_and_grad(
@@ -1056,7 +1422,7 @@ def main() -> None:
                              sub.ages, sub.t2dm, dev)
             n, c_args = c.n, (c.glucose, c.cpeptide, c.kinetics(), tp)
             nn_s, b_s = designs(ABLATION_INITS, n)
-            nn_s[-1] = torch.as_tensor(huge_weights(2), **f32)
+            nn_s[-1] = torch.as_tensor(huge_net(net), **f32)
             screen = (nn_s, b_s, *c_args)
             out = rk4_population.population_sse(net, *screen, 8)
             if not bool(torch.isinf(out[-1])):
@@ -1110,7 +1476,7 @@ def main() -> None:
             "nn_params"][0], **f32)
         c_train = build_cohort(train.glucose, train.timepoints,
                                train.cpeptide, train.ages, train.t2dm, dev)
-        flops, sfu = rk4_lane_work(2)
+        flops, sfu = rk4_lane_work(net)
         for what, c, m in (("a step's proposals and states", c_train, 2),
                            ("an iteration's likelihood", c_train, 1),
                            ("a posterior chains' step", cohort, 1)):
@@ -1126,7 +1492,7 @@ def main() -> None:
                         rk4_cohort.cohort_sse_reference(net, *path, tp, 8),
                         f"K4 SAEM {shape}")
             own = glorot(rng, net, lanes)
-            own[-1] = huge_weights(2)
+            own[-1] = huge_net(net)
             glucose = rows[0].clone()
             glucose[-1] = torch.tensor([5.0, 6.0, 7.0, 8.0, 9.0], **f32)
             lane_args = (torch.as_tensor(own, **f32), path[1], glucose,
@@ -1244,7 +1610,7 @@ def main() -> None:
         results["K4"]["err"] = max(results["K4"]["err"], exact(
             rk4_cohort.cohort_sse(net, *prof, tp, 8),
             rk4_cohort.cohort_sse_reference(net, *prof, tp, 8), f"K4 {shape}"))
-        flops, sfu = rk4_lane_work(2)
+        flops, sfu = rk4_lane_work(net)
         advi_times[f"K4 {lanes}"] = dict(
             ms=cuda_ms(lambda: rk4_cohort.cohort_sse(net, *prof, tp, 8),
                        reps=20),
@@ -1326,7 +1692,7 @@ def main() -> None:
                 rk4_cohort.cohort_sse(net, *path, tp, 8),
                 rk4_cohort.cohort_sse_reference(net, *path, tp, 8),
                 f"{kid} {shape}"))
-            flops, sfu = rk4_lane_work(d)
+            flops, sfu = rk4_lane_work(net)
             gallery_times[f"{kid} {lanes}"] = dict(
                 ms=cuda_ms(lambda: rk4_cohort.cohort_sse(net, *path, tp, 8),
                            reps=50),
@@ -1342,10 +1708,12 @@ def main() -> None:
     saem_times = {}         # K4 and K2 at SAEM's shapes
     advi_times = {}         # K2 and K4 at exp_advi's shapes
     gallery_times = {}      # K4 and K4c at the gallery's CI chunk
+    widths_results = {}     # every body at WIDTHS_KERNEL_NETS
     kernel_phase(2)
     kernel_phase(3)
     live_age_check()
     gallery_shapes()
+    widths_shapes(dev, rng, fit_cohort, both, cohort, test, widths_results)
 
     def notes(r) -> str:
         plain = f", plain {r['plain']:.3f} ms" if "plain" in r else ""
@@ -1357,8 +1725,10 @@ def main() -> None:
 
     for kid, r in [*results.items(), *wide.items(),
                    *ablation_times.items(), *saem_times.items(),
-                   *advi_times.items(), *gallery_times.items()]:
-        log(f"[time] {kid.split()[0]} at {r['shape']}: kernel "
+                   *advi_times.items(), *gallery_times.items(),
+                   *widths_results.items()]:
+        label = f"{kid} {r['widths']}" if "widths" in r else kid.split()[0]
+        log(f"[time] {label} at {r['shape']}: kernel "
             f"{r['ms']:.4f} ms{notes(r)}  [{card}]")
     if args.kernels_only:
         log(json.dumps({"ok": None, "partial": "kernels"}))
@@ -1514,12 +1884,27 @@ def main() -> None:
                              + "\n  ".join(failures))
 
     # -- the paths run beside the ones above ----------------------------------
-    finish_side(side, t_start)
+    reports = finish_side(side, t_start)
+    # the widths path's launches of each body at each network shape
+    by_shape = reports.get("widths", {}).get("shape_launches", {})
+    for r in widths_results.values():
+        r["launches"] = by_shape.get(
+            f"{KERNEL_MODULES[r['kid'][:2]]}"
+            f"{' (3-input)' if r['kid'].endswith('c') else ''} {r['widths']}",
+            0)
+    log("[path] launches of the widths path by body and shape: "
+        + ", ".join(f"{k} {r['launches']}" for k, r in widths_results.items()))
     log(f"[time] whole script: {time.perf_counter() - t_start:.2f} s  "
         f"[{card}]")
 
+    # every canonical body, and each body at another network that the
+    # widths path launched (W3, W's 3-input body, is not on a path: its
+    # checks and times are in the log)
+    listed = [(kid, r, "") for kid, r in results.items()] + [
+        (r["kid"], r, f" {r['widths']}") for r in widths_results.values()
+        if r["launches"]]
     log(json.dumps({"kernels": [{
-        "name": library(kid).name,
+        "name": library(kid).name + shape,
         "route": "cuda",
         "source": str(library(kid).source.relative_to(REPO)),
         "replaces": REPLACES[kid],
@@ -1533,7 +1918,7 @@ def main() -> None:
         "library_ms": None,
         **{key: r[key] for key in ("max_lane_steps", "us_per_step")
            if key in r},
-    } for kid, r in results.items()]}))
+    } for kid, r, shape in listed]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
@@ -1553,7 +1938,7 @@ def main() -> None:
 # replication driver, the generic route and the ETL path, the four children
 # that ended first after that, each group sized to end by ~850 s
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04", "etl",
-         "smoke 4"),
+         "smoke 4", "widths"),
         ("exp_symreg_production", "exp_advi", "exp_suppression",
          "exp_symreg_search", "generic", "smoke 3"),
         (*(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
@@ -1895,6 +2280,30 @@ GENERIC_SIGMA_RTOL = 2e-2
 GENERIC_STAGES = ("A", "B", "C fit", "C evaluate")
 
 
+# the widths path (28.): networks other than chain(4, 2) through the
+# kernels, W, D and V at scripts/widths_reference.py's cut against JAX on
+# the CPU, W at exp02's training, and K5 at each; W3 is W's 3-input body,
+# held in the kernel phase only
+WIDTHS_NETS = ("W", "D", "V")
+WIDTHS_KERNEL_NETS = {"W": ((8, 8), 2), "D": ((4, 4, 4), 2),
+                      "V": ((6, 3), 3), "W3": ((8, 8), 3)}
+WIDTHS_SCREEN_RTOL = 1e-5           # the RK4 kernels' (test_pallas_rk4.py)
+WIDTHS_RERANK = dict(rtol=2e-2, atol=1e-3)     # the Tsit5 kernel's
+# V's first layer sees the raw ages and works where XLA's float32 tanh on
+# the CPU reaches 1 early (scripts/widths_reference.py): its re-ranked
+# objectives are held to JAX's training with a tanh as accurate as the
+# kernels' (JAX's own objectives move up to 3.2 % between the two)
+WIDTHS_ACCURATE_TANH = ("V",)
+WIDTHS_K5_STEPS = 5
+# the kernel phase's screen designs and refinement restarts at W (the
+# widths path's full training) and at the other networks (its cut)
+WIDTHS_SHAPES = {"W": (25_000, 25), "": (2_500, 15)}
+# networks past 127 weights, whose gradient K2 and K5 sum in passes of 128
+# columns (chain(12, 2): 205 weights, 2 passes), held in the kernel phase
+# by K1, K2 and K5 (tests/test_torch_cuda.py trains chain(20, 2) too)
+WIDTHS_PASSES = ((12, 12),)
+
+
 # the experiments at --smoke (27.), each in a process of its own: (name,
 # its arguments beside --smoke, the kernels it must launch, as a set, or
 # their exact launch counts), in four groups (seconds on an NVIDIA H100
@@ -1903,6 +2312,8 @@ GENERIC_STAGES = ("A", "B", "C fit", "C evaluate")
 # exp06a 46; exp02_seeds 120, exp05 111, exp06 64; exp_symreg_production
 # 131, exp_advi 13, exp_suppression 32, exp06b 38; exp03 69, exp04 75)
 K1, K2, K3, K4 = "rk4_population", "lane_grad", "tsit5_cohort", "rk4_cohort"
+KERNEL_MODULES = {"K1": K1, "K2": K2, "K3": K3, "K4": K4,
+                  "K5": "population_grad"}
 TRAIN_KERNELS = frozenset({K1, K2, K3})
 SMOKE_RUNS = {
     "smoke 1": (
@@ -2073,6 +2484,10 @@ def new_paths(dev):
                 frozenset({"lane_grad"})),
         "generic": (lambda: run_generic_path(dev), check_generic_path,
                     none),
+        "widths": (lambda: run_widths_path(dev), check_widths_path,
+                   frozenset(k + tag for k in (K1, K2, K3, K4,
+                                               "population_grad")
+                             for tag in ("", " (3-input)"))),
         **{group: (lambda group=group: run_smoke_path(dev, group),
                    check_smoke_path, none) for group in SMOKE_RUNS},
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
@@ -2219,7 +2634,7 @@ def run_advi_path(dev):
     stdout, stderr = io.StringIO(), io.StringIO()
     for mod in (rk4_cohort, rk4_population, lane_grad, tsit5_cohort,
                 population_grad):
-        mod.launches = mod.launches_age = 0
+        mod.shape_launches.clear()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(
             stderr):
@@ -2373,7 +2788,7 @@ def run_figures_path(dev):
     mods = (rk4_cohort, rk4_population, lane_grad, tsit5_cohort,
             population_grad)
     for mod in mods:
-        mod.launches = mod.launches_age = 0
+        mod.shape_launches.clear()
     t0 = time.perf_counter()
     run = fp.run_exp_figures(dev, ARTIFACTS, out=out)
     seconds = {"gallery": time.perf_counter() - t0, **run.seconds}
@@ -2538,6 +2953,185 @@ def run_generic_path(dev, reference: Path = GENERIC_REFERENCE,
             lbfgs_iters=cfg0["evaluate_iters"], **kw)))
     return SimpleNamespace(**out, seconds=seconds, launched=launched,
                            reference=Path(reference))
+
+
+def _shape_counts() -> dict[str, int]:
+    """Launches by body and network shape in this process so far, e.g.
+    ``{"lane_grad (8, 8)": 12, "rk4_cohort (3-input) (6, 3)": 1}``."""
+    from conditional_ude_tpu_torch.__main__ import launches
+    from conditional_ude_tpu_torch.ops import (
+        lane_grad,
+        population_grad,
+        rk4_cohort,
+        rk4_population,
+        tsit5_cohort,
+    )
+    launches()        # the same modules, in the entry point's order
+    out = {}
+    for mod in (rk4_cohort, rk4_population, lane_grad, tsit5_cohort,
+                population_grad):
+        short = mod.__name__.rsplit(".", 1)[1]
+        for (d, widths), n in mod.shape_launches.items():
+            out[f"{short}{' (3-input)' if d == 3 else ''} {widths}"] = n
+    return out
+
+
+def _shape_launched_since(before: dict[str, int]) -> dict[str, int]:
+    after = _shape_counts()
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
+def widths_reference():
+    """``scripts/widths_reference.py`` (its numpy ``designs``; JAX is
+    imported only in its ``main``) and its JSON."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import widths_reference as ref
+    return ref, json.loads(ref.OUT.read_text())
+
+
+def run_widths_path(dev, parts=("parity", "full", "k5")):
+    """Training and profiles at networks other than ``chain(4, 2)`` through
+    the kernels (library calls: no entry point takes a width), on exp02's
+    57-subject fit split, its 25 validation and 35 test subjects:
+
+    * ``parity``: W, D and V (``WIDTHS_NETS``) at
+      ``scripts/widths_reference.py``'s cut from its numpy designs (2,500
+      designs, 15 restarts, 100 Adam and 10 L-BFGS steps, the Tsit5
+      re-rank);
+    * ``full``: W at ``TrainConfig()`` (exp02's 25,000 designs, 25
+      restarts, 1,000 + 1,000 steps), then at the best restart the (β, σ)
+      refit of all 117 subjects (1,000 L-BFGS steps, exp02's), the test
+      profiles (35 × 10,000) and the census (117 × 1,000) through K4;
+    * ``k5``: ``WIDTHS_K5_STEPS`` Adam steps at ``XL_RESTARTS`` restarts
+      (131,328 lanes, K5's width) for W, D and V, then K5 against K2's
+      packed route at the trained restarts, and one test-profile chunk of
+      D and of V (K4 and K4c at those shapes).
+
+    Each stage's seconds and its launches by body and shape."""
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch.analysis.profiles import (
+        classify_identifiability,
+        cohort_beta_profiles,
+        find_confidence_intervals,
+    )
+    from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
+    from conditional_ude_tpu_torch.fit.train import (
+        TrainConfig,
+        train_conditional,
+    )
+    from conditional_ude_tpu_torch.models.cpeptide import (
+        CPeptideModel,
+        build_cohort,
+    )
+    from conditional_ude_tpu_torch.nn import chain
+    from conditional_ude_tpu_torch.ops import lane_grad, population_grad
+    from conditional_ude_tpu_torch.pipeline import SEED, refit_split
+    from conditional_ude_tpu_torch.utils.stats import (
+        spearman,
+        stratified_split,
+    )
+    ref, want = widths_reference()
+    cfg0 = want["config"]
+    train, test = load_npz(ARTIFACTS / "ohashi.npz")
+    idx_fit, _ = stratified_split(np.random.default_rng(cfg0["seed"]),
+                                  train.types, 0.7)
+
+    def cohort(split):
+        return build_cohort(split.glucose, split.timepoints, split.cpeptide,
+                            split.ages, split.t2dm, dev)
+
+    fit = cohort(train.subset(idx_fit))
+    seconds, launched, out = {}, {}, {}
+
+    def stage(name, fn):
+        before, t0 = _shape_counts(), time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds[name], launched[name] = (time.perf_counter() - t0,
+                                         _shape_launched_since(before))
+        return res
+
+    def model_of(name):
+        widths, inputs, kind = ref.NETS[name]
+        return CPeptideModel(chain(list(widths), "tanh", input_dims=inputs),
+                             kind)
+
+    if "parity" in parts:
+        cfg = TrainConfig(**{k: cfg0[k] for k in (
+            "initial_guesses", "selected_initials", "adam_iters",
+            "lbfgs_iters", "substeps", "max_steps")})
+        for name in WIDTHS_NETS:
+            model = model_of(name)
+            nn, betas = ref.designs(*ref.NETS[name][:2], fit.n,
+                                    cfg.lhs_lower, cfg.lhs_upper)
+            res = stage(f"parity {name}", lambda: train_conditional(
+                model, fit, cfg, designs=(nn, betas)))
+            out[f"parity {name}"] = SimpleNamespace(
+                res=res, sums=ref.checksums(nn, betas),
+                lhs=(cfg.lhs_lower, cfg.lhs_upper))
+    if "full" in parts:
+        model = model_of("W")
+        tr = stage("W train", lambda: train_conditional(
+            model, fit, TrainConfig(),
+            generator=torch.Generator(device=dev).manual_seed(SEED),
+            seed=SEED))
+        best = int(torch.argmin(tr.objectives))
+        nn_best = tr.nn_params[best]
+        bb = tr.betas[best].cpu().numpy().ravel()
+        lb, ub = bb.min() - 0.1 * abs(bb.min()), bb.max() + 0.1 * abs(bb.max())
+        b, s, _ = stage("W refit", lambda: refit_split(
+            model, nn_best, (cohort(train), cohort(test)), (lb, ub), 1000))
+        n_train = len(train.ages)
+        prof = stage("W profile_test", lambda: cohort_beta_profiles(
+            model, nn_best, cohort(test), sigmas=s[n_train:],
+            lower=float(lb) - 1.0, upper=float(ub) + 1.0, steps=10_000))
+        both = OhashiSplit.concatenate(train, test)
+        census = stage("W census", lambda: cohort_beta_profiles(
+            model, nn_best, cohort(both), sigmas=s, lower=-10.0, upper=10.0,
+            steps=1000, center=b))
+        counts = classify_identifiability(find_confidence_intervals(
+            census, "cantelli95"))
+        orientation = float(tr.orientations[best])
+        out["full"] = SimpleNamespace(
+            training=tr, best=best, beta=b, sigma=s, profile=prof,
+            census=census,
+            census_counts={k: int((counts == k).sum())
+                           for k in np.unique(counts)},
+            spearman=spearman(orientation * b, both.first_phase))
+    if "k5" in parts:
+        lanes = XL_RESTARTS * fit.n
+        for name in WIDTHS_NETS:
+            model = model_of(name)
+            cfg = TrainConfig(initial_guesses=XL_RESTARTS,
+                              selected_initials=XL_RESTARTS,
+                              adam_iters=WIDTHS_K5_STEPS, lbfgs_iters=0)
+            tr = stage(f"k5 {name}", lambda: train_conditional(
+                model, fit, cfg,
+                generator=torch.Generator(device=dev).manual_seed(SEED),
+                seed=SEED))
+            kin = fit.kinetics(with_age=model.with_age)
+            if model.with_age:      # the first layer not saturated (§2)
+                kin = kin.clone()
+                kin[:, 4] /= 100.0
+            args = (tr.nn_params.contiguous(),
+                    tr.betas[..., 0].contiguous(), fit.glucose,
+                    fit.cpeptide, kin, tuple(float(t) for t in
+                                             fit.timepoints))
+            assert lane_grad.takes_restart_kernel(XL_RESTARTS, fit.n)
+            k5 = population_grad.restart_sse_and_grad(model.net, *args, 8)
+            packed = lane_grad.packed_sse_and_grad(model.net, *args, 8)
+            out[f"k5 {name}"] = SimpleNamespace(res=tr, k5=k5, packed=packed,
+                                                lanes=lanes)
+            if name != "W":
+                stage(f"profile {name}", lambda: cohort_beta_profiles(
+                    model, tr.nn_params[0], cohort(test),
+                    sigmas=1.0, lower=-4.0, upper=1.0, steps=500))
+    return SimpleNamespace(**{k.replace(" ", "_"): v for k, v in out.items()},
+                           seconds=seconds, launched=launched, want=want,
+                           parts=parts)
 
 
 def run_mesh_path(dev):
@@ -2753,7 +3347,7 @@ def run_side(names: list[str], out: Path) -> None:
     report = {}
     for name in names:
         for mod in mods:
-            mod.launches = mod.launches_age = 0
+            mod.shape_launches.clear()
         run, check, kernels = paths[name]
         t0 = time.perf_counter()
         res = run()
@@ -2766,6 +3360,7 @@ def run_side(names: list[str], out: Path) -> None:
         launched = launches()
         log(f"[path] kernel launches during {name}: {launched or 'none'}")
         report[name] = {"failures": check(res), "launches": launched,
+                        "shape_launches": _shape_counts(),
                         "must_launch": sorted(kernels), "seconds": wall,
                         "ended": time.time()}
         if name.startswith("exp01 retrain"):
@@ -2818,14 +3413,14 @@ def start_side() -> list:
     return procs
 
 
-def finish_side(procs: list, t_start: float) -> None:
+def finish_side(procs: list, t_start: float) -> dict:
     """Wait for the children, print their logs, and fail on any failure:
     a child that did not end well, a path not run, a check that failed, a
     kernel launched that the path must not launch, or one it must launch
-    that it did not."""
+    that it did not.  Returns each path's report."""
     import os
     import signal
-    failures, retrains = [], []
+    failures, retrains, reports = [], [], {}
     epoch_start = time.time() - (time.perf_counter() - t_start)
     for i, (proc, names, out, logf) in enumerate(procs):
         try:
@@ -2838,6 +3433,7 @@ def finish_side(procs: list, t_start: float) -> None:
         for line in logf.read_text().splitlines():
             log(line)
         report = json.loads(out.read_text()) if out.exists() else {}
+        reports.update(report)
         if rc != 0:
             failures.append(f"child {i} exited with {rc}")
         for name in names:
@@ -2859,6 +3455,7 @@ def finish_side(procs: list, t_start: float) -> None:
     if failures:
         raise AssertionError("paths beside the main one failed:\n  "
                              + "\n  ".join(failures))
+    return reports
 
 
 def check_etl_path(res) -> list[str]:
@@ -2949,7 +3546,7 @@ def _held(got, want, lim, what: str) -> list[str]:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     miss = np.abs(got - want)
     lim = np.broadcast_to(lim, miss.shape)
-    log(f"[check] generic {what}: largest miss {miss.max():.6g}, largest "
+    log(f"[check] {what}: largest miss {miss.max():.6g}, largest "
         f"share of its limit {(miss / lim).max():.4g}")
     bad = np.flatnonzero(~(miss <= lim))
     return [f"{what}: entry {i} {got.flat[i]} vs {want.flat[i]} (limit "
@@ -3034,7 +3631,7 @@ def check_generic_path(res) -> list[str]:
         failures += _held(tr.screen_losses.cpu().numpy(),
                           want["screen_losses"], tol["atol"] + tol["rtol"]
                           * np.abs(np.asarray(want["screen_losses"])),
-                          f"{path} screen (rtol {tol['rtol']} + atol "
+                          f"generic {path} screen (rtol {tol['rtol']} + atol "
                           f"{tol['atol']})")
         trace = tr.loss_traces[:, :GENERIC_TRACE_STEPS].cpu().numpy()
         what = f"{path} first {GENERIC_TRACE_STEPS} Adam losses"
@@ -3046,7 +3643,7 @@ def check_generic_path(res) -> list[str]:
             want_tr = np.asarray(want["loss_traces"])[:, :GENERIC_TRACE_STEPS]
             failures += _held(trace, want_tr,
                               GENERIC_TRACE_RTOL * np.abs(want_tr),
-                              f"{what} (rtol {GENERIC_TRACE_RTOL})")
+                              f"generic {what} (rtol {GENERIC_TRACE_RTOL})")
         best, jax_best = float(tr.objectives[0]), want["objectives"][0]
         moved = [r["objectives"][0] for r in want.get("u0_ulp_runs", [])]
         limit = max([GENERIC_BEST_RATIO * jax_best, *moved])
@@ -3068,6 +3665,176 @@ def check_generic_path(res) -> list[str]:
     failures += _within_spread(c.evaluate.cpu().numpy(), want, "evaluate",
                                True, GENERIC_SIGMA_RTOL,
                                "C selection objectives")
+    return failures
+
+
+def _body(kernel: str, name: str) -> str:
+    """The ``_shape_counts`` key of a kernel module's body at a network of
+    ``WIDTHS_NETS``/``WIDTHS_KERNEL_NETS``."""
+    widths, inputs = WIDTHS_KERNEL_NETS[name]
+    return f"{kernel}{' (3-input)' if inputs == 3 else ''} {widths}"
+
+
+def _launched_as(got: dict, want: dict, what: str) -> list[str]:
+    """``got`` launches by body and shape: exactly ``want``'s bodies, each
+    its count, or more than 0 where ``want`` says ``None``."""
+    log(f"[check] widths {what}: launches {got or 'none'}")
+    ok = set(got) == set(want) and all(
+        got[k] > 0 if n is None else got[k] == n for k, n in want.items())
+    return [] if ok else [f"{what} launched {got or 'none'}, must launch "
+                          f"{want} (None: more than 0) and nothing else"]
+
+
+def _by_first_loss(got, want) -> np.ndarray:
+    """For each restart of ``got`` the restart of ``want`` whose first Adam
+    loss (its selected design's) is nearest: a permutation, or a
+    failure."""
+    match = np.array([int(np.argmin(np.abs(np.asarray(want) - g)))
+                      for g in got])
+    if sorted(match) != list(range(len(want))):
+        raise AssertionError(f"restarts do not match by their first loss: "
+                             f"{match}")
+    return match
+
+
+def _rerank_held(got, want, what: str, held: bool = True) -> list[str]:
+    """Each re-ranked objective within ``WIDTHS_RERANK`` of ``want``'s for
+    the same restart (only printed where not ``held``)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    miss = np.abs(got - want)
+    outside = ~(miss <= WIDTHS_RERANK["atol"]
+                + WIDTHS_RERANK["rtol"] * np.abs(want))
+    rel = miss / np.abs(want)
+    log(f"[check] {what}{'' if held else ' (printed, not held)'}: largest "
+        f"relative miss {rel.max():.4g}; {int(outside.sum())} of {rel.size} "
+        f"outside rtol {WIDTHS_RERANK['rtol']} + atol "
+        f"{WIDTHS_RERANK['atol']} (restarts {np.flatnonzero(outside).tolist()}"
+        f", relative misses {np.round(rel[outside], 5).tolist()})")
+    return [f"{what}: restart {i} {got[i]} vs {want[i]}, beyond rtol "
+            f"{WIDTHS_RERANK['rtol']} + atol {WIDTHS_RERANK['atol']}"
+            for i in np.flatnonzero(outside)] if held else []
+
+
+def check_widths_path(res) -> list[str]:
+    """The widths path (``run_widths_path``): at the cut, W, D and V
+    against the JAX package on the CPU (``scripts/widths_reference.json``):
+    the designs' checksums and the LHS bounds as JAX's, every screen loss
+    within rtol 1e-5, each restart's first 10 Adam losses rtol 1e-4, its
+    re-ranked objective rtol 2e-2 + atol 1e-3 (``_rerank_held``) of JAX's,
+    V's of JAX's with an accurate tanh (``WIDTHS_ACCURATE_TANH``), the best
+    at most 1.10 × JAX's; each
+    launching K1 1, K3 1 and K2 at its shape and nothing else.  W at
+    exp02's training: objective ≤ 0.30, every output finite, K1 1, K3 1,
+    K2 > 0, then K4 exactly 20 + 2 in the profiles.  K5: K1 2 (the screen,
+    and with no L-BFGS the objectives after Adam), K5 > 0, K3 1 and no K2
+    at each of W, D and V; K5 against K2's packed route at the
+    trained restarts within rtol 1e-4, gradients 2e-4 of a row's largest
+    entry; K4 at D and K4c at V one launch each."""
+    want, failures = res.want, []
+    for name in (WIDTHS_NETS if "parity" in res.parts else ()):
+        got, ref = getattr(res, f"parity_{name}"), want[name]
+        tr = got.res
+        routes = (tr.timings["screen_path"], tr.timings["refine_path"])
+        log(f"[check] widths {name}: routes {routes}, designs {got.sums} "
+            f"(JAX {ref['nn_sum']!r}, {ref['betas_sum']!r})")
+        if got.sums != {k: ref[k] for k in ("nn_sum", "betas_sum")}:
+            failures.append(f"{name}: the designs are not JAX's")
+        if list(got.lhs) != [want["config"]["lhs_lower"],
+                             want["config"]["lhs_upper"]]:
+            failures.append(f"{name}: LHS bounds {got.lhs}")
+        if routes not in (("cuda_k1", "cuda_k2"), ("plain", "plain")):
+            failures.append(f"{name} routes {routes}")
+        screen = np.asarray(ref["screen_losses"])
+        failures += _held(tr.screen_losses.cpu().numpy(), screen,
+                          WIDTHS_SCREEN_RTOL * np.abs(screen),
+                          f"widths {name} screen (rtol {WIDTHS_SCREEN_RTOL})")
+        # the restarts come back ordered by their re-ranked objectives,
+        # which two restarts of near objectives take in either order: each
+        # is named by its first Adam loss, its selected design's loss
+        trace = tr.loss_traces.cpu().numpy()
+        jtrace = np.asarray(ref["loss_traces"])
+        match = _by_first_loss(trace[:, 0], jtrace[:, 0])
+        want_tr = jtrace[match, :GENERIC_TRACE_STEPS]
+        failures += _held(
+            trace[:, :GENERIC_TRACE_STEPS], want_tr,
+            GENERIC_TRACE_RTOL * np.abs(want_tr),
+            f"widths {name} first {GENERIC_TRACE_STEPS} Adam losses (rtol "
+            f"{GENERIC_TRACE_RTOL}), restarts matched by their first loss")
+        objs = np.asarray(ref["objectives"])
+        acc = ref["accurate_tanh"]
+        acc_objs = np.asarray(acc["objectives"])[
+            _by_first_loss(trace[:, 0], acc["first"])]
+        accurate = name in WIDTHS_ACCURATE_TANH
+        got_objs = tr.objectives.cpu().numpy()
+        failures += _rerank_held(got_objs, objs[match],
+                                 f"widths {name} re-ranked objectives",
+                                 held=not accurate)
+        failures += _rerank_held(got_objs, acc_objs,
+                                 f"widths {name} re-ranked objectives against "
+                                 "JAX's with an accurate tanh", held=accurate)
+        best, jax_best = float(tr.objectives[0]), objs[0]
+        log(f"[check] widths {name}: best objective {best:.6f}, JAX "
+            f"{jax_best:.6f} (limit {GENERIC_BEST_RATIO} x)")
+        if not best <= GENERIC_BEST_RATIO * jax_best:
+            failures.append(f"{name} best objective {best} vs JAX {jax_best}")
+        failures += _launched_as(
+            res.launched[f"parity {name}"],
+            {_body(K1, name): 1, _body(K3, name): 1, _body(K2, name): None},
+            f"parity {name}")
+    if "full" in res.parts:
+        full = res.full
+        tr = full.training
+        obj = float(tr.objectives[full.best])
+        outputs = [tr.objectives, tr.nn_params, tr.betas,
+                   torch.as_tensor(full.beta), torch.as_tensor(full.sigma),
+                   full.profile.values, full.census.values]
+        finite = all(bool(torch.isfinite(torch.as_tensor(o)).all())
+                     for o in outputs)
+        log(f"[check] widths W full training: routes "
+            f"{tr.timings['screen_path']}, {tr.timings['refine_path']}; best "
+            f"restart {full.best}, objective {obj:.6f} (limit 0.30); every "
+            f"output finite: {finite}; census {full.census_counts}; "
+            f"Spearman (first phase) {full.spearman:.4f}")
+        if not obj <= 0.30:
+            failures.append(f"W full training objective {obj}")
+        if not finite:
+            failures.append("W full training: an output is not finite")
+        failures += _launched_as(
+            res.launched["W train"],
+            {_body(K1, "W"): 1, _body(K3, "W"): 1, _body(K2, "W"): None},
+            "W train")
+        failures += _launched_as(res.launched["W refit"], {}, "W refit")
+        failures += _launched_as(
+            {k: res.launched["W profile_test"].get(k, 0)
+             + res.launched["W census"].get(k, 0)
+             for k in {**res.launched["W profile_test"],
+                       **res.launched["W census"]}},
+            {_body(K4, "W"): 22}, "W test profiles and census")
+    for name in (WIDTHS_NETS if "k5" in res.parts else ()):
+        got = getattr(res, f"k5_{name}")
+        routes = (got.res.timings["screen_path"],
+                  got.res.timings["refine_path"])
+        log(f"[check] widths K5 {name}: {got.lanes} lanes, routes {routes}")
+        if routes[1] not in ("cuda_k5", "plain_k5"):
+            failures.append(f"K5 {name} refine path {routes[1]}")
+        failures += _launched_as(
+            res.launched[f"k5 {name}"],
+            {_body(K1, name): 2, _body(K3, name): 1,
+             _body("population_grad", name): None}, f"k5 {name}")
+        (f, gnn, gb), (pf, pgnn, pgb) = got.k5, got.packed
+        try:
+            compare(f, pf, f"K5 {name} against K2's packed route, value",
+                    GRAD_RTOL, 0.0)
+            compare_scaled(gnn, pgnn, f"K5 {name} against K2's packed "
+                           "route, grad nn")
+            compare_scaled(gb, pgb, f"K5 {name} against K2's packed route, "
+                           "grad beta")
+        except AssertionError as err:
+            failures.append(str(err))
+        if name != "W":
+            failures += _launched_as(res.launched[f"profile {name}"],
+                                     {_body(K4, name): 1},
+                                     f"profile {name}")
     return failures
 
 

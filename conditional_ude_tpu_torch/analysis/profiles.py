@@ -6,9 +6,10 @@
 * ``cohort_beta_profiles`` scans every individual's β over a uniform grid
   (or a shared Δβ axis around per-individual centres) and evaluates
   NLL = SSE / (2σ²); lanes are (grid point × individual) pairs, in grid
-  chunks, and go through the fused cohort RK4 kernel (K4) for the canonical
-  network on 2 inputs or, for the covariate model, on 3, otherwise through
-  the batched RK4;
+  chunks, and go through the fused cohort RK4 kernel (K4) for a network of
+  tanh hidden layers with a softplus head on 2 inputs or, for the covariate
+  model, on 3 (``fused_kernel_eligible``), otherwise through the batched
+  RK4;
 * ``find_confidence_intervals``: threshold crossing with the Cantelli-95
   (Δ = 7.16), Cantelli-90 (Δ = 5.24) or Raue-95 (Δ = χ²₁(0.95)) offsets,
   ±inf when the interval reaches the scan edge;
@@ -43,10 +44,11 @@ class Profile(NamedTuple):
 
 def fused_kernel_eligible(model: CPeptideModel,
                           solver_kwargs: dict | None = None) -> bool:
-    """Whether the kernels compute this model: the canonical network on
-    [ΔG, e^β] or, for the covariate model, on [ΔG, e^β, age] (one
-    conditional parameter), with no solver keyword but ``substeps`` in
-    ``solver_kwargs``, as the JAX package's predicate decides."""
+    """Whether the kernels compute this model, as the JAX package's
+    predicate decides: a network of tanh hidden layers (any widths and
+    depth) with a softplus head on [ΔG, e^β] or, for the covariate model,
+    on [ΔG, e^β, age] (one conditional parameter), with no solver keyword
+    but ``substeps`` in ``solver_kwargs``."""
     if (model.kind not in ("conditional", "conditional_covariate")
             or model.n_conditional != 1
             or not set(solver_kwargs or ()) <= {"substeps"}):
@@ -98,9 +100,9 @@ def cohort_beta_profiles(model: CPeptideModel,
            else torch.as_tensor(center, **f32))
     fused = solver == "rk4" and fused_kernel_eligible(model, solver_kwargs)
     if require_kernel and not fused:
-        raise ValueError("require_kernel=True needs the canonical "
-                         "conditional or covariate model, solver='rk4' and "
-                         "no solver keyword but substeps")
+        raise ValueError("require_kernel=True needs a conditional or "
+                         "covariate model the kernels take, solver='rk4' "
+                         "and no solver keyword but substeps")
     if fused:
         kin = cohort.kinetics(with_age=model.with_age)
         nn_params = nn_params.contiguous()    # a row of a strided table

@@ -103,61 +103,66 @@ __device__ __forceinline__ Stage stage_matrices(float k0, float k1, float k2,
 }
 
 // Hand VJP of the network at one evaluation point: recomputes the forward at
-// [x, e_beta(, age)] and writes weight * d(softplus head)/d(each parameter)
-// to contrib[kParams] in the flat layout (W1 [4][In], b1, W2 [4][4], b2, w3,
-// b3).  Returns the cotangent of the e^beta input.  The age is an input, not
-// a parameter: it adds dz1[o] * age to w1[o][2]'s entry and nothing else.
-template <int In>
+// [x, e_beta(, age)] and calls add(i, v) once for each parameter i of the
+// flat layout with v = weight * d(softplus head)/d(parameter i), layer by
+// layer from the head down.  Returns the cotangent of the e^beta input.  The
+// age is an input, not a parameter: it adds dz1[o] * age to W1[o][2]'s
+// entry and nothing else.  A hidden layer's cotangent is
+// dz[k] = (sum_o dz_next[o] W_next[o][k], left to right) * (1 - h[k]^2).
+template <int L, int In, class Add>
+__device__ __forceinline__ float vjp_from(const Mlp<In>& mlp, const float* x,
+                                          const float* h, const float* dz,
+                                          Add& add) {
+  using Net = typename Mlp<In>::Net;
+  constexpr int fi = Net::fan_in(L), fo = Net::fan_out(L);
+  constexpr int off = Net::offset(L);
+  const float* a;  // the layer's inputs
+  if constexpr (L == 0)
+    a = x;
+  else
+    a = h + Net::unit(L - 1);
+#pragma unroll
+  for (int o = 0; o < fo; ++o) {
+#pragma unroll
+    for (int k = 0; k < fi; ++k) add(off + fi * o + k, dz[o] * a[k]);
+    add(off + fi * fo + o, dz[o]);
+  }
+  if constexpr (L == 0) {
+    float dh_eb = dz[0] * mlp.w(off + 1);
+#pragma unroll
+    for (int o = 1; o < fo; ++o) dh_eb = dh_eb + dz[o] * mlp.w(off + fi * o + 1);
+    return dh_eb;
+  } else {
+    float dprev[fi];
+#pragma unroll
+    for (int k = 0; k < fi; ++k) {
+      float dh = dz[0] * mlp.w(off + k);
+#pragma unroll
+      for (int o = 1; o < fo; ++o) dh = dh + dz[o] * mlp.w(off + fi * o + k);
+      dprev[k] = dh * (1.0f - a[k] * a[k]);
+    }
+    return vjp_from<L - 1>(mlp, x, h, dprev, add);
+  }
+}
+
+template <int In, class Add>
 __device__ __forceinline__ float point_vjp(const Mlp<In>& mlp, float x,
                                            float e_beta, float age,
-                                           float weight,
-                                           float contrib[Mlp<In>::kParams]) {
-  constexpr int kB1 = kWidth * In, kW2 = kB1 + kWidth;
-  constexpr int kB2 = kW2 + kWidth * kWidth, kW3 = kB2 + kWidth;
-  constexpr int kB3 = kW3 + kWidth;
-  static_assert(kB3 + 1 == Mlp<In>::kParams, "flat layout");
-  float h1[kWidth], h2[kWidth];
-#pragma unroll
-  for (int o = 0; o < kWidth; ++o) h1[o] = tanhf(mlp.z1(o, x, e_beta, age));
-  mlp.layer2(h1, h2);
-  const float z3 = mlp.z3(h2);
-  const float dz3 = weight * (1.0f / (1.0f + expf(-z3)));
-  float dz2[kWidth], dz1[kWidth];
-#pragma unroll
-  for (int k = 0; k < kWidth; ++k) {
-    contrib[kW3 + k] = dz3 * h2[k];
-    dz2[k] = dz3 * mlp.w3[k] * (1.0f - h2[k] * h2[k]);
-  }
-  contrib[kB3] = dz3;
-#pragma unroll
-  for (int o = 0; o < kWidth; ++o) {
-#pragma unroll
-    for (int k = 0; k < kWidth; ++k) contrib[kW2 + kWidth * o + k] = dz2[o] * h1[k];
-    contrib[kB2 + o] = dz2[o];
-  }
-#pragma unroll
-  for (int k = 0; k < kWidth; ++k) {
-    float dh = dz2[0] * mlp.w2[0][k];
-#pragma unroll
-    for (int o = 1; o < kWidth; ++o) dh = dh + dz2[o] * mlp.w2[o][k];
-    dz1[k] = dh * (1.0f - h1[k] * h1[k]);
-  }
-  float dh_eb = dz1[0] * mlp.w1[0][1];
-#pragma unroll
-  for (int o = 0; o < kWidth; ++o) {
-    contrib[In * o] = dz1[o] * x;
-    contrib[In * o + 1] = dz1[o] * e_beta;
-    if constexpr (In == 3) contrib[In * o + 2] = dz1[o] * age;
-    contrib[kB1 + o] = dz1[o];
-    if (o > 0) dh_eb = dh_eb + dz1[o] * mlp.w1[o][1];
-  }
-  return dh_eb;
+                                           float weight, Add add) {
+  float in[In];
+  in[0] = x;
+  in[1] = e_beta;
+  if constexpr (In == 3) in[2] = age;
+  float h[Mlp<In>::kUnits];
+  const float z = mlp.hidden(x, e_beta, age, h);
+  const float dz = weight * (1.0f / (1.0f + expf(-z)));
+  return vjp_from<Mlp<In>::kLayers - 1>(mlp, in, h, &dz, add);
 }
 
 // -- one lane per warp -----------------------------------------------------
 //
 // warp_lane computes the SSE of one (restart, individual) lane, the gradient
-// of its 37 (41) weights and the cotangent of its e^beta with the 32 threads
+// of its P weights and the cotangent of its e^beta with the 32 threads
 // of a warp.  The lane's 1 + n_seg (2 substeps + 1) evaluation points (69 on
 // the OGTT grid) do not depend on the state, so they are spread across the
 // threads; only the two 2x2 affine recursions are sequential.
@@ -171,32 +176,59 @@ __device__ __forceinline__ float point_vjp(const Mlp<In>& mlp, float x,
 //      the network outputs in shared memory, w_tot sums them first to last,
 //      and the baseline's weight is -w_tot.
 //   4. Thread t runs the recomputing hand VJP at its own points, summing its
-//      contributions in increasing q into registers that start at 0.
+//      contributions in increasing q into a partial row that starts at 0:
+//      in registers where the weights are (P <= kRegisterParams), else in
+//      the thread's own row of shared memory, since P partial sums, P
+//      weights and the activations would not fit a thread's registers.
 //   5. The warp sums the 32 partial rows of the P weights and the e^beta
 //      cotangent in one fixed order: each thread writes its row to shared
-//      memory, and thread c sums column c over the rows 0..31 one after
-//      another (ops/lane_grad.py::lane_sum follows this order).  On the
-//      H100 this beat a butterfly of __shfl_xor_sync on every shape timed.
-// Every thread takes part in every step, so a caller never lets a part of a
-// warp leave early.
+//      memory (where it is not there already), and thread c sums column c
+//      over the rows 0..31 one after another (ops/lane_grad.py::lane_sum
+//      follows this order).  On the H100 this beat a butterfly of
+//      __shfl_xor_sync on every shape timed.
+// The P + 1 columns of steps 4 and 5 are taken in passes of at most
+// kPassColumns (every column at once up to 127 weights), each pass running
+// the VJPs again and keeping only its own columns, so a warp's partial rows
+// take at most 32 (kPassColumns + 1) floats of shared memory whatever the
+// network's width.  A column's sum is the same in any pass, so the order is
+// lane_sum's for every width.  Every thread takes part in every step, so a
+// caller never lets a part of a warp leave early.
 
 constexpr int kStageFloats = 13;  // r, ma, mmid (4 each) and c
+constexpr int kPassColumns = 128;
 
-// columns of a partial row: the P weights and the e^beta cotangent; rows
-// are an odd number of floats apart, so 32 threads writing one column each
-// hit 32 banks
+// columns of the gradient (the P weights, then the e^beta cotangent) one
+// pass of steps 4 and 5 sums: all P + 1 of them in registers or up to
+// kPassColumns, else kPassColumns
+template <int In>
+__host__ __device__ constexpr int pass_columns() {
+  constexpr int cols = Mlp<In>::kParams + 1;
+  return Mlp<In>::kInRegisters || cols <= kPassColumns ? cols : kPassColumns;
+}
+
+template <int In>
+__host__ __device__ constexpr int passes() {
+  return (Mlp<In>::kParams + pass_columns<In>()) / pass_columns<In>();
+}
+
+// floats from one partial row to the next: an odd number, so 32 threads
+// writing one column each hit 32 banks
 template <int In>
 __host__ __device__ constexpr int sum_stride() {
-  return (Mlp<In>::kParams + 1) | 1;
+  return pass_columns<In>() | 1;
 }
 
 // floats of shared memory one warp_lane call needs: the residuals, the stage
 // matrices, and a row that holds the network outputs, then the point
-// weights, then the 32 partial rows of the sum
+// weights, then (with the partial sums in registers) the 32 partial rows of
+// the sum; with the partial sums in shared memory the 32 rows follow the
+// point weights, since they fill while the weights are read
 template <int In>
 inline int warp_scratch_floats(int n_seg, int substeps) {
   const int n_pts = 1 + n_seg * (2 * substeps + 1);
-  const int row = n_pts > kWarp * sum_stride<In>() ? n_pts : kWarp * sum_stride<In>();
+  const int rows = kWarp * sum_stride<In>();
+  const int row = Mlp<In>::kInRegisters ? (n_pts > rows ? n_pts : rows)
+                                        : n_pts + rows;
   return kMaxTimepoints + kStageFloats * n_seg + row;
 }
 
@@ -219,15 +251,18 @@ __device__ __forceinline__ Stage load_stage(const float* p) {
 // One lane with one warp (see above).  g and d are the individual's glucose
 // and data rows in shared memory, kin its kinetics row (k0, k1, k2, c0[,
 // age]), scratch the warp's warp_scratch_floats<In> floats of shared memory.
-// Returns the lane's SSE in every thread; emit(c, v) is called once for
-// each column c in 0..P, by one thread: v is the gradient of weight c, or
-// for c = P the e^beta cotangent (the beta gradient is v e^beta).
+// Runs the passes first_pass..end_pass - 1 of steps 4 and 5 (all of them
+// are 0..passes<In>() - 1).  Returns the lane's SSE in every thread;
+// emit(c, v) is called once for each column c of those passes, by one
+// thread: v is the gradient of weight c, or for c = P the e^beta cotangent
+// (the beta gradient is v e^beta).
 template <int In, class Emit>
 __device__ __forceinline__ float warp_lane(const Mlp<In>& mlp, float e_beta,
                                            const float* g, const float* d,
                                            const float* kin,
                                            const GradGrid& grid,
-                                           float* scratch, Emit emit) {
+                                           float* scratch, int first_pass,
+                                           int end_pass, Emit emit) {
   constexpr int kParams = Mlp<In>::kParams;
   constexpr int kKin = Mlp<In>::kKin;
   const int t = threadIdx.x & (kWarp - 1);
@@ -311,33 +346,51 @@ __device__ __forceinline__ float warp_lane(const Mlp<In>& mlp, float e_beta,
   for (int q = 2; q < n_pts; ++q) w_tot = w_tot + row[q];
 
   // -- 4. one hand VJP per point, each thread its own points ---------------
-  float acc[kParams];
-#pragma unroll
-  for (int i = 0; i < kParams; ++i) acc[i] = 0.0f;
-  float deb = 0.0f;
-  for (int q = t; q < n_pts; q += kWarp) {
-    float contrib[kParams];
-    const float wq = q == 0 ? -w_tot : row[q];
-    const float dh_eb = point_vjp<In>(mlp, dg_at(q), e_beta, age, wq, contrib);
-#pragma unroll
-    for (int i = 0; i < kParams; ++i) acc[i] = acc[i] + contrib[i];
-    deb = deb + dh_eb;
-  }
-  __syncwarp();  // every weight is read before the rows overwrite them
-
-  // -- 5. the sum across the warp, in one fixed order ----------------------
+  constexpr bool kRegSums = Mlp<In>::kInRegisters;
+  constexpr int kCols = pass_columns<In>();
   constexpr int kStride = sum_stride<In>();
-  float* mine = row + t * kStride;
+  float* rows = kRegSums ? row : row + n_pts;  // the 32 partial rows
+  float* mine = rows + t * kStride;
+  for (int pass = first_pass; pass < end_pass; ++pass) {
+    const int lo = pass * kCols;  // the pass's columns are lo..hi - 1
+    const int hi = lo + kCols < kParams + 1 ? lo + kCols : kParams + 1;
+    float acc[kRegSums ? kParams : 1];
+    if constexpr (kRegSums) {
 #pragma unroll
-  for (int i = 0; i < kParams; ++i) mine[i] = acc[i];
-  mine[kParams] = deb;
-  __syncwarp();
-  for (int c = t; c <= kParams; c += kWarp) {
-    float sum = row[c];
-    for (int k = 1; k < kWarp; ++k) sum = sum + row[k * kStride + c];
-    emit(c, sum);
+      for (int i = 0; i < kParams; ++i) acc[i] = 0.0f;
+    } else {
+      for (int i = 0; i < hi - lo; ++i) mine[i] = 0.0f;
+    }
+    float deb = 0.0f;
+    for (int q = t; q < n_pts; q += kWarp) {
+      const float wq = q == 0 ? -w_tot : row[q];
+      const float dh_eb = point_vjp<In>(
+          mlp, dg_at(q), e_beta, age, wq, [&](int i, float v) {
+            if constexpr (kRegSums)
+              acc[i] = acc[i] + v;
+            else if constexpr (kCols == kParams + 1)
+              mine[i] = mine[i] + v;
+            else if (i >= lo && i < hi)
+              mine[i - lo] = mine[i - lo] + v;
+          });
+      deb = deb + dh_eb;
+    }
+    __syncwarp();  // every weight is read before the rows overwrite them
+
+    // -- 5. the sum across the warp, in one fixed order --------------------
+    if constexpr (kRegSums) {
+#pragma unroll
+      for (int i = 0; i < kParams; ++i) mine[i] = acc[i];
+    }
+    if (hi == kParams + 1) mine[kParams - lo] = deb;
+    __syncwarp();
+    for (int c = t; c < hi - lo; c += kWarp) {
+      float sum = rows[c];
+      for (int k = 1; k < kWarp; ++k) sum = sum + rows[k * kStride + c];
+      emit(lo + c, sum);
+    }
+    __syncwarp();  // the scratch is free for the next pass or lane
   }
-  __syncwarp();  // the scratch is free for the warp's next lane
   return sse;
 }
 

@@ -1,30 +1,81 @@
-// Device code shared by the port's kernels: the canonical cUDE network and
-// the fixed-step time grid.
+// Device code shared by the port's kernels: the cUDE network and the
+// fixed-step time grid.
 //
-// The network is chain(4, 2) on [dG, e^beta] (kIn = 2, 37 weights) or, for
-// the covariate model, on [dG, e^beta, age] (kIn = 3, 41 weights): two tanh
-// layers of width 4 and a softplus head, in the JAX package's flat layout
-// (per layer W row-major [fan_out][fan_in], then the bias).  Every dot
-// product runs left to right and adds the bias last, the order of the plain
-// PyTorch versions; the files are built with -fmad=false and without fast
-// math, so tanhf/expf/log1pf are the accurate ones and no multiply-add is
-// contracted.
+// The network is chain(widths, "tanh") with a softplus scalar head on
+// [dG, e^beta] (In = 2) or, for the covariate model, on [dG, e^beta, age]
+// (In = 3): any number of tanh layers of any widths, the JAX kernels' domain
+// (pallas_rk4.py:70-96 build theirs from net.layer_dims).  A library is
+// built for one list of hidden widths, CUDE_WIDTHS, a compile-time constant
+// (ops/cuda_build.py passes another list than the canonical 4, 4 in a
+// generated header), so every loop over a layer unrolls.  The weights are in
+// the JAX package's flat layout (per layer W row-major [fan_out][fan_in],
+// then the bias).  Every dot product runs left to right and adds the bias
+// last, the order of the plain PyTorch versions; the files are built with
+// -fmad=false and without fast math, so tanhf/expf/log1pf are the accurate
+// ones and no multiply-add is contracted.
+//
+// Where the weights live: up to kRegisterParams (41, the canonical chain(4,
+// 2)'s 37 and 41) every thread copies them into registers, as the canonical
+// bodies always have; above, a thread reads each weight where it is used,
+// from device memory through L1, which the lanes of a network share, or
+// from the copy in shared memory that K5's block makes of its restart's
+// weights (population_grad.cu).  A wider network in registers would spill
+// them to local memory, one copy a thread.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
+#ifndef CUDE_WIDTHS
+#define CUDE_WIDTHS 4, 4
+#endif
+
 namespace cude {
 
-constexpr int kWidth = 4;
 constexpr int kMaxTimepoints = 16;
+constexpr int kRegisterParams = 41;
 
-// weights of chain(4, 2) on `in` inputs
-constexpr int params_of(int in) {
-  return in * kWidth + kWidth + kWidth * kWidth + kWidth + kWidth + 1;
-}
-static_assert(params_of(2) == 37 && params_of(3) == 41,
+// The layers of chain(W..., "tanh") on In inputs with a scalar head: layer
+// l maps fan_in(l) to fan_out(l) values, its weights start at offset(l) of
+// the flat vector, and hidden layer l's outputs at unit(l) of the
+// concatenated hidden outputs.
+template <int In, int... W>
+struct Shape {
+  static_assert(sizeof...(W) >= 1, "at least one hidden layer");
+  static constexpr int kHidden = sizeof...(W);
+  static constexpr int kLayers = kHidden + 1;
+  __host__ __device__ static constexpr int fan_in(int l) {
+    const int dims[] = {In, W...};
+    return dims[l];
+  }
+  __host__ __device__ static constexpr int fan_out(int l) {
+    const int dims[] = {W..., 1};
+    return dims[l];
+  }
+  __host__ __device__ static constexpr int offset(int l) {
+    int off = 0;
+    for (int j = 0; j < l; ++j) off += fan_in(j) * fan_out(j) + fan_out(j);
+    return off;
+  }
+  __host__ __device__ static constexpr int unit(int l) {
+    int u = 0;
+    for (int j = 0; j < l; ++j) u += fan_out(j);
+    return u;
+  }
+  __host__ __device__ static constexpr int max_width() {
+    int m = 1;
+    for (int j = 0; j < kHidden; ++j) m = fan_out(j) > m ? fan_out(j) : m;
+    return m;
+  }
+  static constexpr int kParams = offset(kLayers);
+  static constexpr int kUnits = unit(kHidden);
+  static constexpr int kMaxWidth = max_width();
+};
+
+static_assert(Shape<2, 4, 4>::kParams == 37 && Shape<3, 4, 4>::kParams == 41,
               "chain(4, 2) has 37 weights on 2 inputs, 41 on 3");
 
 // One observation segment of the fixed-step grid; every constant is rounded
@@ -77,87 +128,129 @@ __device__ __forceinline__ float softplus(float x) {
 template <int In>
 struct Mlp {
   static_assert(In == 2 || In == 3, "the network takes 2 or 3 inputs");
+  using Net = Shape<In, CUDE_WIDTHS>;
   static constexpr int kIn = In;
-  static constexpr int kParams = params_of(In);
+  static constexpr int kParams = Net::kParams;
+  static constexpr int kLayers = Net::kLayers;
+  static constexpr int kUnits = Net::kUnits;
+  static constexpr bool kInRegisters = kParams <= kRegisterParams;
   // columns of a kinetics row: k0, k1, k2, c0, then the age for 3 inputs
   static constexpr int kKin = 4 + (In == 3);
 
-  float w1[kWidth][kIn], b1[kWidth];
-  float w2[kWidth][kWidth], b2[kWidth];
-  float w3[kWidth], b3;
+  float reg_[kInRegisters ? kParams : 1];
+  const float* ptr_;
+
+  // weight i of the flat layout
+  __device__ __forceinline__ float w(int i) const {
+    if constexpr (kInRegisters)
+      return reg_[i];
+    else
+      return ptr_[i];
+  }
 
   // the weights from device memory, read-only
   __device__ __forceinline__ void load(const float* __restrict__ p) {
-    load_with([p](int i) { return __ldg(p + i); });
+    if constexpr (kInRegisters) {
+#pragma unroll
+      for (int i = 0; i < kParams; ++i) reg_[i] = __ldg(p + i);
+    } else {
+      ptr_ = p;
+    }
   }
 
   // the weights from shared memory
   __device__ __forceinline__ void load_shared(const float* p) {
-    load_with([p](int i) { return p[i]; });
-  }
-
-  // the weights in the flat layout, entry i read by ld(i)
-  template <class Ld>
-  __device__ __forceinline__ void load_with(Ld ld) {
-    int i = 0;
+    if constexpr (kInRegisters) {
 #pragma unroll
-    for (int o = 0; o < kWidth; ++o)
-#pragma unroll
-      for (int k = 0; k < kIn; ++k) w1[o][k] = ld(i++);
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o) b1[o] = ld(i++);
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o)
-#pragma unroll
-      for (int k = 0; k < kWidth; ++k) w2[o][k] = ld(i++);
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o) b2[o] = ld(i++);
-#pragma unroll
-    for (int k = 0; k < kWidth; ++k) w3[k] = ld(i++);
-    b3 = ld(i);
-  }
-
-  // layer 1 pre-activation w1[o][0]*x0 + w1[o][1]*x1 (+ w1[o][2]*x2) + b1[o];
-  // x2, the age, is read by the 3-input network only
-  __device__ __forceinline__ float z1(int o, float x0, float x1, float x2) const {
-    float acc = w1[o][0] * x0;
-    acc = acc + w1[o][1] * x1;
-    if constexpr (In == 3) acc = acc + w1[o][2] * x2;
-    return acc + b1[o];
-  }
-
-  // layer 2 tanh outputs from the layer-1 outputs
-  __device__ __forceinline__ void layer2(const float h1[kWidth], float h2[kWidth]) const {
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o) {
-      float acc = w2[o][0] * h1[0];
-#pragma unroll
-      for (int k = 1; k < kWidth; ++k) acc = acc + w2[o][k] * h1[k];
-      h2[o] = tanhf(acc + b2[o]);
+      for (int i = 0; i < kParams; ++i) reg_[i] = p[i];
+    } else {
+      ptr_ = p;
     }
   }
 
-  // head pre-activation from the layer-2 outputs
-  __device__ __forceinline__ float z3(const float h2[kWidth]) const {
-    float acc = w3[0] * h2[0];
+  // y[o] = act(sum_k W[o][k] x[k] + b[o]) of layer L, each sum left to
+  // right and the bias last; tanh for a hidden layer, none for the head
+  template <int L>
+  __device__ __forceinline__ void dense(const float* x, float* y) const {
+    constexpr int fi = Net::fan_in(L), fo = Net::fan_out(L);
+    constexpr int off = Net::offset(L);
 #pragma unroll
-    for (int k = 1; k < kWidth; ++k) acc = acc + w3[k] * h2[k];
-    return acc + b3;
+    for (int o = 0; o < fo; ++o) {
+      float acc = w(off + o * fi) * x[0];
+#pragma unroll
+      for (int k = 1; k < fi; ++k) acc = acc + w(off + o * fi + k) * x[k];
+      acc = acc + w(off + fi * fo + o);
+      y[o] = L + 1 < kLayers ? tanhf(acc) : acc;
+    }
   }
 
-  // layers 2 and 3 on given layer-1 outputs
-  __device__ __forceinline__ float rest(const float h1[kWidth]) const {
-    float h2[kWidth];
-    layer2(h1, h2);
-    return softplus(z3(h2));
+  // the layers from L on: hidden outputs into h (layer l at Net::unit(l)),
+  // returns the head's pre-activation
+  template <int L>
+  __device__ __forceinline__ float from(const float* x, float* h) const {
+    if constexpr (L + 1 == kLayers) {
+      float z;
+      dense<L>(x, &z);
+      return z;
+    } else {
+      float* y = h + Net::unit(L);
+      dense<L>(x, y);
+      return from<L + 1>(y, h);
+    }
+  }
+
+  // every hidden output into h[kUnits]; returns the head's pre-activation
+  // at [x0, x1(, x2)]: x2, the age, is read by the 3-input network only
+  __device__ __forceinline__ float hidden(float x0, float x1, float x2,
+                                          float* h) const {
+    float x[In];
+    x[0] = x0;
+    x[1] = x1;
+    if constexpr (In == 3) x[2] = x2;
+    return from<0>(x, h);
   }
 
   __device__ __forceinline__ float operator()(float x0, float x1, float x2) const {
-    float h1[kWidth];
-#pragma unroll
-    for (int o = 0; o < kWidth; ++o) h1[o] = tanhf(z1(o, x0, x1, x2));
-    return rest(h1);
+    float h[kUnits];
+    return softplus(hidden(x0, x1, x2, h));
   }
 };
 
+// Lets `kernel` take `bytes` of dynamic shared memory a block.  Above the
+// 48 KB a launch gets without asking it opts in, up to the card's maximum a
+// block, once for each device and larger size: allowed[device] is the most it
+// has asked for `kernel` (the caller's static table, zero at first).  Returns
+// 0, a CUDA error, or minus `bytes` where the card has fewer (the C entry
+// points return that as their refusal of the inputs).
+constexpr int kMaxDevices = 64;
+
+template <class Kernel>
+int allow_shared(Kernel kernel, size_t bytes,
+                 std::atomic<size_t> (&allowed)[kMaxDevices]) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kMaxDevices && bytes <= allowed[dev].load()) return 0;
+  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes > static_cast<size_t>(most)) return -static_cast<int>(bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kMaxDevices) allowed[dev].store(bytes);
+  return 0;
+}
+
 }  // namespace cude
+
+// The hidden widths this library was built for: writes at most `most` of
+// them to `out` and returns how many there are (ops/cuda_build.py checks
+// them against the network it loads the library for).  Each library is one
+// translation unit, so the header defines it once.
+extern "C" int cude_hidden_widths(int* out, int most) {
+  const int widths[] = {CUDE_WIDTHS};
+  const int n = static_cast<int>(sizeof(widths) / sizeof(widths[0]));
+  for (int i = 0; i < n && i < most; ++i) out[i] = widths[i];
+  return n;
+}

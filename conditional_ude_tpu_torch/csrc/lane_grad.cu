@@ -5,17 +5,19 @@
 // Replaces the TPU kernel
 // conditional_ude_tpu/ops/pallas_grad.py::_build_lane_grad_kernel (reached
 // through population_sse_and_grad_pallas / fused_population_vg), both of its
-// bodies: the network on [dG, e^beta] (37 weights) or, for the covariate
-// model, on [dG, e^beta, age] (41 weights; the age is the 5th column of the
-// individual's kinetics row).  A lane is one (restart, individual) pair.  The production term does not depend on
-// the state, so the ODE is affine in it and one RK4 step is
+// bodies, at every network it takes (cude_mlp.cuh): P weights on
+// [dG, e^beta] or, for the covariate model, on [dG, e^beta, age] (the age is
+// the 5th column of the individual's kinetics row; 37 and 41 weights for the
+// canonical chain(4, 2)).  A lane is one (restart, individual) pair.  The
+// production term does not depend on the state, so the ODE is affine in it
+// and one RK4 step is
 //   v <- R v + M_a r(t) + M_mid r(t + dt/2) + M_d r(t + dt)
 // with 2x2 stage matrices of the kinetics.  The forward pass needs the
 // network at 1 + n_seg (2 substeps + 1) points (69 on the OGTT grid; point 0
 // is the dG = 0 baseline) and gives the residuals at the save times; the
 // adjoint recursion over the residuals gives each point's weight (the
 // baseline's is minus their sum); one hand VJP per point gives the
-// gradient of the 37 (41) weights and of beta.  The age is an input, not a
+// gradient of the P weights and of beta.  The age is an input, not a
 // parameter: it adds sum dz1[o] * age to w1[o][2]'s gradient and leaves the
 // beta cotangent as it is (pallas_grad.py:457-471).
 //
@@ -24,13 +26,20 @@
 // glucose and data rows, the residuals, the stage matrices and one row that
 // holds the 69 network outputs, then the 69 point weights, then the 32
 // threads' partial sums of the gradient.  The 69 forward evaluations and
-// the 69 recomputing VJPs (4 + 4 tanhf and the head each) are spread over
-// the warp's threads, three rounds of each, where one thread used to run
-// all 138 in a chain; the two 32-step 2x2 recursions run in every thread
-// of the warp from shared memory.  The weights of a lane's restart are read
-// by every thread of its warp into registers.  The warp sums the partial
-// gradients in a fixed order (cude_grad.cuh) and writes gnn[lane] in one
-// coalesced row.  The mean over individuals runs outside the kernel.
+// the 69 recomputing VJPs (a tanhf a hidden unit and the head each) are
+// spread over the warp's threads, three rounds of each, where one thread
+// used to run all 138 in a chain; the two 32-step 2x2 recursions run in
+// every thread of the warp from shared memory.  The canonical network's
+// weights are read by every thread of its warp into registers, and each
+// thread sums its points' gradients in registers; a wider network's
+// weights are read where they are used (the warp's threads read one
+// address at a time), and each thread sums into its own row of shared
+// memory beside the point weights, 32 rows of at most 129 floats a warp:
+// past 127 weights the columns are summed in passes of 128 (cude_grad.cuh),
+// so a block needs at most ~78 KB of shared memory at any width and opts
+// in above 48 KB.  The warp sums the partial gradients in a fixed order
+// (cude_grad.cuh) and writes gnn[lane] in one coalesced row.  The mean over
+// individuals runs outside the kernel.
 //
 // Bound: latency and issue.  The flagship refinement runs 25 restarts x 57
 // individuals = 1,425 lanes: 1,425 warps, ~11 on each of the 132 SMs, each
@@ -46,7 +55,9 @@
 //
 // C interface (loaded with ctypes): lane_sse_and_grad (2 inputs) and
 // lane_sse_and_grad_age (3 inputs) return cudaGetLastError() after the
-// launch.  They allocate nothing and launch on the given stream.
+// launch, or minus the bytes of shared memory a block would need where the
+// card has fewer (ops/cuda_build.py raises ValueError for that).  They
+// allocate nothing and launch on the given stream.
 
 #include "cude_grad.cuh"
 
@@ -101,7 +112,7 @@ lane_sse_and_grad_kernel(const float* __restrict__ nn,       // [R, P]
   __syncwarp();
   const float sse = cude::warp_lane<In>(
       mlp, e_beta, g, d, kinetics + Net::kKin * n, grid, d + kMaxTimepoints,
-      [&](int c, float v) {
+      0, cude::passes<In>(), [&](int c, float v) {
         if (c < kParams)
           gnn_out[lane * kParams + c] = v;
         else
@@ -121,8 +132,12 @@ int launch(const float* nn, const float* beta, const float* glucose,
     return static_cast<int>(cudaErrorInvalidValue);
   if (lanes <= 0) return 0;
   const int warp_stride = warp_floats<In>(n_seg, substeps);
-  // at most ~24 KB at the limits of make_grad_grid: no opt-in
+  // the canonical network's is at most ~24 KB at the limits of
+  // make_grad_grid, a wider one's at most ~78 KB (its partial rows opt in)
   const size_t shared = sizeof(float) * kLaneWarps * warp_stride;
+  static std::atomic<size_t> allowed[cude::kMaxDevices];
+  const int err = cude::allow_shared(lane_sse_and_grad_kernel<In>, shared, allowed);
+  if (err != 0) return err;
   const long long blocks = (lanes + kLaneWarps - 1) / kLaneWarps;
   lane_sse_and_grad_kernel<In><<<static_cast<unsigned int>(blocks), kThreads,
                                  shared, static_cast<cudaStream_t>(stream)>>>(

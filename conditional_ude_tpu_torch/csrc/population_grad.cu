@@ -7,9 +7,10 @@
 // conditional_ude_tpu/ops/pallas_grad.py::_build_population_grad_kernel
 // (reached through _population_sse_and_grad_impl, which
 // population_sse_and_grad_pallas takes above PACK_MAX_LANES packed lanes),
-// both of its bodies: the network on [dG, e^beta] (37 weights) or, for the
-// covariate model, on [dG, e^beta, age] (41 weights; the age is the 5th
-// column of the individual's kinetics row).  For each restart it returns
+// both of its bodies, at every network it takes (cude_mlp.cuh): P weights
+// on [dG, e^beta] or, for the covariate model, on [dG, e^beta, age] (the
+// age is the 5th column of the individual's kinetics row; 37 and 41 weights
+// for the canonical chain(4, 2)).  For each restart it returns
 //   f      = (sum_n sse_n) / N, +inf where that is not finite,
 //   gnn[P] = (sum_n d sse_n / d nn) / N,
 //   gb[n]  = (d sse_n / d beta_n) / N,
@@ -18,26 +19,38 @@
 // network per evaluation point).
 //
 // Design: one block of kRestartWarps warps per restart.  The block reads
-// the restart's weights and the cohort (glucose, data and kinetics, N x (2K
-// + 4|5) floats) into shared memory once; every thread loads the weights
-// into registers.  Warp w computes the lanes of individuals n = w, w + W,
-// ... with cude_grad.cuh's warp_lane, exactly as lane_grad.cu computes a
-// lane, writes the individual's SSE and weight gradient into a shared
-// [N][P + 1] table and its beta gradient, times 1/N, to gb[r, n].  After a
-// barrier, thread c sums column c of the table over the individuals
-// 0..N-1 one after another and multiplies by 1/N.  So K5 is K2's lanes
-// summed over the individuals in order: the two routes agree bit for bit
-// when K2's lanes are summed that way (ops/population_grad.py,
+// the restart's weights and the cohort (glucose, data and kinetics, N x
+// (2K + 4|5) floats) into shared memory once; every thread of the
+// canonical network loads the weights into registers, a wider network's
+// threads read them in shared memory where they are used, and a network
+// of more than kSharedParams weights is read from device memory instead,
+// as in lane_grad.cu (on the H100 the shared copy made K5 ~25 % faster at
+// 49 and 57 weights, 8 % at 105).  Warp w
+// computes the lanes of individuals n = w, w + W, ... with cude_grad.cuh's
+// warp_lane, exactly as lane_grad.cu computes a lane, writes the
+// individual's SSE and weight gradient into a shared table of N rows and
+// its beta gradient, times 1/N, to gb[r, n].  After a barrier, thread c
+// sums column c of the table over the individuals 0..N-1 one after
+// another and multiplies by 1/N.  Past 127 weights the table holds the
+// columns of one of warp_lane's passes of 128 (cude_grad.cuh) and the
+// block runs the lanes once a pass, so neither the table nor the warps'
+// partial rows grow with the network.  So K5 is K2's lanes summed over the
+// individuals in order: the two routes agree bit for bit when K2's lanes
+// are summed that way (ops/population_grad.py,
 // restart_sse_and_grad_reference, is exactly that).  The order of the sums
 // is not the JAX kernel's (one running accumulator over individuals and
 // points), so the port agrees with JAX's K5 up to reassociation, as K2
 // does with JAX's K2.
 //
-// Shared memory: the weights, the cohort, the [N][P + 1] table and each
-// warp's scratch (block_floats); 54,116 bytes (59,368 with the age) at N =
-// 57 on the OGTT grid, so the launch opts in above the 48 KB default, once
-// for each device and larger size, and refuses a cohort beyond the card's
-// 227 KB a block.
+// Shared memory: the weights (up to kSharedParams), the cohort, the table
+// and each warp's scratch (block_floats; a wider network's warp also keeps
+// its 32 partial rows of at most 129 sums there, cude_grad.cuh); 54,116
+// bytes (59,368 with the age) at N = 57 on the OGTT grid for the canonical
+// network and at most 169,084 (169,312) plus the weights for any other, so
+// the launch opts in above the 48 KB default, once for each device and
+// larger size, and refuses a cohort beyond the card's 227 KB a block (on
+// the OGTT grid 909 individuals for the canonical network, 166 (165 with
+// the age) at 128 weights, 110 (109) at kSharedParams).
 //
 // Bound: latency and issue.  2,304 restarts are 2,304 blocks; each warp
 // runs ~N / W lanes of warp_lane one after another, a few microseconds
@@ -52,8 +65,6 @@
 // card has fewer (ops/cuda_build.py raises ValueError for that).  They
 // allocate nothing and launch on the given stream.
 
-#include <atomic>
-
 #include "cude_grad.cuh"
 
 namespace {
@@ -64,15 +75,32 @@ using cude::Mlp;
 // warps a block (a restart): 8 beat 4 on the H100 at 2,304 x 57
 constexpr int kRestartWarps = 8;
 constexpr int kThreads = kRestartWarps * cude::kWarp;
+// weights a block copies into shared memory (32 KB); more are read from
+// device memory
+constexpr int kSharedParams = 8192;
 
-// shared floats of a block: the weights, glucose, data and kinetics of N
-// individuals, the [N][P + 1] table, and each warp's scratch; the layout of
-// the kernel below
+template <int In>
+__host__ __device__ constexpr bool shared_net() {
+  return Mlp<In>::kParams <= kSharedParams;
+}
+
+// columns of the table: the weight gradients of a pass, then the SSE
+template <int In>
+__host__ __device__ constexpr int table_columns() {
+  constexpr int params = Mlp<In>::kParams;
+  constexpr int cols = cude::pass_columns<In>();
+  return (cols < params ? cols : params) + 1;
+}
+
+// shared floats of a block: the weights (shared_net), glucose, data and
+// kinetics of N individuals, the table, and each warp's scratch; the
+// layout of the kernel below
 template <int In>
 size_t block_floats(int n_ind, int n_seg, int substeps) {
   using Net = Mlp<In>;
-  const size_t per_ind = 2 * (n_seg + 1) + Net::kKin + Net::kParams + 1;
-  return Net::kParams + static_cast<size_t>(n_ind) * per_ind +
+  const size_t per_ind = 2 * (n_seg + 1) + Net::kKin + table_columns<In>();
+  return (shared_net<In>() ? Net::kParams : 0) +
+         static_cast<size_t>(n_ind) * per_ind +
          static_cast<size_t>(kRestartWarps) *
              cude::warp_scratch_floats<In>(n_seg, substeps);
 }
@@ -93,17 +121,22 @@ population_sse_and_grad_kernel(const float* __restrict__ nn,       // [G, P]
   using Net = Mlp<In>;
   constexpr int kParams = Net::kParams;
   constexpr int kKin = Net::kKin;
-  constexpr int kCols = kParams + 1;  // the weight gradient, then the SSE
+  constexpr int kCols = table_columns<In>();
+  constexpr int kSlots = kCols - 1;  // the SSE's column
+  constexpr int kPassCols = cude::pass_columns<In>();
+  constexpr int kPasses = cude::passes<In>();
   extern __shared__ float smem[];
   const long long r = blockIdx.x;
   const int k_pts = grid.n_seg + 1;
   float* s_nn = smem;
-  float* s_glucose = s_nn + kParams;
+  float* s_glucose = s_nn + (shared_net<In>() ? kParams : 0);
   float* s_data = s_glucose + n_ind * k_pts;
   float* s_kin = s_data + n_ind * k_pts;
   float* s_table = s_kin + n_ind * kKin;
   float* s_scratch = s_table + n_ind * kCols;
-  for (int i = threadIdx.x; i < kParams; i += blockDim.x) s_nn[i] = nn[r * kParams + i];
+  if constexpr (shared_net<In>()) {
+    for (int i = threadIdx.x; i < kParams; i += blockDim.x) s_nn[i] = nn[r * kParams + i];
+  }
   for (int i = threadIdx.x; i < n_ind * k_pts; i += blockDim.x) {
     s_glucose[i] = glucose[i];
     s_data[i] = data[i];
@@ -113,59 +146,44 @@ population_sse_and_grad_kernel(const float* __restrict__ nn,       // [G, P]
 
   const int warp = threadIdx.x / cude::kWarp;
   Net mlp;
-  mlp.load_shared(s_nn);
+  if constexpr (shared_net<In>())
+    mlp.load_shared(s_nn);
+  else
+    mlp.load(nn + r * kParams);
   float* scratch = s_scratch + warp * warp_stride;
-  for (int n = warp; n < n_ind; n += kRestartWarps) {
-    const float e_beta = expf(beta[r * n_ind + n]);
-    float* row = s_table + n * kCols;
-    const float sse = cude::warp_lane<In>(
-        mlp, e_beta, s_glucose + n * k_pts, s_data + n * k_pts,
-        s_kin + kKin * n, grid, scratch, [&](int c, float v) {
-          if (c < kParams)
-            row[c] = v;
-          else
-            gb_out[r * n_ind + n] = v * e_beta * inv_n;
-        });
-    if (threadIdx.x % cude::kWarp == 0) row[kParams] = sse;
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int lo = pass * kPassCols;  // the pass's first weight
+    for (int n = warp; n < n_ind; n += kRestartWarps) {
+      const float e_beta = expf(beta[r * n_ind + n]);
+      float* row = s_table + n * kCols;
+      const float sse = cude::warp_lane<In>(
+          mlp, e_beta, s_glucose + n * k_pts, s_data + n * k_pts,
+          s_kin + kKin * n, grid, scratch, pass, pass + 1, [&](int c, float v) {
+            if (c < kParams)
+              row[c - lo] = v;
+            else
+              gb_out[r * n_ind + n] = v * e_beta * inv_n;
+          });
+      if (threadIdx.x % cude::kWarp == 0) row[kSlots] = sse;
+    }
+    __syncthreads();
+
+    // the sums over the individuals, 0..N-1 in order, one column a thread;
+    // the SSE's in the last pass
+    const int weights = (lo + kSlots < kParams ? lo + kSlots : kParams) - lo;
+    const int cols = weights + (pass + 1 == kPasses);
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) {
+      const int c = j < weights ? j : kSlots;
+      float sum = s_table[c];
+      for (int n = 1; n < n_ind; ++n) sum = sum + s_table[n * kCols + c];
+      const float mean = sum * inv_n;
+      if (j < weights)
+        gnn_out[r * kParams + lo + j] = mean;
+      else
+        f_out[r] = isfinite(mean) ? mean : INFINITY;
+    }
+    __syncthreads();  // the table is free for the next pass
   }
-  __syncthreads();
-
-  // the sums over the individuals, 0..N-1 in order, one column a thread
-  for (int c = threadIdx.x; c < kCols; c += blockDim.x) {
-    float sum = s_table[c];
-    for (int n = 1; n < n_ind; ++n) sum = sum + s_table[n * kCols + c];
-    const float mean = sum * inv_n;
-    if (c < kParams)
-      gnn_out[r * kParams + c] = mean;
-    else
-      f_out[r] = isfinite(mean) ? mean : INFINITY;
-  }
-}
-
-// Lets `kernel` take `bytes` of dynamic shared memory a block.  Above the
-// 48 KB a launch gets without asking it opts in, up to the card's maximum a
-// block, once for each device and larger size: allowed[device] is the most it
-// has asked for `kernel` (the caller's static table, zero at first).  Returns
-// 0, a CUDA error, or minus `bytes` where the card has fewer (the C entry
-// points return that as their refusal of the inputs).
-constexpr int kMaxDevices = 64;
-
-template <class Kernel>
-int allow_shared(Kernel kernel, size_t bytes,
-                 std::atomic<size_t> (&allowed)[kMaxDevices]) {
-  if (bytes <= 48 * 1024) return 0;
-  int dev = 0, most = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < kMaxDevices && bytes <= allowed[dev].load()) return 0;
-  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (bytes > static_cast<size_t>(most)) return -static_cast<int>(bytes);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < kMaxDevices) allowed[dev].store(bytes);
-  return 0;
 }
 
 template <int In>
@@ -180,8 +198,8 @@ int launch(const float* nn, const float* beta, const float* glucose,
     return static_cast<int>(cudaErrorInvalidValue);
   if (restarts <= 0) return 0;
   const size_t shared = sizeof(float) * block_floats<In>(n_ind, n_seg, substeps);
-  static std::atomic<size_t> allowed[kMaxDevices];
-  const int err = allow_shared(population_sse_and_grad_kernel<In>, shared, allowed);
+  static std::atomic<size_t> allowed[cude::kMaxDevices];
+  const int err = cude::allow_shared(population_sse_and_grad_kernel<In>, shared, allowed);
   if (err != 0) return err;
   population_sse_and_grad_kernel<In><<<static_cast<unsigned int>(restarts), kThreads,
                                        shared, static_cast<cudaStream_t>(stream)>>>(

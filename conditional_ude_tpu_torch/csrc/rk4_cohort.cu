@@ -1,26 +1,30 @@
 // Fused cohort RK4 solve + SSE of the conditional c-peptide model, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel conditional_ude_tpu/ops/pallas_rk4.py::_build_kernel
-// (reached through cohort_sse_pallas), both of its bodies.  Every lane is an
-// independent 2-state ODE: van Cauter kinetics plus the production term
-// MLP([dG, e^beta]) - MLP([0, e^beta]) of the canonical chain(4, 2) network
-// (2 inputs, two tanh layers of width 4, softplus head: 37 weights), or, for
-// the covariate model, MLP([dG, e^beta, age]) - MLP([0, e^beta, age]) (3
-// inputs, 41 weights; the age is the 5th column of the lane's kinetics row),
-// driven by the lane's glucose curve.  The kernel integrates it with
-// fixed-step RK4 over the shared observation grid and returns the SSE against
-// the lane's c-peptide data at the save points; a non-finite SSE is stored as
-// +inf.
+// (reached through cohort_sse_pallas), both of its bodies, at every network
+// it takes (cude_mlp.cuh).  Every lane is an independent 2-state ODE: van
+// Cauter kinetics plus the production term MLP([dG, e^beta]) -
+// MLP([0, e^beta]) of a chain(widths, "tanh") network with a softplus head
+// (37 weights for the canonical chain(4, 2)), or, for the covariate model,
+// MLP([dG, e^beta, age]) - MLP([0, e^beta, age]) (41 for chain(4, 2); the
+// age is the 5th column of the lane's kinetics row), driven by the lane's
+// glucose curve.  The kernel integrates it with fixed-step RK4 over the
+// shared observation grid and returns the SSE against the lane's c-peptide
+// data at the save points; a non-finite SSE is stored as +inf.
 //
-// Design: one thread per lane.  The lane's 37 (41) weights live in registers;
-// it takes e^beta of its beta and its SSE from cude_rk4.cuh's lane_sse, with
-// the network at the lane's 69 points, each evaluated when the recursion
-// reaches it.  The time grid is shared, so the per-segment step sizes and the
-// t = 0 blend (j0, w0) are computed on the host and passed by value.
+// Design: one thread per lane.  The canonical lane's 37 (41) weights live
+// in registers; a wider network's are read from device memory (through L1)
+// where they are used, since a thread's copy would spill.  The lane takes
+// e^beta of its beta and its SSE from cude_rk4.cuh's lane_sse, with the
+// network at the lane's 69 points, each evaluated when the recursion
+// reaches it.  The time grid is shared, so the per-segment step sizes and
+// the t = 0 blend (j0, w0) are computed on the host and passed by value.
 //
-// Bound: instruction throughput.  A lane reads ~52 floats and writes one, and does 69
-// network evaluations of ~220 instructions each (eight accurate tanhf, one
-// expf and one log1pf: 17 SFU instructions and the rest on the FMA pipe).
+// Bound: instruction throughput.  A lane reads ~52 floats and writes one,
+// and does 69 network evaluations of ~220 instructions each for the
+// canonical network (eight accurate tanhf, one expf and one log1pf: 17 SFU
+// instructions and the rest on the FMA pipe; a wider network scales them
+// with its tanh count and weights).
 // The profile chunks hold 17,500 and 58,500 lanes, 4 and 14 warps an SM, so
 // the smaller one also waits on the latency of each thread's chain.
 //

@@ -3,12 +3,14 @@
 //
 // Replaces the TPU kernel
 // conditional_ude_tpu/ops/pallas_rk4.py::_build_population_kernel (reached
-// through population_sse_pallas), both of its bodies.  A restart is one
-// network (37 weights on [dG, e^beta]; 41 on [dG, e^beta, age] for the
-// covariate model) and one beta per individual.  For each restart the kernel
-// integrates every individual's 2-state c-peptide ODE with fixed-step RK4
-// over the shared observation grid and returns the mean over individuals of
-// the SSE at the save points, +inf where the mean is not finite.
+// through population_sse_pallas), both of its bodies, at every network it
+// takes (cude_mlp.cuh): a restart is one network of P weights on
+// [dG, e^beta], or on [dG, e^beta, age] for the covariate model, and one
+// beta per individual (37 and 41 weights for the canonical chain(4, 2)).
+// For each restart the kernel integrates every individual's 2-state
+// c-peptide ODE with fixed-step RK4 over the shared observation grid and
+// returns the mean over individuals of the SSE at the save points, +inf
+// where the mean is not finite.
 //
 // Design: one thread per (restart, individual) lane, and a block holds whole
 // restarts: max(1, kRounds kBlock / N) of them, which its kBlock threads
@@ -21,18 +23,23 @@
 // memory; then one thread per restart adds the N SSEs from individual 0 to
 // N - 1 and multiplies by 1/N, the order of the TPU kernel's loop and of
 // the plain version, so K1 is also exactly the in-order mean of K4's lanes.
-// A thread reads its restart's weights into registers by read-only loads
-// that the lanes of a restart share.  These choices are the fastest of the
-// layouts timed at 25,000 and 400,000 restarts x 57 (PERF.md).
+// A thread of the canonical network reads its restart's weights into
+// registers by read-only loads that the lanes of a restart share; a wider
+// network's weights (more than cude::kRegisterParams) are read from device
+// memory where they are used, through L1, which the restart's lanes share
+// as they share the canonical loads, so no width changes the block's
+// shared memory.  These choices are the fastest of the layouts timed at
+// 25,000 and 400,000 restarts x 57 (PERF.md) for the canonical network.
 //
 // Bound: instruction throughput.  The flagship screen is 25,000 restarts x 57
 // individuals, 1,425,000 lanes of 69 network evaluations; the bytes moved
-// (~41 + 57 floats a restart) are negligible.  An accurate tanhf is one
+// (~P + 57 floats a restart) are negligible.  An accurate tanhf is one
 // exp2 and one reciprocal on the SFU and ~20 instructions on the FMA pipe,
-// so an evaluation is ~220 instructions (an RK4 step, two evaluations and
-// the stage arithmetic, is ~506 in SASS), and a lane ~17,000: ~0.77 ms of
-// warp instructions at 4 a clock on 132 SMs, where the 10
-// transcendentals an evaluation alone would take 0.24 ms.
+// so an evaluation of the canonical network is ~220 instructions (an RK4
+// step, two evaluations and the stage arithmetic, is ~506 in SASS), and a
+// lane ~17,000: ~0.77 ms of warp instructions at 4 a clock on 132 SMs,
+// where the 10 transcendentals an evaluation alone would take 0.24 ms.  A
+// wider network scales both with its tanh count and its weights.
 //
 // Numerics (cude_mlp.cuh): accurate tanhf/expf/log1pf, no contracted
 // multiply-adds; the operations and their order are those of
@@ -52,7 +59,7 @@ using cude::Grid;
 using cude::Mlp;
 
 constexpr int kBlock = 256;  // threads a block, at most
-constexpr int kRounds = 3;   // lanes a block: kRounds kBlock; ops/rk4_population.py's BLOCK_LANES
+constexpr int kRounds = 3;   // lanes a block: kRounds kBlock
 constexpr size_t kStaticShared = 48 * 1024;
 
 template <int In>

@@ -3,9 +3,12 @@
 //
 // Replaces the TPU kernel conditional_ude_tpu/ops/pallas_tsit5.py::_build_kernel
 // (reached through cohort_sse_tsit5_pallas / screen_population_tsit5_pallas),
-// both of its bodies: the network on [dG, e^beta] (37 weights) or, for the
-// covariate model, on [dG, e^beta, age] (41 weights; the age is the 5th
-// column of the individual's kinetics row, an input at every stage).
+// both of its bodies, at every network it takes (cude_mlp.cuh): P weights on
+// [dG, e^beta] or, for the covariate model, on [dG, e^beta, age] (the age is
+// the 5th column of the individual's kinetics row, an input at every stage;
+// 37 and 41 weights for the canonical chain(4, 2)).  The canonical
+// network's weights live in a thread's registers, a wider network's are
+// read from device memory (through L1) where they are used.
 // Every lane integrates its 2-state c-peptide ODE with the Tsitouras 5(4)
 // pair: FSAL, a PI step-size controller, Hairer's initial step, rtol/atol
 // scaled error norm, at most max_steps steps.  Each accepted step that

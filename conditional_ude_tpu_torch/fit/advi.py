@@ -12,7 +12,8 @@ subjects) leading tensor axes where the JAX package ``vmap``s.
   restart.
 
 Both ELBOs integrate by RK4 at ``substeps`` (exp_advi's 4).  The
-canonical 2- or 3-input cUDE takes K2 (``ops/lane_grad.py``): for one
+2- or 3-input cUDE the kernels take (``kernel_route``) takes K2
+(``ops/lane_grad.py``): for one
 sample the ELBO's gradient is −1/(2σ²) times each lane's SSE gradient,
 which K2 returns per lane, and the σ terms and the priors have closed
 forms.  A step is one launch: ``n_samples`` rows of the network over the
@@ -167,8 +168,9 @@ def _log_normal_prior(x: torch.Tensor, prior: tuple[float, float]):
 
 
 def kernel_route(model: CPeptideModel, substeps: int) -> bool:
-    """Whether K2 computes this model's SSE gradients: the canonical
-    conditional (or covariate) network at 1-16 substeps."""
+    """Whether K2 computes this model's SSE gradients: a conditional (or
+    covariate) network the kernels take (``fused_kernel_eligible``) at
+    1-16 substeps."""
     return (fused_kernel_eligible(model)
             and 1 <= substeps <= lane_grad.MAX_SUBSTEPS)
 

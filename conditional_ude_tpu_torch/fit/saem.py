@@ -25,7 +25,8 @@ in the JAX package's layout: normals and uniforms ``[iterations,
 mcmc_steps_max, N]`` for SAEM, the inactive steps of the burn-in included,
 and ``[n_steps, N]`` for the posterior chains.
 
-The likelihood of a cohort (:class:`CohortLogLik`) of the canonical cUDE
+The likelihood of a cohort (:class:`CohortLogLik`) of a cUDE the kernels
+take (tanh hidden layers, a softplus head; ``fused_kernel_eligible``)
 with fixed-step RK4 takes the kernels: its values come from K4
 (``ops/rk4_cohort.py``; a step's proposals and current states in one
 launch of 2N lanes) and the population gradient from K2
@@ -161,7 +162,7 @@ class CohortLogLik(LogLik):
     analytic head θ is the population parameter and the individual's is
     θ·e^{rand_i}.
 
-    The canonical 2- or 3-input cUDE with ``solver="rk4"`` takes the
+    A 2- or 3-input cUDE the kernels take with ``solver="rk4"`` takes the
     kernels: K4 for :meth:`values`, K2 for :meth:`nll_and_grad` (CUDA
     tensors launch them, CPU tensors run their plain versions).  Everything
     else, and ``__call__`` (the MAP and MLE fits), runs the plain solvers.

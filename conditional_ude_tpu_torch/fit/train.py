@@ -6,8 +6,9 @@
   the config alone (:func:`kernels_compute`, the JAX package's
   ``_pallas_eligible``):
 
-  - the kernel route, for the canonical cUDE (``chain(4, 2)``, tanh, a
-    softplus head, one β) trained by RK4: screen every initial design with
+  - the kernel route, for the cUDE on any network of tanh hidden layers
+    with a softplus head (the canonical ``chain(4, 2)`` or any other widths
+    and depth), one β, trained by RK4: screen every initial design with
     K1 (``ops/rk4_population.py``), keep the best, refine them with Adam
     then L-BFGS on the value and exact gradient of K2 (``ops/lane_grad.py``;
     of K5, ``ops/population_grad.py``, above 131,072 restart × individual
@@ -139,11 +140,13 @@ def _check_trainable(model: CPeptideModel, cfg: TrainConfig) -> None:
 
 
 def kernels_compute(model: CPeptideModel, cfg: TrainConfig) -> bool:
-    """Whether the kernels compute this training (the JAX package's
-    ``_pallas_eligible``): the canonical cUDE or covariate model at one
-    conditional parameter, trained by RK4.  Otherwise the generic route
-    runs."""
-    return cfg.solver == "rk4" and fused_kernel_eligible(model)
+    """Whether the kernels compute this training, as the JAX package's
+    ``_pallas_eligible`` decides: the cUDE or covariate model on a network
+    of tanh hidden layers (any widths and depth) with a softplus head, at
+    one conditional parameter, trained by RK4.  Otherwise the generic
+    route runs."""
+    return (cfg.solver == "rk4" and cfg.n_conditional == 1
+            and fused_kernel_eligible(model))
 
 
 def train_conditional(model: CPeptideModel, cohort: Cohort,
@@ -160,10 +163,11 @@ def train_conditional(model: CPeptideModel, cohort: Cohort,
     LHS from ``seed``, or are given as ``designs=(nn_inits[G, P],
     betas_init[G, N, k])``, e.g. the JAX package's, for parity.
 
-    The kernels train the canonical model (:func:`kernels_compute`); any
-    other network, k > 1 or ``solver="tsit5"`` takes the generic route,
-    which launches no kernel.  ``timings`` names the route:
-    ``screen_path`` ``cuda_k1`` / ``plain`` or ``torch_batched``,
+    The kernels train every model the JAX kernels take
+    (:func:`kernels_compute`: tanh hidden layers of any widths and depth,
+    a softplus head, k = 1, RK4); any other network, k > 1 or
+    ``solver="tsit5"`` takes the generic route, which launches no kernel.
+    ``timings`` names the route: ``screen_path`` ``cuda_k1`` / ``plain`` or ``torch_batched``,
     ``refine_path`` ``cuda_k2`` / ``cuda_k5`` / ``plain`` / ``plain_k5`` or
     ``autograd``.
 

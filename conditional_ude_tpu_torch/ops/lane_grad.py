@@ -13,14 +13,18 @@ one (restart, individual) pair, and the kernel gives it one warp.  Its
 forward pass needs the network at 1 + n_seg·(2·substeps + 1) points (69 on
 the OGTT grid; row 0 is the ΔG = 0 baseline), spread over the warp's 32
 threads; an adjoint recursion over the five residuals gives each point's
-weight (the baseline's is −Σw), and one hand VJP per point gives ∇nn[37]
-and ∇β = (Σ_q ∂/∂e^β)·e^β, each thread summing its own points and the warp
-then summing its threads in a fixed order (:func:`lane_sum`).  That order
-is not the JAX kernel's, so the port agrees with JAX's K2 to float32
-reassociation.  The covariate model's network takes the age as
-a third input (the kinetics' 5th column): ∇nn has 41 entries, w1[o][2]'s
-being Σ_q dz1[o]·age, and ∇β is unchanged (``pallas_grad.py:457-471``).  The
-sum over individuals runs outside the kernel
+weight (the baseline's is −Σw), and one hand VJP per point gives ∇nn[P]
+(37 weights for the canonical ``chain(4, 2)``; any network of tanh
+layers with a softplus head, one library a shape) and
+∇β = (Σ_q ∂/∂e^β)·e^β, each thread summing its own points and the warp
+then summing its threads in a fixed order (:func:`lane_sum`, at any
+width: past 127 weights the kernel sums the columns in passes of 128).  That order is not the JAX kernel's, so the
+port agrees with JAX's K2 to float32 reassociation.  The covariate
+model's network takes the age as a third input (the kinetics' 5th
+column): ∇nn gains a weight a first-layer unit (41 entries for
+``chain(4, 2)``), w1[o][2]'s being Σ_q dz1[o]·age, and ∇β is unchanged
+(``pallas_grad.py:457-471``).  The sum over individuals runs outside the
+kernel
 (:func:`packed_sse_and_grad`), as in the JAX package;
 :func:`population_sse_and_grad` takes that route up to ``PACK_MAX_LANES``
 lanes and the restart kernel K5 (``ops/population_grad.py``) above.
@@ -44,6 +48,8 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     I64,
     VP,
     KernelLibrary,
+    count_launch,
+    launch_total,
 )
 from conditional_ude_tpu_torch.ops.rk4_cohort import (
     PointNetwork,
@@ -61,10 +67,14 @@ WARP = 32          # threads that share a lane's evaluation points
 # (``pallas_grad.py:550-553``)
 PACK_MAX_LANES = 131072
 
-# kernel launches since import (or since a caller reset them to 0): the
-# 2-input body and the 3-input (covariate) body
-launches = 0
-launches_age = 0
+# kernel launches since import (or since a caller cleared it), by network
+# shape: ``{(input_dims, hidden widths): launches}``; ``launches`` and
+# ``launches_age`` are its totals for the 2-input and the 3-input body
+shape_launches: dict = {}
+
+
+def __getattr__(name: str) -> int:
+    return launch_total(shape_launches, name, __name__)
 
 _ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32,
              VP]
@@ -257,7 +267,6 @@ def lane_sse_and_grad(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
 
 def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
             substeps):
-    global launches, launches_age
     require_contiguous(nn_params=nn_params, betas=betas, glucose=glucose,
                        data=data, kinetics=kinetics)
     r, n = betas.shape
@@ -272,16 +281,13 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
     consts = grid_constants(timepoints, substeps)
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = kernel_age if net.input_dims == 3 else kernel
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
         lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
             data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
             gnn.data_ptr(), gb.data_ptr(), r * n, n,
             consts.ctypes.data_as(F32_PTR), len(timepoints) - 1, substeps, j0,
             stream)
-    if net.input_dims == 3:
-        launches_age += 1
-    else:
-        launches += 1
+    count_launch(shape_launches, net)
     return sse, gnn, gb
 
 

@@ -37,6 +37,8 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     I64,
     VP,
     KernelLibrary,
+    count_launch,
+    launch_total,
 )
 from conditional_ude_tpu_torch.ops.lane_grad import (
     MAX_SUBSTEPS,
@@ -50,10 +52,14 @@ from conditional_ude_tpu_torch.ops.rk4_cohort import (
 )
 from conditional_ude_tpu_torch.ops.tsit5 import f32
 
-# kernel launches since import (or since a caller reset them to 0): the
-# 2-input body and the 3-input (covariate) body
-launches = 0
-launches_age = 0
+# kernel launches since import (or since a caller cleared it), by network
+# shape: ``{(input_dims, hidden widths): launches}``; ``launches`` and
+# ``launches_age`` are its totals for the 2-input and the 3-input body
+shape_launches: dict = {}
+
+
+def __getattr__(name: str) -> int:
+    return launch_total(shape_launches, name, __name__)
 
 _ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32,
              F32, VP]
@@ -96,7 +102,7 @@ def restart_sse_and_grad(net: MLP, nn_params: torch.Tensor,
     its gradient, 1/N applied.  CPU tensors run the plain version; CUDA
     tensors launch the kernel's body for the network's input count, which
     raises ``ValueError`` where the cohort needs more shared memory a block
-    than the card has."""
+    than the card has (``csrc/population_grad.cu`` gives the sizes)."""
     check_restart_inputs(net, nn_params, betas, glucose, data, kinetics,
                          timepoints)
     if betas.shape[1] < 1 or not 1 <= substeps <= MAX_SUBSTEPS:
@@ -115,7 +121,6 @@ def restart_sse_and_grad(net: MLP, nn_params: torch.Tensor,
 
 def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
             substeps):
-    global launches, launches_age
     require_contiguous(nn_params=nn_params, betas=betas, glucose=glucose,
                        data=data, kinetics=kinetics)
     r, n = betas.shape
@@ -129,14 +134,11 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
     consts = grid_constants(timepoints, substeps)
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = kernel_age if net.input_dims == 3 else kernel
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
         lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
             data.data_ptr(), kinetics.data_ptr(), f.data_ptr(),
             gnn.data_ptr(), gb.data_ptr(), r, n,
             consts.ctypes.data_as(F32_PTR), len(timepoints) - 1, substeps, j0,
             f32(1.0 / n), stream)
-    if net.input_dims == 3:
-        launches_age += 1
-    else:
-        launches += 1
+    count_launch(shape_launches, net)
     return f, gnn, gb

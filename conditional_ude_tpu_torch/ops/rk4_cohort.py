@@ -4,10 +4,12 @@
 Lanes are (grid point × individual) pairs of a likelihood-profile scan, or
 any other set of independent solves: each lane has its own network weights,
 β, glucose curve, c-peptide data and kinetic constants; all lanes share the
-observation grid.  The network is the canonical ``chain(4, 2)`` on
-[ΔG, e^β], or on [ΔG, e^β, age] for the covariate model, whose kinetics rows
-carry the age as a 5th column.  :func:`cohort_sse` launches the CUDA kernel in
-``csrc/rk4_cohort.cu`` for CUDA tensors (one body per input count) and runs
+observation grid.  The network is any ``chain(widths, "tanh")`` with a
+softplus scalar head (:func:`check_net_canonical`, the JAX kernels'
+domain) on [ΔG, e^β], or on [ΔG, e^β, age] for the covariate model, whose
+kinetics rows carry the age as a 5th column.  :func:`cohort_sse` launches
+the CUDA kernel in ``csrc/rk4_cohort.cu`` for CUDA tensors (one body per
+input count, one library per network shape) and runs
 :func:`cohort_sse_reference`, the same arithmetic as plain tensor code, for
 CPU tensors.
 
@@ -36,15 +38,20 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     I64,
     VP,
     KernelLibrary,
+    count_launch,
+    launch_total,
 )
 
 MAX_TIMEPOINTS = 16
-CANONICAL_WIDTHS = (4, 4)
 
-# kernel launches since import (or since a caller reset them to 0): the
-# 2-input body and the 3-input (covariate) body
-launches = 0
-launches_age = 0
+# kernel launches since import (or since a caller cleared it), by network
+# shape: ``{(input_dims, hidden widths): launches}``; ``launches`` and
+# ``launches_age`` are its totals for the 2-input and the 3-input body
+shape_launches: dict = {}
+
+
+def __getattr__(name: str) -> int:
+    return launch_total(shape_launches, name, __name__)
 
 _ARGTYPES = [VP, I64, VP, VP, VP, VP, VP, I64, F32_PTR, I32, I32, I32, F32,
              F32, VP]
@@ -53,18 +60,19 @@ kernel_age = KernelLibrary("rk4_cohort.cu", "rk4_cohort_sse_age", _ARGTYPES)
 
 
 def check_net_canonical(net: MLP) -> None:
-    """The kernels compute the canonical cUDE network only: ``chain(4, 2)``
-    with tanh hidden layers and a softplus scalar head, on [ΔG, e^β]
-    (2 inputs) or [ΔG, e^β, age] (3 inputs, the covariate model)."""
+    """The kernels compute the networks the JAX kernels take
+    (``pallas_rk4.py::check_net_canonical``): any widths and depth of tanh
+    hidden layers with a softplus scalar head, on [ΔG, e^β] (2 inputs) or
+    [ΔG, e^β, age] (3 inputs, the covariate model)."""
     allowed = (2, 3)
-    if (net.input_dims not in allowed or net.widths != CANONICAL_WIDTHS
+    if (net.input_dims not in allowed
             or any(a != "tanh" for a in net.activations)
             or net.output_dims != 1 or net.output_activation != "softplus"):
         raise ValueError(
-            f"the kernels support only {allowed}-input chain(4, 2) "
-            "MLPs with tanh hidden layers and a softplus output head; got "
-            f"input_dims={net.input_dims}, widths={net.widths}, "
-            f"activations={net.activations}, "
+            f"the kernels support only {allowed}-input MLPs with tanh "
+            "hidden layers and a softplus scalar output head; got "
+            f"input_dims={net.input_dims}, activations={net.activations}, "
+            f"output_dims={net.output_dims}, "
             f"output_activation={net.output_activation!r}")
 
 
@@ -116,76 +124,75 @@ def _mlp_columns(nn_params: torch.Tensor, net: MLP):
             for W, B in _mlp_rows(nn_params, net)]
 
 
-def _mlp_forward(layers, x):
-    """``Σ_k W[o][k]·h[k]`` left to right, then ``+ b[o]``: the kernel's order."""
-    h = x
+def _mlp_layers(layers, x):
+    """The hidden layers' tanh outputs ``[h_l[...]]`` and the head's
+    pre-activation of the network ``layers`` on input rows ``x``:
+    ``Σ_k W[o][k]·h[k]`` left to right, then ``+ b[o]``, the kernels'
+    order."""
+    h, hidden = x, []
     for li, (W, b) in enumerate(layers):
-        out = []
+        z = []
         for o in range(len(W)):
             acc = W[o][0] * h[0]
             for k in range(1, len(h)):
                 acc = acc + W[o][k] * h[k]
-            acc = acc + b[o]
-            out.append(softplus(acc) if li == len(layers) - 1
-                       else torch.tanh(acc))
-        h = out
-    return h[0]
+            z.append(acc + b[o])
+        if li + 1 == len(layers):
+            return hidden, z[0]
+        h = [torch.tanh(v) for v in z]
+        hidden.append(h)
+
+
+def _mlp_forward(layers, x):
+    """The network's softplus output on input rows ``x``."""
+    return softplus(_mlp_layers(layers, x)[1])
 
 
 class PointNetwork:
-    """The canonical network on per-lane weight columns, evaluated point by
-    point at [ΔG, e^β(, age)] in the kernels' order of operations
+    """A network on per-lane weight columns (``_mlp_rows`` or
+    ``_mlp_columns`` of any layer list), evaluated point by point at
+    [ΔG, e^β(, age)] in the kernels' order of operations
     (``csrc/cude_mlp.cuh``, ``Mlp``), with its hand VJP
     (``csrc/cude_grad.cuh``, ``point_vjp``)."""
 
     def __init__(self, layers, eb, extra):
-        (self.w1, self.b1), (self.w2, self.b2), (self.w3, self.b3) = layers
-        self.eb, self.extra = eb, extra
+        self.layers, self.eb, self.extra = layers, eb, extra
 
     def forward(self, dg):
-        """Layer outputs ``(h1[4], h2[4], z3)`` at ΔG = ``dg``."""
-        h1 = []
-        for o in range(4):
-            acc = self.w1[o][0] * dg + self.w1[o][1] * self.eb
-            for w, x in zip(self.w1[o][2:], self.extra):
-                acc = acc + w * x
-            h1.append(torch.tanh(acc + self.b1[o]))
-        h2 = []
-        for o in range(4):
-            acc = self.w2[o][0] * h1[0]
-            for k in range(1, 4):
-                acc = acc + self.w2[o][k] * h1[k]
-            h2.append(torch.tanh(acc + self.b2[o]))
-        acc = self.w3[0][0] * h2[0]
-        for k in range(1, 4):
-            acc = acc + self.w3[0][k] * h2[k]
-        return h1, h2, acc + self.b3[0]
+        """:func:`_mlp_layers` at [ΔG = ``dg``, e^β(, age)]."""
+        return _mlp_layers(self.layers, [dg, self.eb] + self.extra)
 
     def __call__(self, dg):
-        z = self.forward(dg)[2]
+        z = self.forward(dg)[1]
         return torch.clamp_min(z, 0.0) + torch.log1p(torch.exp(-torch.abs(z)))
 
     def vjp(self, dg, weight):
         """``weight · ∂out/∂params`` stacked on a last axis ``[..., P]`` in
         the flat layout, and ``weight · ∂out/∂e^β``; the forward is
-        recomputed."""
-        h1, h2, z3 = self.forward(dg)
-        dz3 = weight * (1.0 / (1.0 + torch.exp(-z3)))
-        g3 = [dz3 * h2[k] for k in range(4)] + [dz3]
-        dz2 = [dz3 * self.w3[0][k] * (1.0 - h2[k] * h2[k]) for k in range(4)]
-        g2 = [dz2[o] * h1[k] for o in range(4) for k in range(4)] + dz2
-        dz1 = []
-        for k in range(4):
-            dh = dz2[0] * self.w2[0][k]
-            for o in range(1, 4):
-                dh = dh + dz2[o] * self.w2[o][k]
-            dz1.append(dh * (1.0 - h1[k] * h1[k]))
-        g1 = [dz1[o] * x for o in range(4)
-              for x in [dg, self.eb] + self.extra] + dz1
-        dh_eb = dz1[0] * self.w1[0][1]
-        for o in range(1, 4):
-            dh_eb = dh_eb + dz1[o] * self.w1[o][1]
-        return torch.stack(g1 + g2 + g3, dim=-1), dh_eb
+        recomputed.  Layer by layer from the head down, a hidden layer's
+        cotangent is ``(Σ_o dz[o]·W[o][k], left to right)·(1 − h[k]²)``."""
+        hidden, z = self.forward(dg)
+        inputs = [[dg, self.eb] + self.extra] + hidden
+        dz = [weight * (1.0 / (1.0 + torch.exp(-z)))]
+        grads = [None] * len(self.layers)
+        for li in range(len(self.layers) - 1, -1, -1):
+            W = self.layers[li][0]
+            a = inputs[li]
+            grads[li] = [dz[o] * a[k] for o in range(len(W))
+                         for k in range(len(a))] + dz
+
+            def back(k, W=W, dz=dz):
+                dh = dz[0] * W[0][k]
+                for o in range(1, len(W)):
+                    dh = dh + dz[o] * W[o][k]
+                return dh
+
+            if li == 0:
+                dh_eb = back(1)                 # e^β is layer 0's input 1
+            else:
+                dz = [back(k) * (1.0 - a[k] * a[k]) for k in range(len(a))]
+        return torch.stack([g for layer in grads for g in layer],
+                           dim=-1), dh_eb
 
 
 def point_dgs(glucose, timepoints, substeps: int) -> list[torch.Tensor]:
@@ -296,9 +303,10 @@ def kinetics_columns(net: MLP) -> int:
 
 def check_restart_inputs(net: MLP, nn_params, betas, glucose, data, kinetics,
                          timepoints) -> None:
-    """Inputs of the kernels that take restarts (K1, K2, K3): the canonical
-    2- or 3-input network, float32 ``nn_params[R, P]`` and ``betas[R, N]``
-    on one device with the cohort ``glucose[N, K]``, ``data[N, K]``,
+    """Inputs of the kernels that take restarts (K1, K2, K3): a 2- or
+    3-input network the kernels take, float32 ``nn_params[R, P]`` and
+    ``betas[R, N]`` on one device with the cohort ``glucose[N, K]``,
+    ``data[N, K]``,
     ``kinetics[N, 4]`` (``[N, 5]`` with the age for 3 inputs) and 2..16
     increasing ``timepoints[K]``."""
     check_net_canonical(net)
@@ -358,7 +366,6 @@ def cohort_sse(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
 
 def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
             substeps):
-    global launches, launches_age
     if nn_params.stride(-1) != 1 or (nn_params.shape[0] > 1 and
                                      nn_params.stride(0) not in
                                      (0, nn_params.shape[1])):
@@ -374,13 +381,10 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
     lane_stride = nn_params.stride(0) if n_lanes > 1 else nn_params.shape[1]
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = kernel_age if net.input_dims == 3 else kernel
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
         lib(nn_params.data_ptr(), lane_stride, betas.data_ptr(),
             glucose.data_ptr(), data.data_ptr(), kinetics.data_ptr(),
             out.data_ptr(), n_lanes, segs.ctypes.data_as(F32_PTR),
             segs.shape[0], substeps, j0, one_minus_w0, w0, stream)
-    if net.input_dims == 3:
-        launches_age += 1
-    else:
-        launches += 1
+    count_launch(shape_launches, net)
     return out

@@ -28,27 +28,26 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     I64,
     VP,
     KernelLibrary,
+    count_launch,
+    launch_total,
 )
 from conditional_ude_tpu_torch.ops.rk4_cohort import (
     PointNetwork,
     _mlp_columns,
     _segments,
     check_restart_inputs,
-    kinetics_columns,
     require_contiguous,
     rk4_point_sse,
 )
 
-SHARED_BYTES = 48 * 1024    # the cohort lives in static-limit shared memory
-# a block holds max(1, BLOCK_LANES // N) whole restarts: a copy of
-# csrc/rk4_population.cu's kRounds·kBlock, whose launch refuses the same
-# cohorts; the check below says so before the library is built
-BLOCK_LANES = 768
+# kernel launches since import (or since a caller cleared it), by network
+# shape: ``{(input_dims, hidden widths): launches}``; ``launches`` and
+# ``launches_age`` are its totals for the 2-input and the 3-input body
+shape_launches: dict = {}
 
-# kernel launches since import (or since a caller reset them to 0): the
-# 2-input body and the 3-input (covariate) body
-launches = 0
-launches_age = 0
+
+def __getattr__(name: str) -> int:
+    return launch_total(shape_launches, name, __name__)
 
 _ARGTYPES = [VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32, F32,
              F32, F32, VP]
@@ -99,30 +98,19 @@ def population_sse(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
 
 def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
             substeps):
-    global launches, launches_age
     require_contiguous(nn_params=nn_params, betas=betas, glucose=glucose,
                        data=data, kinetics=kinetics)
     g, n = betas.shape
-    k = glucose.shape[1]
-    # a block's shared memory: the cohort, then the SSE of each of its lanes
-    lanes = max(1, BLOCK_LANES // n) * n
-    if 4 * (n * (2 * k + kinetics_columns(net)) + lanes) > SHARED_BYTES:
-        raise ValueError(f"a cohort of {n} individuals x {k} times does not "
-                         f"fit the kernel's {SHARED_BYTES} bytes of shared "
-                         "memory")
     out = torch.empty(g, dtype=torch.float32, device=betas.device)
     if g == 0:
         return out
     segs, j0, one_minus_w0, w0 = _segments(timepoints, substeps)
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = kernel_age if net.input_dims == 3 else kernel
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
         lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
             data.data_ptr(), kinetics.data_ptr(), out.data_ptr(), g, n,
             segs.ctypes.data_as(F32_PTR), segs.shape[0], substeps, j0,
             one_minus_w0, w0, float(np.float32(1.0 / n)), stream)
-    if net.input_dims == 3:
-        launches_age += 1
-    else:
-        launches += 1
+    count_launch(shape_launches, net)
     return out

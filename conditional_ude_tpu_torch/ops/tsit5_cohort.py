@@ -42,6 +42,8 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     I64,
     VP,
     KernelLibrary,
+    count_launch,
+    launch_total,
 )
 from conditional_ude_tpu_torch.ops.rk4_cohort import (
     MAX_TIMEPOINTS,
@@ -53,10 +55,14 @@ from conditional_ude_tpu_torch.ops.rk4_cohort import (
 )
 from conditional_ude_tpu_torch.ops.tsit5 import f32
 
-# kernel launches since import (or since a caller reset them to 0): the
-# 2-input body and the 3-input (covariate) body
-launches = 0
-launches_age = 0
+# kernel launches since import (or since a caller cleared it), by network
+# shape: ``{(input_dims, hidden widths): launches}``; ``launches`` and
+# ``launches_age`` are its totals for the 2-input and the 3-input body
+shape_launches: dict = {}
+
+
+def __getattr__(name: str) -> int:
+    return launch_total(shape_launches, name, __name__)
 
 _ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32, VP]
 kernel = KernelLibrary("tsit5_cohort.cu", "tsit5_cohort_sse", _ARGTYPES)
@@ -316,7 +322,6 @@ def cohort_sse_tsit5(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
 
 def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
             max_steps, rtol, atol):
-    global launches, launches_age
     require_contiguous(nn_params=nn_params, betas=betas, glucose=glucose,
                        data=data, kinetics=kinetics)
     r, n = betas.shape
@@ -328,15 +333,12 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
     _, j0, _, _ = _segments(timepoints, 1)
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = kernel_age if net.input_dims == 3 else kernel
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
         lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
             data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
             ok.data_ptr(), r * n, n, consts.ctypes.data_as(F32_PTR),
             len(timepoints), j0, max_steps, stream)
-    if net.input_dims == 3:
-        launches_age += 1
-    else:
-        launches += 1
+    count_launch(shape_launches, net)
     return sse, ok
 
 

@@ -49,9 +49,10 @@ ART = "artifacts"
 BEST = 19               # results/exp02_metrics.json's best_model_index
 
 
-def jax_model(width=4):
+def jax_model(width=4, activation="tanh"):
     return jcp.CPeptideModel(kind="conditional",
-                             net=jax_chain(width, 2, "tanh", input_dims=2))
+                             net=jax_chain(width, 2, activation,
+                                           input_dims=2))
 
 
 def advi_normals(key, steps, shape):
@@ -150,20 +151,21 @@ def test_advi_takes_a_generator_or_normals():
 
 @pytest.mark.parametrize("route", ["plain_k2", "autograd"])
 def test_advi_betas_matches_jax(ohashi, route):
-    """6 test subjects, 100 steps (autograd: a 3-wide network, which K2 does
-    not compute, 30 steps), 8 samples, RK4 at 4 substeps, from β = −1."""
+    """6 test subjects, 100 steps (autograd: a 3-wide gelu network, which
+    K2 does not compute, 30 steps), 8 samples, RK4 at 4 substeps, from
+    β = −1."""
     _, test, cand = ohashi
     c, jc = cohorts(test.subset(np.arange(6)))
     if route == "plain_k2":
-        width, nn, steps = 4, cand["nn_params"][BEST], 100
+        width, act, nn, steps = 4, "tanh", cand["nn_params"][BEST], 100
     else:
-        width, steps = 3, 30
-        net = jax_chain(3, 2, "tanh", input_dims=2)
+        width, act, steps = 3, "gelu", 30
+        net = jax_chain(3, 2, act, input_dims=2)
         nn = np.asarray(net.init(jax.random.key(5))) * 1.5
-    model = cp.CPeptideModel(chain(width, 2))
+    model = cp.CPeptideModel(chain(width, 2, act))
     assert advi.kernel_route(model, 4) == (route == "plain_k2")
     key = jax.random.key(7)
-    ref = jadvi.advi_betas(jax_model(width), jnp.asarray(nn), jc, key,
+    ref = jadvi.advi_betas(jax_model(width, act), jnp.asarray(nn), jc, key,
                            initial_beta=-1.0, steps=steps, solver="rk4",
                            substeps=4)
     res = advi.advi_betas(model, torch.as_tensor(nn), c, initial_beta=-1.0,
@@ -177,24 +179,24 @@ def test_advi_betas_matches_jax(ohashi, route):
 @pytest.mark.parametrize("route", ["plain_k2", "autograd"])
 def test_advi_joint_matches_jax(ohashi, route):
     """2 restarts from the committed candidates and their training β's on 8
-    of their fit subjects, 50 steps (autograd: a 3-wide network, 10 steps),
-    4 samples, RK4 at 4 substeps; the restarts vmapped as the experiment
-    script vmaps them."""
+    of their fit subjects, 50 steps (autograd: a 3-wide gelu network, 10
+    steps), 4 samples, RK4 at 4 substeps; the restarts vmapped as the
+    experiment script vmaps them."""
     train, _, cand = ohashi
     c, jc = cohorts(train.subset(cand["idx_fit"][:8]))
     r = 2
     b0 = cand["betas"][:r, :8, 0]
     if route == "plain_k2":
-        width, nn0, steps = 4, cand["nn_params"][:r], 50
+        width, act, nn0, steps = 4, "tanh", cand["nn_params"][:r], 50
     else:
-        width, steps = 3, 10
-        net = jax_chain(3, 2, "tanh", input_dims=2)
+        width, act, steps = 3, "gelu", 10
+        net = jax_chain(3, 2, act, input_dims=2)
         nn0 = np.array(net.init_batch(jax.random.key(6), r))
-    model = cp.CPeptideModel(chain(width, 2))
+    model = cp.CPeptideModel(chain(width, 2, act))
     assert advi.kernel_route(model, 4) == (route == "plain_k2")
     keys = jax.random.split(jax.random.key(3), r)
     ref = jax.vmap(lambda n_, b_, k: jadvi.advi_joint(
-        jax_model(width), jc, n_, k, init_betas=b_, steps=steps, n_samples=4,
+        jax_model(width, act), jc, n_, k, init_betas=b_, steps=steps, n_samples=4,
         solver="rk4", substeps=4))(jnp.asarray(nn0), jnp.asarray(b0), keys)
     d = nn0.shape[1] + 8 + 1
     normals = np.stack([np.asarray(advi_normals(k, steps, (4, d)))

@@ -533,3 +533,124 @@ def test_two_way_mesh_on_one_card_is_the_unsharded_run(card):
     assert rk4_cohort.launches == before + 6
     assert p1.values.shape == (37, 300)
     assert torch.equal(p1.values, p0.values)
+
+
+# -- networks other than chain(4, 2): every body, one library a shape ---------
+
+WIDE_NETS = {"W": ((8, 8), 2), "D": ((4, 4, 4), 2), "V": ((6, 3), 3),
+             "W3": ((8, 8), 3), "chain(5, 1)": ((5,), 2),
+             # past 127 weights: K2 and K5 sum the gradient in 2 and 4 passes
+             "chain(12, 2)": ((12, 12), 2), "chain(20, 2)": ((20, 20), 2),
+             "chain(20, 2) on 3 inputs": ((20, 20), 3)}
+
+
+def _wide_case(name, device, r=25, n=57, seed=8):
+    """Glorot weights of ``WIDE_NETS[name]`` for r restarts, β's and a
+    cohort of n with real ages."""
+    widths, d = WIDE_NETS[name]
+    net = chain(list(widths), input_dims=d)
+    rng = np.random.default_rng(seed)
+    parts = []
+    for fi, fo in net.layer_dims:
+        b = np.sqrt(6.0 / (fi + fo))
+        parts += [rng.uniform(-b, b, (r, fo * fi)), np.zeros((r, fo))]
+    cohort = build_cohort(5.0 + rng.uniform(0, 5, (n, 5)), np.asarray(TP),
+                          0.5 + rng.uniform(0, 1.5, (n, 5)),
+                          rng.uniform(30, 70, n), rng.uniform(size=n) > 0.5,
+                          device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return net, (torch.as_tensor(np.concatenate(parts, 1), **f32),
+                 torch.as_tensor(rng.uniform(-2.0, 0.0, (r, n)), **f32),
+                 cohort.glucose, cohort.cpeptide,
+                 cohort.kinetics(with_age=d == 3), TP)
+
+
+@pytest.mark.parametrize("name", list(WIDE_NETS))
+def test_every_body_at_another_network_is_its_plain_version(card, name):
+    """K1, K4, K2, K5 and K3 (or their covariate bodies) at a network the
+    JAX kernels take but the canonical library does not: each launches the
+    library built for its shape once and equals its plain version bit for
+    bit (K3 with the same ``ok`` mask)."""
+    net, args = _wide_case(name, card)
+    shape = (net.input_dims, net.widths)
+    nn, betas, glucose, cpeptide, kin, tp = args
+    r, n = betas.shape
+    lanes = (nn.repeat_interleave(n, 0), betas.reshape(-1),
+             glucose.repeat(r, 1), cpeptide.repeat(r, 1), kin.repeat(r, 1))
+    calls = (
+        (rk4_population, rk4_population.population_sse,
+         rk4_population.population_sse_reference, args + (8,)),
+        (rk4_cohort, rk4_cohort.cohort_sse, rk4_cohort.cohort_sse_reference,
+         lanes + (tp, 8)),
+        (lane_grad, lane_grad.lane_sse_and_grad,
+         lane_grad.lane_sse_and_grad_reference, args + (8,)),
+        (population_grad, population_grad.restart_sse_and_grad,
+         population_grad.restart_sse_and_grad_reference, args + (8,)),
+        (tsit5_cohort, tsit5_cohort.cohort_sse_tsit5,
+         tsit5_cohort.cohort_sse_tsit5_reference, args))
+    for mod, kernel, plain, a in calls:
+        before = mod.shape_launches.get(shape, 0)
+        out = kernel(net, *a)
+        assert mod.shape_launches[shape] == before + 1
+        ref = plain(net, *a)
+        torch.cuda.synchronize()
+        for o, p in zip(out if isinstance(out, tuple) else (out,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            torch.testing.assert_close(o, p, rtol=0, atol=0, equal_nan=True)
+
+
+def _train_wide(device, widths, config):
+    """``train_conditional`` of ``chain(widths)`` on a cohort of 57 from
+    seed 9: ``(result, launches of its shape by module)``."""
+    from conditional_ude_tpu_torch.fit.train import train_conditional
+
+    net = chain(list(widths))
+    rng = np.random.default_rng(9)
+    n = 57
+    cohort = build_cohort(5.0 + rng.uniform(0, 5, (n, 5)), np.asarray(TP),
+                          0.5 + rng.uniform(0, 1.5, (n, 5)),
+                          rng.uniform(30, 70, n), rng.uniform(size=n) > 0.5,
+                          device)
+    mods = (rk4_population, lane_grad, population_grad, tsit5_cohort)
+    shape = (2, tuple(widths))
+    before = [m.shape_launches.get(shape, 0) for m in mods]
+    res = train_conditional(CPeptideModel(net, "conditional"), cohort,
+                            config, seed=3)
+    launched = {m.__name__.rsplit(".", 1)[1]: m.shape_launches.get(shape, 0)
+                - b for m, b in zip(mods, before)}
+    return res, launched
+
+
+def test_training_takes_a_network_past_one_gradient_pass(card):
+    """``chain(20, 2)`` (501 weights, whose gradient K2 sums in 4 passes of
+    128 columns) trains through K1, K2 and K3 at 57 individuals: the
+    objectives finite and the best below every restart's first Adam loss
+    (Adam at its 1e-2 step first climbs on this network, L-BFGS then
+    descends, as the plain route does on the CPU)."""
+    from conditional_ude_tpu_torch.fit.train import TrainConfig
+
+    res, launched = _train_wide(card, (20, 20), TrainConfig(
+        initial_guesses=512, selected_initials=4, adam_iters=20,
+        lbfgs_iters=5))
+    assert (res.timings["screen_path"], res.timings["refine_path"]) == (
+        "cuda_k1", "cuda_k2")
+    assert launched["rk4_population"] == 1 and launched["tsit5_cohort"] == 1
+    assert launched["lane_grad"] > 20 and launched["population_grad"] == 0
+    assert bool(torch.isfinite(res.objectives).all())
+    assert float(res.objectives[0]) < float(res.loss_traces[:, 0].min())
+
+
+def test_training_at_2304_restarts_takes_the_restart_kernel_past_one_pass(
+        card):
+    """``chain(12, 2)`` (205 weights, 2 passes) at 2,304 restarts of 57
+    individuals, 131,328 lanes, past ``PACK_MAX_LANES``: 3 Adam steps
+    through K5 and none through K2, the best objective finite."""
+    from conditional_ude_tpu_torch.fit.train import TrainConfig
+
+    res, launched = _train_wide(card, (12, 12), TrainConfig(
+        initial_guesses=2304, selected_initials=2304, adam_iters=3,
+        lbfgs_iters=0))
+    assert res.timings["refine_path"] == "cuda_k5"
+    assert launched["population_grad"] >= 3 and launched["lane_grad"] == 0
+    assert res.objectives.shape == (2304,)
+    assert bool(torch.isfinite(res.objectives[0]))

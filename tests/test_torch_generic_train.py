@@ -218,34 +218,33 @@ def test_canonical_model_keeps_the_kernel_route(kind, inputs, cohorts):
 
 
 def test_route_follows_model_and_config():
-    """The kernel route takes exactly the canonical model at one
-    conditional parameter and RK4 (the JAX package's ``_pallas_eligible``,
-    whose kernels the port has for ``chain(4, 2)`` only)."""
+    """The kernel route takes exactly what the JAX package's
+    ``_pallas_eligible`` takes: a network of tanh hidden layers (any widths
+    and depth) with a softplus head, one conditional parameter, RK4."""
     cfg = ptrain.TrainConfig()
     canonical = cp.CPeptideModel(chain(4, 2))
     covariate = cp.CPeptideModel(chain(4, 2, input_dims=3),
                                  "conditional_covariate")
-    assert ptrain.kernels_compute(canonical, cfg)
-    assert ptrain.kernels_compute(covariate, cfg)
-    for model, c in (
-            (canonical, dataclasses.replace(cfg, solver="tsit5")),
-            (cp.CPeptideModel(chain(4, 2, input_dims=3)),
-             dataclasses.replace(cfg, n_conditional=2)),
-            (cp.CPeptideModel(chain(4, 2, "relu")), cfg),
-            (cp.CPeptideModel(chain(4, 2, "gelu")), cfg),
-            (cp.CPeptideModel(chain(8, 2)), cfg),
-            (cp.CPeptideModel(chain(4, 3)), cfg),
-            (cp.CPeptideModel(chain(4, 2, output_activation="identity")),
-             cfg)):
-        assert not ptrain.kernels_compute(model, c)
-        jmodel = jcp.CPeptideModel(kind=model.kind, net=jax_chain(
-            list(model.net.widths), activation=model.net.activations[0],
-            input_dims=model.net.input_dims,
-            output_activation=model.net.output_activation))
-        jcfg = jtrain.TrainConfig(solver=c.solver,
-                                  n_conditional=c.n_conditional)
-        if model.net.widths == (4, 4):
-            assert not jtrain._pallas_eligible(jmodel, jcfg)
+    kernel_side = [(canonical, cfg), (covariate, cfg),
+                   (cp.CPeptideModel(chain(8, 2)), cfg),
+                   (cp.CPeptideModel(chain(4, 3)), cfg)]
+    generic_side = [
+        (canonical, dataclasses.replace(cfg, solver="tsit5")),
+        (cp.CPeptideModel(chain(4, 2, input_dims=3)),
+         dataclasses.replace(cfg, n_conditional=2)),
+        (cp.CPeptideModel(chain(4, 2, "relu")), cfg),
+        (cp.CPeptideModel(chain(4, 2, "gelu")), cfg),
+        (cp.CPeptideModel(chain(4, 2, output_activation="identity")), cfg)]
+    for side, models in ((True, kernel_side), (False, generic_side)):
+        for model, c in models:
+            assert ptrain.kernels_compute(model, c) == side
+            jmodel = jcp.CPeptideModel(kind=model.kind, net=jax_chain(
+                list(model.net.widths), activation=model.net.activations[0],
+                input_dims=model.net.input_dims,
+                output_activation=model.net.output_activation))
+            jcfg = jtrain.TrainConfig(solver=c.solver,
+                                      n_conditional=c.n_conditional)
+            assert jtrain._pallas_eligible(jmodel, jcfg) == side
 
 
 @pytest.mark.parametrize("solver", ["rk4", "tsit5"])

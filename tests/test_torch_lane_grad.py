@@ -155,6 +155,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         lane_grad.lane_sse_and_grad(chain(4, 2), *args, 17)   # > 16 substeps
     with pytest.raises(ValueError):
         lane_grad.lane_sse_and_grad(chain(4, 2), args[0][:2], *args[1:], 8)
+    # the kernels take chain(8, 2), but its 2-input form has 105 weights
+    # (113 is its 3-input count): a parameter count that does not match the
+    # network is refused
+    assert chain(8, 2).num_params == 105
     with pytest.raises(ValueError):
         lane_grad.lane_sse_and_grad(chain(8, 2), torch.zeros(R, 113),
                                     *args[1:], 8)

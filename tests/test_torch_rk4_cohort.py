@@ -125,10 +125,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         call(betas=torch.zeros(L, dtype=torch.float64))
     with pytest.raises(ValueError):
         call(tp=(0.0, 60.0, 30.0, 90.0, 120.0))
-    for bad in (chain(4, 2, "relu"), chain(8, 2), chain(4, 3),
+    for bad in (chain(4, 2, "relu"),
                 chain(4, 2, output_activation="identity")):
         with pytest.raises(ValueError):
             call(net_=bad, nn_params=torch.zeros(L, bad.num_params))
+    # the JAX kernels take any widths and depth of tanh layers, so do these
+    for wide in (chain(8, 2), chain(4, 3)):
+        assert call(net_=wide,
+                    nn_params=torch.zeros(L, wide.num_params)).shape == (L,)
+        with pytest.raises(ValueError):       # P must match the network
+            call(net_=wide, nn_params=torch.zeros(L, wide.num_params - 1))
 
 
 def test_segment_constants():

@@ -170,7 +170,7 @@ def test_raises_for_what_the_kernels_do_not_take():
             (CPeptideModel(chain(4, 2, input_dims=3)),
              dataclasses.replace(cfg, n_conditional=2)),
             (CPeptideModel(chain(4, 2)), dataclasses.replace(cfg, solver="tsit5")),
-            (CPeptideModel(chain(8, 2)), cfg)):
+            (CPeptideModel(chain(4, 2, "gelu")), cfg)):
         res = ptrain.train_conditional(model, pc, c, seed=1)
         assert res.timings["refine_path"] == "autograd"
         assert res.betas.shape == (2, 3, c.n_conditional)
