@@ -266,7 +266,22 @@
     restarts (131,328 lanes) of W, D and V through K5 (K2 0), K5 against
     K2's packed route at the trained restarts, and one test-profile chunk
     of D and of V (K4, K4c).
-    12-28 are bound by the host, so they run in seven child processes (this
+29. runs the grid path (``run_grid_path``) after the mesh path in its
+    child: the OGTT cohort resampled every 5 min on 0-120 min (25 points,
+    ``scripts/grid_reference.py``'s ``resample``) through the long-grid
+    libraries of K1-K4 (``CUDE_LONG_GRID``): ``chain(4, 2)`` at the
+    reference script's cut against JAX-CPU's (every screen loss rtol 1e-5,
+    the first 10 Adam losses rtol 1e-4, the re-ranked objectives rtol 2e-2
+    + atol 1e-3, the best at most 1.10 × JAX's; K1 1, K3 1, K2 > 0), then
+    at exp02's training (``TrainConfig()``; every output finite, the best
+    at most 1.10 × JAX's best at the cut), the (β, σ) refit of all 117 at
+    ``GRID_REFIT_ITERS`` L-BFGS steps (no kernel), the test profiles and
+    the census (K4 exactly 22).  Steps 2 and 3 hold every body on that
+    grid at the path's shapes bit for bit (``grid_shapes``), and K1 and K5
+    at the 117 subjects tiled nine times (1,053 individuals, past one
+    block's cohort); the kernels line lists the bodies on the 25-point grid
+    with the grid path's launches.
+    12-29 are bound by the host, so they run in seven child processes (this
     script with ``--side``) started once the kernels are timed, beside
     4-10; their logs are printed after 10, and a child that fails fails
     the run.
@@ -370,17 +385,26 @@ def vjp_flops(net) -> int:
 RK4_POINTS = 1 + 4 * (2 * 8 + 1)
 
 
-def rk4_lane_work(net) -> tuple[int, int]:
+def rk4_points(n_seg: int = 4, substeps: int = 8) -> int:
+    """Network evaluations of one RK4 lane: the baseline and 2 substeps + 1
+    points a segment (69 on the OGTT grid at 8 substeps, 409 at 25
+    points)."""
+    return 1 + n_seg * (2 * substeps + 1)
+
+
+def rk4_lane_work(net, n_seg: int = 4, substeps: int = 8) -> tuple[int, int]:
     """(float32 operations, transcendentals) of the least work of one RK4
-    lane on the OGTT grid: the network once at each of its 69 points (the
-    products of layer 1 with e^beta and the age taken once a lane; a point
-    adds its dG blend and takes the baseline off), 32 steps of the
-    kinetics at four stages and the stage arithmetic, e^beta and the
-    residuals."""
+    lane (on the OGTT grid at 8 substeps unless told otherwise): the
+    network once at each of its points (the products of layer 1 with
+    e^beta and the age taken once a lane; a point adds its dG blend and
+    takes the baseline off), n_seg substeps steps of the kinetics at four
+    stages and the stage arithmetic, e^beta and the residuals."""
+    pts = rk4_points(n_seg, substeps)
     lane_const = net.widths[0] * (net.input_dims - 1)
     point = mlp_flops(net) - lane_const + 6
-    flops = RK4_POINTS * point + 32 * (4 * 10 + 30) + lane_const + 10
-    return flops, RK4_POINTS * mlp_sfu(net) + 1
+    flops = pts * point + n_seg * substeps * (4 * 10 + 30) + lane_const \
+        + 2 * n_seg + 2
+    return flops, pts * mlp_sfu(net) + 1
 
 
 def tsit5_evaluations(lanes: int, steps: int) -> int:
@@ -913,6 +937,194 @@ def widths_shapes(dev, rng, fit_cohort, both, cohort, test,
             f"  [{card_line()}]")
 
 
+def grid_reference():
+    """``scripts/grid_reference.py`` (its ``resample``; JAX is imported
+    only in its ``main``), ``scripts/widths_reference.py`` (its numpy
+    ``designs``) and the reference's JSON."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import grid_reference as ref
+    import widths_reference
+    return ref, widths_reference, json.loads(ref.OUT.read_text())
+
+
+def grid_shapes(dev, rng, fit, test, both, results: dict) -> None:
+    """Steps 2 and 3 on grids of more than 16 points and on cohorts past
+    one block: every body of ``chain(4, 2)`` from its long-grid library at
+    the grid path's shapes on the 25-point cohort (K1 at 25,000 x 57, K2 and
+    K3 at 25 x 57, K4 at a test-profile chunk of 500 x 35), bit for bit its
+    plain version (K3 with the same ``ok`` mask) and timed; K5 at 25 x 57
+    there too (on no path).  Then K1 and K5 at the 117 subjects tiled
+    ``GRID_COHORT_TILES`` times (1,053, on the OGTT grid): K1 at 2,500
+    restarts bit for bit its plain version and the in-order mean of K4's
+    lanes, K5 at 2,304 restarts equal to K2's lanes summed in order and
+    three of its restarts bit for bit the plain version; both timed."""
+    from conditional_ude_tpu_torch.models.cpeptide import build_cohort
+    from conditional_ude_tpu_torch.nn import chain
+    from conditional_ude_tpu_torch.ops import (
+        lane_grad,
+        population_grad,
+        rk4_cohort,
+        rk4_population,
+        tsit5_cohort,
+    )
+    from conditional_ude_tpu_torch.ops.interp import linspace
+    from conditional_ude_tpu_torch.utils.stats import latin_hypercube
+    ref, _, _ = grid_reference()
+    f32 = dict(dtype=torch.float32, device=dev)
+    net = chain(4, 2)
+    p = net.num_params
+    g25 = ref.resample(fit)
+    c25 = build_cohort(g25.glucose, g25.timepoints, g25.cpeptide, g25.ages,
+                       g25.t2dm, dev)
+    tp = tuple(float(t) for t in g25.timepoints)
+    n_seg, n = len(tp) - 1, c25.n
+    args25 = (c25.glucose, c25.cpeptide, c25.kinetics(), tp)
+    pts = rk4_points(n_seg)
+    flops, sfu = rk4_lane_work(net, n_seg)
+    tag = f"{len(tp)}-point grid"
+
+    def designs(g: int, m: int):
+        return (torch.as_tensor(glorot(rng, net, g), **f32),
+                torch.as_tensor(latin_hypercube(rng, g, m, -2.0, 0.0), **f32))
+
+    def entry(kid, err, call, plain, shape, bnd, reps, **extra):
+        results[f"{kid} {tag}"] = dict(
+            err=err, ms=cuda_ms(call, reps), device=graph_ms(call, reps),
+            plain=plain, shape=shape, bound=bnd, kid=kid, grid=tag, **extra)
+
+    # -- K1: the screen of exp02's training --------------------------------
+    g_screen = 25_000
+    nn_s, b_s = designs(g_screen, n)
+    screen = (nn_s, b_s, *args25)
+    err = exact(rk4_population.population_sse(net, *screen, 8),
+                rk4_population.population_sse_reference(net, *screen, 8),
+                f"K1 on the {tag} ({g_screen} x {n})")
+    entry("K1", err, lambda: rk4_population.population_sse(net, *screen, 8),
+          cuda_ms(lambda: rk4_population.population_sse_reference(
+              net, *screen, 8), 1), f"{g_screen} x {n}, {len(tp)} points",
+          bound(4 * (g_screen * (p + n + 1) + n * (2 * len(tp) + 4)),
+                g_screen * n * (flops + 1) + g_screen, g_screen * n * sfu), 5)
+
+    # -- K4: a test-profile chunk -------------------------------------------
+    test25 = ref.resample(test)
+    ct = build_cohort(test25.glucose, test25.timepoints, test25.cpeptide,
+                      test25.ages, test25.t2dm, dev)
+    s_pts, lanes = 500, 500 * ct.n
+
+    def expand(x):
+        return x.expand(s_pts, *x.shape).reshape(lanes, *x.shape[1:])
+
+    grid = torch.as_tensor(linspace(-3.0, 1.0, 10_000)[:s_pts], device=dev)
+    prof = (nn_s[0].expand(lanes, -1),
+            (grid[:, None] + torch.zeros(ct.n, **f32)).reshape(-1),
+            expand(ct.glucose), expand(ct.cpeptide), expand(ct.kinetics()))
+    err = exact(rk4_cohort.cohort_sse(net, *prof, tp, 8),
+                rk4_cohort.cohort_sse_reference(net, *prof, tp, 8),
+                f"K4 on the {tag} (test-profile chunk {s_pts} x {ct.n})")
+    entry("K4", err, lambda: rk4_cohort.cohort_sse(net, *prof, tp, 8),
+          cuda_ms(lambda: rk4_cohort.cohort_sse_reference(
+              net, *prof, tp, 8), 2),
+          f"test-profile chunk ({s_pts} x {ct.n}, {lanes} lanes), "
+          f"{len(tp)} points",
+          bound(4 * (p + lanes * (2 * len(tp) + 6)), lanes * flops,
+                lanes * sfu), 20)
+
+    # -- K2 and K5: the refinement's value + gradient -------------------------
+    per_point = mlp_flops(net) + vjp_flops(net)
+    refine = (nn_s[:25].contiguous(), b_s[:25].contiguous(), *args25)
+    lanes = 25 * n
+    k2 = lane_grad.lane_sse_and_grad(net, *refine, 8)
+    r2 = lane_grad.lane_sse_and_grad_reference(net, *refine, 8)
+    err = compare(k2[0], r2[0], f"K2 on the {tag} value (25 x {n})",
+                  GRAD_RTOL, 0.0)
+    same(k2, r2, f"K2 on the {tag} (25 x {n})")
+    k2_bound = bound(4 * (25 * p + lanes * (3 + p) + n * (2 * len(tp) + 4)),
+                     lanes * (pts * per_point + n_seg * 8 * 47 + 120 * n_seg),
+                     lanes * (pts * (mlp_sfu(net) + 1) + 1))
+    entry("K2", err, lambda: lane_grad.lane_sse_and_grad(net, *refine, 8),
+          cuda_ms(lambda: lane_grad.lane_sse_and_grad_reference(
+              net, *refine, 8), 2), f"25 x {n}, {len(tp)} points", k2_bound,
+          20)
+    k5 = population_grad.restart_sse_and_grad(net, *refine, 8)
+    same(k5, population_grad.restart_sse_and_grad_reference(
+        net, *refine, 8), f"K5 on the {tag} (25 x {n})")
+    inv_n = np.float32(1.0 / n)
+    mean = population_grad.sum_in_order(k2[0]) * inv_n
+    same(k5, (torch.where(torch.isfinite(mean), mean, torch.inf),
+              population_grad.sum_in_order(k2[1]) * inv_n, k2[2] * inv_n),
+         f"K5 on the {tag} against K2's lanes summed in order")
+    k5_ms = graph_ms(lambda: population_grad.restart_sse_and_grad(
+        net, *refine, 8), 20)
+    log(f"[time] K5 on the {tag} at 25 x {n} (on no path): {k5_ms:.4f} ms "
+        f"on the device (CUDA graph), bound {k2_bound[0]:.6f} ms  "
+        f"[{card_line()}]")
+
+    # -- K3: the re-rank ------------------------------------------------------
+    sse, ok = tsit5_cohort.cohort_sse_tsit5(net, *refine)
+    r_sse, r_ok, steps, accepted = tsit5_cohort.cohort_sse_tsit5_reference(
+        net, *refine, return_steps=True)
+    if not torch.equal(ok, r_ok) or not bool(torch.isinf(sse[~ok]).all()):
+        raise AssertionError(f"K3 on the {tag}: ok masks or failed lanes "
+                             "differ")
+    err = exact(sse, r_sse, f"K3 on the {tag} re-rank (25 x {n})")
+    total = int(steps.sum())
+    entry("K3", err, lambda: tsit5_cohort.cohort_sse_tsit5(net, *refine),
+          cuda_ms(lambda: tsit5_cohort.cohort_sse_tsit5_reference(
+              net, *refine), 1),
+          f"25 x {n}, {lanes} lanes, {total} steps, {len(tp)} points",
+          bound(4 * (25 * p + lanes * 2 + n * (2 * len(tp) + 4)) + lanes,
+                *tsit5_work(net, lanes, total, int(accepted.sum()),
+                            int(ok.sum()), len(tp))), 20,
+          max_lane_steps=int(steps.max()))
+    k3 = results[f"K3 {tag}"]
+    k3["us_per_step"] = k3["device"] * 1e3 / k3["max_lane_steps"]
+
+    # -- K1 and K5 past one block's cohort (the OGTT grid) --------------------
+    pick = np.tile(np.arange(len(both.ages)), GRID_COHORT_TILES)
+    big = build_cohort(both.glucose[pick], both.timepoints,
+                       both.cpeptide[pick], both.ages[pick],
+                       both.t2dm[pick], dev)
+    m = big.n
+    tp5 = tuple(float(t) for t in both.timepoints)
+    big_args = (big.glucose, big.cpeptide, big.kinetics(), tp5)
+    nn_b, b_b = designs(2_500, m)
+    scr = (nn_b, b_b, *big_args)
+    k1 = rk4_population.population_sse(net, *scr, 8)
+    exact(k1, rk4_population.population_sse_reference(net, *scr, 8),
+          f"K1 at 2500 x {m} (cohort from device memory)")
+    k4 = rk4_cohort.cohort_sse(net, nn_b[:8].repeat_interleave(m, 0),
+                               b_b[:8].reshape(-1), big.glucose.repeat(8, 1),
+                               big.cpeptide.repeat(8, 1),
+                               big.kinetics().repeat(8, 1), tp5, 8)
+    mean = population_grad.sum_in_order(k4.reshape(8, m)) * np.float32(1 / m)
+    same((k1[:8],), (torch.where(torch.isfinite(mean), mean, torch.inf),),
+         f"K1 at 2500 x {m} against K4's lanes, the in-order mean")
+    wide = designs(XL_RESTARTS, m)
+    wide_args = (*wide, *big_args)
+    got = population_grad.restart_sse_and_grad(net, *wide_args, 8)
+    lanes_out = lane_grad.lane_sse_and_grad(net, *wide_args, 8)
+    inv_m = np.float32(1.0 / m)
+    mean = population_grad.sum_in_order(lanes_out[0]) * inv_m
+    same(got, (torch.where(torch.isfinite(mean), mean, torch.inf),
+               population_grad.sum_in_order(lanes_out[1]) * inv_m,
+               lanes_out[2] * inv_m),
+         f"K5 at {XL_RESTARTS} x {m} (in tiles) against K2's lanes summed "
+         "in order")
+    del lanes_out
+    rows = torch.tensor([0, XL_RESTARTS // 2, XL_RESTARTS - 1], device=dev)
+    same(tuple(x[rows] for x in got),
+         population_grad.restart_sse_and_grad_reference(
+             net, wide[0][rows], wide[1][rows], *big_args, 8),
+         f"K5 at {XL_RESTARTS} x {m}, restarts {rows.tolist()} against the "
+         "plain version")
+    k1_ms = graph_ms(lambda: rk4_population.population_sse(net, *scr, 8), 5)
+    k5_ms = graph_ms(lambda: population_grad.restart_sse_and_grad(
+        net, *wide_args, 8), 3)
+    log(f"[time] past one block's cohort ({m} individuals, on no path), on "
+        f"the device (CUDA graph): K1 at 2500 x {m} {k1_ms:.4f} ms, K5 at "
+        f"{XL_RESTARTS} x {m} {k5_ms:.4f} ms  [{card_line()}]")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -980,21 +1192,26 @@ def main() -> None:
             for m in kernels.values()]
     jobs += [(m.kernel.source, w) for w in WIDTHS_PASSES
              for m in (rk4_population, lane_grad, population_grad)]
+    # the canonical network on a grid of more than 16 points (the grid path)
+    jobs += [(m.kernel.source, cuda_build.CANONICAL_WIDTHS, True)
+             for m in kernels.values()]
     t0 = time.perf_counter()
     built = cuda_build.build_all(jobs)
     log(f"[build] all kernels in {time.perf_counter() - t0:.1f} s: "
-        f"{len(jobs)} libraries, the canonical network and "
-        f"{[*shapes, *WIDTHS_PASSES]}")
+        f"{len(jobs)} libraries, the canonical network, "
+        f"{[*shapes, *WIDTHS_PASSES]} and the canonical long grid")
     for job in jobs:
-        src, shape = job
+        src, shape, long = (*job, False)[:3]
         kid = next(k for k, m in kernels.items() if m.kernel.source == src)
-        tag = "" if shape == cuda_build.CANONICAL_WIDTHS else f" {shape}"
+        tag = ("" if shape == cuda_build.CANONICAL_WIDTHS else f" {shape}") \
+            + (" long grid" if long else "")
         lib, sec, build_log = built[job]
         log(f"[build] {kid}{tag} {lib.name} in {sec:.1f} s")
         body = kid
         for line in build_log.splitlines():
-            if "entry function" in line:     # the template's input count
-                body = kid + ("c" if "ILi3E" in line else "")
+            if "entry function" in line:     # the template's arguments
+                body = kid + ("c" if "ILi3E" in line else "") + (
+                    LAYOUTS.get(kid, "") if "Lb1E" in line else "")
             elif "registers" in line or "spill" in line:
                 log(f"[ptxas] {body}{tag}: {line.strip()}")
 
@@ -1714,6 +1931,8 @@ def main() -> None:
     live_age_check()
     gallery_shapes()
     widths_shapes(dev, rng, fit_cohort, both, cohort, test, widths_results)
+    grid_results = {}       # every body on the grid path's 25 points
+    grid_shapes(dev, rng, fit, test, both, grid_results)
 
     def notes(r) -> str:
         plain = f", plain {r['plain']:.3f} ms" if "plain" in r else ""
@@ -1726,8 +1945,9 @@ def main() -> None:
     for kid, r in [*results.items(), *wide.items(),
                    *ablation_times.items(), *saem_times.items(),
                    *advi_times.items(), *gallery_times.items(),
-                   *widths_results.items()]:
-        label = f"{kid} {r['widths']}" if "widths" in r else kid.split()[0]
+                   *widths_results.items(), *grid_results.items()]:
+        label = (f"{kid} {r['widths']}" if "widths" in r
+                 else kid if "grid" in r else kid.split()[0])
         log(f"[time] {label} at {r['shape']}: kernel "
             f"{r['ms']:.4f} ms{notes(r)}  [{card}]")
     if args.kernels_only:
@@ -1894,6 +2114,12 @@ def main() -> None:
             0)
     log("[path] launches of the widths path by body and shape: "
         + ", ".join(f"{k} {r['launches']}" for k, r in widths_results.items()))
+    # the grid path's launches of each body (chain(4, 2), its long grid)
+    on_grid = reports.get("grid", {}).get("shape_launches", {})
+    for r in grid_results.values():
+        r["launches"] = on_grid.get(f"{KERNEL_MODULES[r['kid']]} (4, 4)", 0)
+    log("[path] launches of the grid path by body: "
+        + ", ".join(f"{k} {r['launches']}" for k, r in grid_results.items()))
     log(f"[time] whole script: {time.perf_counter() - t_start:.2f} s  "
         f"[{card}]")
 
@@ -1902,7 +2128,8 @@ def main() -> None:
     # checks and times are in the log)
     listed = [(kid, r, "") for kid, r in results.items()] + [
         (r["kid"], r, f" {r['widths']}") for r in widths_results.values()
-        if r["launches"]]
+        if r["launches"]] + [
+        (r["kid"], r, f" {r['grid']}") for r in grid_results.values()]
     log(json.dumps({"kernels": [{
         "name": library(kid).name + shape,
         "route": "cuda",
@@ -1936,13 +2163,15 @@ def main() -> None:
 # kernel) after exp_symreg_search, the child that ended first after that,
 # and the experiments at --smoke in four groups after exp02_seeds, the
 # replication driver, the generic route and the ETL path, the four children
-# that ended first after that, each group sized to end by ~850 s
+# that ended first after that, each group sized to end by ~850 s, the widths
+# path after smoke group 4, and the grid path after the mesh path, the child
+# that ended first after that
 SIDE = (("exp01 frozen", "exp01 retrain", "exp03", "exp04", "etl",
          "smoke 4", "widths"),
         ("exp_symreg_production", "exp_advi", "exp_suppression",
          "exp_symreg_search", "generic", "smoke 3"),
         (*(f"exp01 retrain, seed {seed}" for seed in UDE_SEEDS[1:]),
-         "exp_figures", "mesh"),
+         "exp_figures", "mesh", "grid"),
         ("exp02_seeds", "smoke 1"),
         ("exp05", "replicate", "smoke 2"),
         ("exp06", "exp06a"),
@@ -2304,6 +2533,25 @@ WIDTHS_SHAPES = {"W": (25_000, 25), "": (2_500, 15)}
 WIDTHS_PASSES = ((12, 12),)
 
 
+# the layout a body's second template argument turns on (ptxas's report)
+LAYOUTS = {"K1": " (cohort in shared memory)",
+           "K2": " (scratch in device memory)",
+           "K5": " (scratch in device memory)"}
+
+# the grid path (29.): the OGTT cohort resampled every 5 min on 0-120 min
+# (25 points, scripts/grid_reference.py's resample), chain(4, 2) at
+# exp02's training and serving, through the long-grid libraries of K1-K4,
+# and at the reference script's cut against JAX on the CPU; the refit of
+# 117 cut to GRID_REFIT_ITERS L-BFGS steps (an eager fit's evaluation takes
+# ~6 times the launches of the OGTT grid's: 409 network points a lane
+# against 69; 100 steps took 163 s beside the other children)
+GRID_REFIT_ITERS = 30
+GRID_CENSUS_CHUNKS = 2          # 117 x 1,000 in chunks of 500 points
+GRID_PROFILE_CHUNKS = 20        # 35 x 10,000
+# K1 and K5 past one block's cohort: the 117 Ohashi subjects tiled 9 times
+GRID_COHORT_TILES = 9
+
+
 # the experiments at --smoke (27.), each in a process of its own: (name,
 # its arguments beside --smoke, the kernels it must launch, as a set, or
 # their exact launch counts), in four groups (seconds on an NVIDIA H100
@@ -2488,6 +2736,8 @@ def new_paths(dev):
                    frozenset(k + tag for k in (K1, K2, K3, K4,
                                                "population_grad")
                              for tag in ("", " (3-input)"))),
+        "grid": (lambda: run_grid_path(dev), check_grid_path,
+                 TRAIN_KERNELS | {K4}),
         **{group: (lambda group=group: run_smoke_path(dev, group),
                    check_smoke_path, none) for group in SMOKE_RUNS},
         "exp06a": (lambda: run_exp06a(dev, ARTIFACTS),
@@ -3134,6 +3384,106 @@ def run_widths_path(dev, parts=("parity", "full", "k5")):
                            parts=parts)
 
 
+def run_grid_path(dev, parts=("parity", "full")):
+    """Training and serving of ``chain(4, 2)`` on the OGTT cohort resampled
+    every 5 min (25 points, ``scripts/grid_reference.py``'s ``resample``),
+    through the long-grid libraries of K1-K4 (library calls: no entry point
+    takes a grid), on exp02's 57-subject fit split and its 35 test
+    subjects:
+
+    * ``parity``: the reference script's cut (2,500 designs, 15 restarts,
+      100 Adam and 10 L-BFGS steps, the Tsit5 re-rank) from its numpy
+      designs;
+    * ``full``: ``TrainConfig()`` (exp02's 25,000 designs, 25 restarts,
+      1,000 + 1,000 steps), then at the best restart the (β, σ) refit of
+      all 117 subjects (``GRID_REFIT_ITERS`` L-BFGS steps), the test
+      profiles (35 × 10,000) and the census (117 × 1,000) through K4.
+
+    Each stage's seconds and its launches by body and shape."""
+    from types import SimpleNamespace
+
+    from conditional_ude_tpu_torch.analysis.profiles import (
+        classify_identifiability,
+        cohort_beta_profiles,
+        find_confidence_intervals,
+    )
+    from conditional_ude_tpu_torch.data.ohashi import OhashiSplit, load_npz
+    from conditional_ude_tpu_torch.fit.train import (
+        TrainConfig,
+        train_conditional,
+    )
+    from conditional_ude_tpu_torch.models.cpeptide import (
+        CPeptideModel,
+        build_cohort,
+    )
+    from conditional_ude_tpu_torch.nn import chain
+    from conditional_ude_tpu_torch.pipeline import SEED, refit_split
+    from conditional_ude_tpu_torch.utils.stats import stratified_split
+    ref, wref, want = grid_reference()
+    cfg0 = want["config"]
+    train, test = (ref.resample(s) for s in load_npz(ARTIFACTS / "ohashi.npz"))
+    idx_fit, _ = stratified_split(np.random.default_rng(cfg0["seed"]),
+                                  train.types, 0.7)
+
+    def cohort(split):
+        return build_cohort(split.glucose, split.timepoints, split.cpeptide,
+                            split.ages, split.t2dm, dev)
+
+    fit = cohort(train.subset(idx_fit))
+    model = CPeptideModel(chain(4, 2), "conditional")
+    seconds, launched, out = {}, {}, {}
+
+    def stage(name, fn):
+        before, t0 = _shape_counts(), time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds[name], launched[name] = (time.perf_counter() - t0,
+                                         _shape_launched_since(before))
+        return res
+
+    if "parity" in parts:
+        cfg = TrainConfig(**{k: cfg0[k] for k in (
+            "initial_guesses", "selected_initials", "adam_iters",
+            "lbfgs_iters", "substeps", "max_steps")})
+        nn, betas = wref.designs((4, 4), 2, fit.n, cfg.lhs_lower,
+                                 cfg.lhs_upper)
+        res = stage("parity", lambda: train_conditional(
+            model, fit, cfg, designs=(nn, betas)))
+        out["parity"] = SimpleNamespace(
+            res=res, sums=wref.checksums(nn, betas),
+            grid=[float(t) for t in fit.timepoints])
+    if "full" in parts:
+        tr = stage("train", lambda: train_conditional(
+            model, fit, TrainConfig(),
+            generator=torch.Generator(device=dev).manual_seed(SEED),
+            seed=SEED))
+        best = int(torch.argmin(tr.objectives))
+        nn_best = tr.nn_params[best]
+        bb = tr.betas[best].cpu().numpy().ravel()
+        lb, ub = bb.min() - 0.1 * abs(bb.min()), bb.max() + 0.1 * abs(bb.max())
+        b, s, _ = stage("refit", lambda: refit_split(
+            model, nn_best, (cohort(train), cohort(test)), (lb, ub),
+            GRID_REFIT_ITERS))
+        n_train = len(train.ages)
+        prof = stage("profile_test", lambda: cohort_beta_profiles(
+            model, nn_best, cohort(test), sigmas=s[n_train:],
+            lower=float(lb) - 1.0, upper=float(ub) + 1.0, steps=10_000))
+        both = OhashiSplit.concatenate(train, test)
+        census = stage("census", lambda: cohort_beta_profiles(
+            model, nn_best, cohort(both), sigmas=s, lower=-10.0, upper=10.0,
+            steps=1000, center=b))
+        counts = classify_identifiability(find_confidence_intervals(
+            census, "cantelli95"))
+        out["full"] = SimpleNamespace(
+            training=tr, best=best, beta=b, sigma=s, profile=prof,
+            census=census,
+            census_counts={k: int((counts == k).sum())
+                           for k in np.unique(counts)})
+    return SimpleNamespace(**out, seconds=seconds, launched=launched,
+                           want=want, parts=parts)
+
+
 def run_mesh_path(dev):
     """The sharded subsystems (``parallel/mesh.py``) at full width, each
     unsharded then on a 2-way mesh of ``dev`` (``MESH_SHARDS``), with the
@@ -3678,7 +4028,7 @@ def _body(kernel: str, name: str) -> str:
 def _launched_as(got: dict, want: dict, what: str) -> list[str]:
     """``got`` launches by body and shape: exactly ``want``'s bodies, each
     its count, or more than 0 where ``want`` says ``None``."""
-    log(f"[check] widths {what}: launches {got or 'none'}")
+    log(f"[check] {what}: launches {got or 'none'}")
     ok = set(got) == set(want) and all(
         got[k] > 0 if n is None else got[k] == n for k, n in want.items())
     return [] if ok else [f"{what} launched {got or 'none'}, must launch "
@@ -3780,7 +4130,7 @@ def check_widths_path(res) -> list[str]:
         failures += _launched_as(
             res.launched[f"parity {name}"],
             {_body(K1, name): 1, _body(K3, name): 1, _body(K2, name): None},
-            f"parity {name}")
+            f"widths parity {name}")
     if "full" in res.parts:
         full = res.full
         tr = full.training
@@ -3802,14 +4152,14 @@ def check_widths_path(res) -> list[str]:
         failures += _launched_as(
             res.launched["W train"],
             {_body(K1, "W"): 1, _body(K3, "W"): 1, _body(K2, "W"): None},
-            "W train")
-        failures += _launched_as(res.launched["W refit"], {}, "W refit")
+            "widths W train")
+        failures += _launched_as(res.launched["W refit"], {}, "widths W refit")
         failures += _launched_as(
             {k: res.launched["W profile_test"].get(k, 0)
              + res.launched["W census"].get(k, 0)
              for k in {**res.launched["W profile_test"],
                        **res.launched["W census"]}},
-            {_body(K4, "W"): 22}, "W test profiles and census")
+            {_body(K4, "W"): 22}, "widths W test profiles and census")
     for name in (WIDTHS_NETS if "k5" in res.parts else ()):
         got = getattr(res, f"k5_{name}")
         routes = (got.res.timings["screen_path"],
@@ -3820,7 +4170,7 @@ def check_widths_path(res) -> list[str]:
         failures += _launched_as(
             res.launched[f"k5 {name}"],
             {_body(K1, name): 2, _body(K3, name): 1,
-             _body("population_grad", name): None}, f"k5 {name}")
+             _body("population_grad", name): None}, f"widths k5 {name}")
         (f, gnn, gb), (pf, pgnn, pgb) = got.k5, got.packed
         try:
             compare(f, pf, f"K5 {name} against K2's packed route, value",
@@ -3834,7 +4184,90 @@ def check_widths_path(res) -> list[str]:
         if name != "W":
             failures += _launched_as(res.launched[f"profile {name}"],
                                      {_body(K4, name): 1},
-                                     f"profile {name}")
+                                     f"widths profile {name}")
+    return failures
+
+
+def check_grid_path(res) -> list[str]:
+    """The grid path (``run_grid_path``): at the cut, against the JAX
+    package on the CPU (``scripts/grid_reference.json``): the grid and the
+    designs' checksums as JAX's, every screen loss within rtol 1e-5, each
+    restart's first 10 Adam losses rtol 1e-4 (restarts matched by their
+    first loss), its re-ranked objective rtol 2e-2 + atol 1e-3, the best
+    at most 1.10 × JAX's; K1 1, K3 1, K2 > 0 and nothing else.  The full
+    training: every output finite, the best objective at most 1.10 × JAX's
+    best at the cut (more designs, restarts and steps do no worse), K1 1,
+    K3 1, K2 > 0; the refit no kernel; the test profiles and the census K4
+    exactly ``GRID_PROFILE_CHUNKS`` + ``GRID_CENSUS_CHUNKS``."""
+    want, failures = res.want, []
+    canon = {k: f"{k} (4, 4)" for k in (K1, K2, K3, K4)}
+    jax_best = want["objectives"][0]
+    if "parity" in res.parts:
+        got = res.parity
+        tr = got.res
+        routes = (tr.timings["screen_path"], tr.timings["refine_path"])
+        log(f"[check] grid cut: routes {routes}, designs {got.sums}, "
+            f"{len(got.grid)} points")
+        if got.sums != {k: want[k] for k in ("nn_sum", "betas_sum")}:
+            failures.append("grid cut: the designs are not JAX's")
+        if not np.allclose(got.grid, want["grid"], rtol=0, atol=1e-5):
+            failures.append(f"grid cut: the grid {got.grid}")
+        if routes not in (("cuda_k1", "cuda_k2"), ("plain", "plain")):
+            failures.append(f"grid cut routes {routes}")
+        screen = np.asarray(want["screen_losses"])
+        failures += _held(tr.screen_losses.cpu().numpy(), screen,
+                          WIDTHS_SCREEN_RTOL * np.abs(screen),
+                          f"grid screen (rtol {WIDTHS_SCREEN_RTOL})")
+        trace = tr.loss_traces.cpu().numpy()
+        jtrace = np.asarray(want["loss_traces"])
+        match = _by_first_loss(trace[:, 0], jtrace[:, 0])
+        want_tr = jtrace[match, :GENERIC_TRACE_STEPS]
+        failures += _held(
+            trace[:, :GENERIC_TRACE_STEPS], want_tr,
+            GENERIC_TRACE_RTOL * np.abs(want_tr),
+            f"grid first {GENERIC_TRACE_STEPS} Adam losses (rtol "
+            f"{GENERIC_TRACE_RTOL}), restarts matched by their first loss")
+        failures += _rerank_held(tr.objectives.cpu().numpy(),
+                                 np.asarray(want["objectives"])[match],
+                                 "grid re-ranked objectives")
+        best = float(tr.objectives[0])
+        log(f"[check] grid cut: best objective {best:.6f}, JAX "
+            f"{jax_best:.6f} (limit {GENERIC_BEST_RATIO} x)")
+        if not best <= GENERIC_BEST_RATIO * jax_best:
+            failures.append(f"grid cut best objective {best} vs JAX "
+                            f"{jax_best}")
+        failures += _launched_as(res.launched["parity"],
+                                 {canon[K1]: 1, canon[K3]: 1, canon[K2]: None},
+                                 "grid cut")
+    if "full" in res.parts:
+        full = res.full
+        tr = full.training
+        obj = float(tr.objectives[full.best])
+        outputs = [tr.objectives, tr.nn_params, tr.betas,
+                   torch.as_tensor(full.beta), torch.as_tensor(full.sigma),
+                   full.profile.values, full.census.values]
+        finite = all(bool(torch.isfinite(torch.as_tensor(o)).all())
+                     for o in outputs)
+        log(f"[check] grid full training: routes "
+            f"{tr.timings['screen_path']}, {tr.timings['refine_path']}; best "
+            f"restart {full.best}, objective {obj:.6f} (limit "
+            f"{GENERIC_BEST_RATIO} x JAX's best at the cut, {jax_best:.6f}); "
+            f"every output finite: {finite}; census {full.census_counts}")
+        if not obj <= GENERIC_BEST_RATIO * jax_best:
+            failures.append(f"grid full training objective {obj}")
+        if not finite:
+            failures.append("grid full training: an output is not finite")
+        failures += _launched_as(res.launched["train"],
+                                 {canon[K1]: 1, canon[K3]: 1, canon[K2]: None},
+                                 "grid train")
+        failures += _launched_as(res.launched["refit"], {}, "grid refit")
+        failures += _launched_as(
+            {k: res.launched["profile_test"].get(k, 0)
+             + res.launched["census"].get(k, 0)
+             for k in {**res.launched["profile_test"],
+                       **res.launched["census"]}},
+            {canon[K4]: GRID_PROFILE_CHUNKS + GRID_CENSUS_CHUNKS},
+            "grid test profiles and census")
     return failures
 
 

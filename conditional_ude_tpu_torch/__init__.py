@@ -23,6 +23,23 @@ The package never imports ``jax`` or ``conditional_ude_tpu``.
 
 __version__ = "0.1.0"
 
+# the subpackages, as the JAX package's __all__ lists them; each is imported
+# at its first use (__getattr__), so importing the package imports none
+__all__ = ["nn", "ops", "models", "fit", "analysis", "data", "parallel",
+           "utils"]
+
+
+def __getattr__(name: str):
+    if name not in __all__:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def __dir__():
+    return sorted([*globals(), *__all__])
+
 
 def lazy_exports(package: str, modules: dict[str, list[str]]):
     """``(__all__, __getattr__, __dir__)`` of a subpackage whose public

@@ -16,7 +16,6 @@
 
 namespace cude {
 
-constexpr int kMaxSubsteps = 16;
 constexpr int kWarp = 32;
 
 struct GradSegment {
@@ -36,16 +35,19 @@ struct GradGrid {
   float w0;
   float inv_2s;        // 1 / (2 substeps): the point spacing in a segment
   float half, sixth, t24;  // 1/2, 1/6, 1/24 of the RK4 polynomial
-  GradSegment seg[kMaxTimepoints - 1];
+  GridTable<GradSegment, kMaxTimepoints - 1> seg;
 };
+static_assert(sizeof(GradSegment) == 6 * sizeof(float), "a segment row");
 
 // the GradGrid of the host constants [1 - w0, w0, 1/(2 substeps), 1/2, 1/6,
 // 1/24] then per segment [dt, c, c/2, c/4, 2c, 4c] (ops/lane_grad.py,
-// grid_constants); false when the arguments describe no grid the kernels take
-inline bool make_grad_grid(const float* consts, int n_seg, int substeps, int j0,
-                           GradGrid* grid) {
-  if (n_seg < 1 || n_seg > kMaxTimepoints - 1 || substeps < 1 ||
-      substeps > kMaxSubsteps || j0 < 0 || j0 >= n_seg)
+// grid_constants), and for a long grid the same array in device memory
+// (consts_dev); false when the arguments describe no grid the kernels take
+inline bool make_grad_grid(const float* consts, const float* consts_dev,
+                           int n_seg, int substeps, int j0, GradGrid* grid) {
+  if (n_seg < 1 || (!kLongGrid && n_seg > kMaxTimepoints - 1) ||
+      (kLongGrid && consts_dev == nullptr) || substeps < 1 || j0 < 0 ||
+      j0 >= n_seg)
     return false;
   grid->n_seg = n_seg;
   grid->substeps = substeps;
@@ -56,10 +58,8 @@ inline bool make_grad_grid(const float* consts, int n_seg, int substeps, int j0,
   grid->half = consts[3];
   grid->sixth = consts[4];
   grid->t24 = consts[5];
-  for (int s = 0; s < n_seg; ++s) {
-    const float* c = consts + 6 + 6 * s;
-    grid->seg[s] = GradSegment{c[0], c[1], c[2], c[3], c[4], c[5]};
-  }
+  fill_table(grid->seg, consts + 6, consts_dev == nullptr ? nullptr : consts_dev + 6,
+             n_seg);
   return true;
 }
 
@@ -116,12 +116,14 @@ __device__ __forceinline__ float vjp_from(const Mlp<In>& mlp, const float* x,
   using Net = typename Mlp<In>::Net;
   constexpr int fi = Net::fan_in(L), fo = Net::fan_out(L);
   constexpr int off = Net::offset(L);
+  constexpr int kOuterO = outer_unroll<fi, fo>(fo);
+  constexpr int kOuterK = outer_unroll<fi, fo>(fi);
   const float* a;  // the layer's inputs
   if constexpr (L == 0)
     a = x;
   else
     a = h + Net::unit(L - 1);
-#pragma unroll
+#pragma unroll (kOuterO)
   for (int o = 0; o < fo; ++o) {
 #pragma unroll
     for (int k = 0; k < fi; ++k) add(off + fi * o + k, dz[o] * a[k]);
@@ -134,7 +136,7 @@ __device__ __forceinline__ float vjp_from(const Mlp<In>& mlp, const float* x,
     return dh_eb;
   } else {
     float dprev[fi];
-#pragma unroll
+#pragma unroll (kOuterK)
     for (int k = 0; k < fi; ++k) {
       float dh = dz[0] * mlp.w(off + k);
 #pragma unroll
@@ -166,7 +168,7 @@ __device__ __forceinline__ float point_vjp(const Mlp<In>& mlp, float x,
 // of a warp.  The lane's 1 + n_seg (2 substeps + 1) evaluation points (69 on
 // the OGTT grid) do not depend on the state, so they are spread across the
 // threads; only the two 2x2 affine recursions are sequential.
-//   1. Thread t < n_seg computes segment t's stage matrices; thread t
+//   1. Thread t computes the stage matrices of segments t, t + 32, ...; thread t
 //      evaluates the network at points q = t, t + 32, t + 64, ... (point 0
 //      is the dG = 0 baseline, point 1 + s q_seg + j point j of segment s).
 //   2. Every thread runs the forward recursion from shared memory, in the
@@ -218,18 +220,28 @@ __host__ __device__ constexpr int sum_stride() {
   return pass_columns<In>() | 1;
 }
 
+// floats of a lane's row of save-time values (the residuals; lane_grad.cu's
+// glucose and data rows): kMaxTimepoints for a short grid, as many as the
+// grid has points for a long one
+__host__ __device__ inline int time_row_floats(int n_seg) {
+  return kLongGrid ? n_seg + 1 : kMaxTimepoints;
+}
+
 // floats of shared memory one warp_lane call needs: the residuals, the stage
 // matrices, and a row that holds the network outputs, then the point
 // weights, then (with the partial sums in registers) the 32 partial rows of
 // the sum; with the partial sums in shared memory the 32 rows follow the
-// point weights, since they fill while the weights are read
+// point weights, since they fill while the weights are read.  The row grows
+// with the grid's points and substeps, n_pts = 1 + n_seg (2 substeps + 1);
+// the kernels take fewer warps a block where their scratch would not fit
+// (long long: no count of points or substeps overflows it)
 template <int In>
-inline int warp_scratch_floats(int n_seg, int substeps) {
-  const int n_pts = 1 + n_seg * (2 * substeps + 1);
-  const int rows = kWarp * sum_stride<In>();
-  const int row = Mlp<In>::kInRegisters ? (n_pts > rows ? n_pts : rows)
-                                        : n_pts + rows;
-  return kMaxTimepoints + kStageFloats * n_seg + row;
+inline long long warp_scratch_floats(int n_seg, int substeps) {
+  const long long n_pts = 1 + static_cast<long long>(n_seg) * (2LL * substeps + 1);
+  const long long rows = kWarp * sum_stride<In>();
+  const long long row = Mlp<In>::kInRegisters ? (n_pts > rows ? n_pts : rows)
+                                              : n_pts + rows;
+  return time_row_floats(n_seg) + kStageFloats * static_cast<long long>(n_seg) + row;
 }
 
 __device__ __forceinline__ void store_stage(float* p, const Stage& st) {
@@ -268,8 +280,8 @@ __device__ __forceinline__ float warp_lane(const Mlp<In>& mlp, float e_beta,
   const int t = threadIdx.x & (kWarp - 1);
   const int q_seg = 2 * grid.substeps + 1;
   const int n_pts = 1 + grid.n_seg * q_seg;
-  float* res = scratch;                  // [kMaxTimepoints]
-  float* stages = res + kMaxTimepoints;  // [n_seg][kStageFloats]
+  float* res = scratch;                                // [time_row_floats]
+  float* stages = res + time_row_floats(grid.n_seg);  // [n_seg][kStageFloats]
   float* row = stages + kStageFloats * grid.n_seg;
   const float k0 = kin[0];
   const float k1 = kin[1];
@@ -289,8 +301,8 @@ __device__ __forceinline__ float warp_lane(const Mlp<In>& mlp, float e_beta,
   };
 
   // -- 1. stage matrices and the network at every point, across the warp --
-  if (t < grid.n_seg)
-    store_stage(stages + kStageFloats * t, stage_matrices(k0, k1, k2, grid.seg[t], grid));
+  for (int sg = t; sg < grid.n_seg; sg += kWarp)
+    store_stage(stages + kStageFloats * sg, stage_matrices(k0, k1, k2, grid.seg[sg], grid));
   for (int q = t; q < n_pts; q += kWarp) row[q] = mlp(dg_at(q), e_beta, age);
   __syncwarp();
 

@@ -14,6 +14,17 @@
 // -fmad=false and without fast math, so tanhf/expf/log1pf are the accurate
 // ones and no multiply-add is contracted.
 //
+// The time grid: a library built for grids of up to kMaxTimepoints (16)
+// points, the default, passes each segment's constants to a kernel by value
+// as its parameters; a library built with CUDE_LONG_GRID (ops/cuda_build.py
+// adds it in the generated header for a longer grid) takes any number of
+// points and reads those constants from device memory where they are used,
+// from a table the caller keeps there (GridTable).  The two builds of a
+// source differ in that and in where a lane keeps its rows of save-time
+// values: sized to 16 in shared memory for a short grid, to the grid for a
+// long one (cude_grad.cuh, time_row_floats), or read from device memory
+// (tsit5_cohort.cu).
+//
 // Where the weights live: up to kRegisterParams (41, the canonical chain(4,
 // 2)'s 37 and 41) every thread copies them into registers, as the canonical
 // bodies always have; above, a thread reads each weight where it is used,
@@ -26,16 +37,38 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
 
 #include <atomic>
+#include <type_traits>
 
 #ifndef CUDE_WIDTHS
 #define CUDE_WIDTHS 4, 4
 #endif
 
+#ifndef CUDE_LONG_GRID
+#define CUDE_LONG_GRID 0
+#endif
+
 namespace cude {
 
-constexpr int kMaxTimepoints = 16;
+constexpr bool kLongGrid = CUDE_LONG_GRID != 0;
+constexpr int kMaxTimepoints = 16;  // points of a grid, without CUDE_LONG_GRID
+
+// N rows of T of a short grid by value, or a long grid's in device memory
+template <class T, int N>
+using GridTable = std::conditional_t<kLongGrid, const T*, T[N]>;
+
+// a GridTable of `rows` rows: a short grid's copied from the host array, a
+// long grid's pointing at the same rows in device memory
+template <class T, int N>
+inline void fill_table(T (&table)[N], const float* host, const float*, int rows) {
+  memcpy(table, host, sizeof(T) * rows);
+}
+template <class T>
+inline void fill_table(const T*& table, const float*, const float* dev, int) {
+  table = reinterpret_cast<const T*>(dev);
+}
 constexpr int kRegisterParams = 41;
 
 // The layers of chain(W..., "tanh") on In inputs with a scalar head: layer
@@ -78,6 +111,18 @@ struct Shape {
 static_assert(Shape<2, 4, 4>::kParams == 37 && Shape<3, 4, 4>::kParams == 41,
               "chain(4, 2) has 37 weights on 2 inputs, 41 on 3");
 
+// A layer of up to kUnrolledProducts weights unrolls every product; a wider
+// one unrolls only its inner loop, so nvcc's time does not grow with the
+// square of the width (a fully unrolled chain(90, 2), 8,551 weights, did
+// not build in 25 minutes); up to chain(32, 2) every product unrolls.
+constexpr int kUnrolledProducts = 1024;
+
+// the unroll count of a layer's outer loop of n
+template <int Fi, int Fo>
+__host__ __device__ constexpr int outer_unroll(int n) {
+  return Fi * Fo <= kUnrolledProducts ? n : 1;
+}
+
 // One observation segment of the fixed-step grid; every constant is rounded
 // once from float64 on the host, as the JAX kernels' Python floats are.
 struct Segment {
@@ -95,14 +140,19 @@ struct Grid {
   float one_minus_w0;   // blend weights of glucose(0)
   float w0;
   float inv_2s;         // 1 / (2 substeps): the spacing of cude_rk4.cuh's points
-  Segment seg[kMaxTimepoints - 1];
+  GridTable<Segment, kMaxTimepoints - 1> seg;
 };
+static_assert(sizeof(Segment) == 5 * sizeof(float), "a segment row");
 
-// the Grid of host segment rows [n_seg][t0, dt, dt/2, dt/6, 1/span]; false
-// when the arguments do not describe a grid the kernels take
-inline bool make_grid(const float* segments, int n_seg, int substeps, int j0,
-                      float one_minus_w0, float w0, Grid* grid) {
-  if (n_seg < 1 || n_seg > kMaxTimepoints - 1 || substeps < 1 || j0 < 0 ||
+// the Grid of segment rows [n_seg][t0, dt, dt/2, dt/6, 1/span], on the host
+// (segments) and, for a long grid, the same rows in device memory
+// (segments_dev); false when the arguments do not describe a grid the
+// kernels take
+inline bool make_grid(const float* segments, const float* segments_dev,
+                      int n_seg, int substeps, int j0, float one_minus_w0,
+                      float w0, Grid* grid) {
+  if (n_seg < 1 || (!kLongGrid && n_seg > kMaxTimepoints - 1) ||
+      (kLongGrid && segments_dev == nullptr) || substeps < 1 || j0 < 0 ||
       j0 >= n_seg)
     return false;
   grid->n_seg = n_seg;
@@ -112,10 +162,7 @@ inline bool make_grid(const float* segments, int n_seg, int substeps, int j0,
   grid->w0 = w0;
   // rounded once from double, as ops/lane_grad.py::grid_constants rounds it
   grid->inv_2s = static_cast<float>(1.0 / (2.0 * substeps));
-  for (int s = 0; s < n_seg; ++s) {
-    const float* r = segments + 5 * s;
-    grid->seg[s] = Segment{r[0], r[1], r[2], r[3], r[4]};
-  }
+  fill_table(grid->seg, segments, segments_dev, n_seg);
   return true;
 }
 
@@ -174,7 +221,8 @@ struct Mlp {
   __device__ __forceinline__ void dense(const float* x, float* y) const {
     constexpr int fi = Net::fan_in(L), fo = Net::fan_out(L);
     constexpr int off = Net::offset(L);
-#pragma unroll
+    constexpr int kOuter = outer_unroll<fi, fo>(fo);
+#pragma unroll (kOuter)
     for (int o = 0; o < fo; ++o) {
       float acc = w(off + o * fi) * x[0];
 #pragma unroll
@@ -254,3 +302,6 @@ extern "C" int cude_hidden_widths(int* out, int most) {
   for (int i = 0; i < n && i < most; ++i) out[i] = widths[i];
   return n;
 }
+
+// 1 for a library built with CUDE_LONG_GRID, else 0 (checked as the widths)
+extern "C" int cude_long_grid() { return cude::kLongGrid ? 1 : 0; }

@@ -18,7 +18,9 @@
 // e^beta of its beta and its SSE from cude_rk4.cuh's lane_sse, with the
 // network at the lane's 69 points, each evaluated when the recursion
 // reaches it.  The time grid is shared, so the per-segment step sizes and
-// the t = 0 blend (j0, w0) are computed on the host and passed by value.
+// the t = 0 blend (j0, w0) are computed on the host and passed by value, or
+// for a grid of more than 16 points read from the caller's copy in device
+// memory (cude_mlp.cuh, CUDE_LONG_GRID).
 //
 // Bound: instruction throughput.  A lane reads ~52 floats and writes one,
 // and does 69 network evaluations of ~220 instructions each for the
@@ -34,7 +36,8 @@
 // conditional_ude_tpu_torch/ops/rk4_cohort.py::cohort_sse_reference.
 //
 // C interface (loaded with ctypes): rk4_cohort_sse (2 inputs) and
-// rk4_cohort_sse_age (3 inputs) take beta (not e^beta) and return
+// rk4_cohort_sse_age (3 inputs) take beta (not e^beta) and the segment rows
+// on the host and, for a long-grid library, in device memory, and return
 // cudaGetLastError() after the launch.  They allocate nothing and launch on
 // the given stream.
 
@@ -73,11 +76,13 @@ template <int In>
 int launch(const float* nn, long long nn_lane_stride, const float* beta,
            const float* glucose, const float* data, const float* kinetics,
            float* out, long long lanes,
-           const float* segments,  // host [n_seg, 5]
+           const float* segments,      // host [n_seg, 5]
+           const float* segments_dev,  // device [n_seg, 5], a long grid's
            int n_seg, int substeps, int j0, float one_minus_w0, float w0,
            void* stream) {
   Grid grid;
-  if (!cude::make_grid(segments, n_seg, substeps, j0, one_minus_w0, w0, &grid))
+  if (!cude::make_grid(segments, segments_dev, n_seg, substeps, j0,
+                       one_minus_w0, w0, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
   if (lanes <= 0) return 0;
   const long long blocks = (lanes + kBlock - 1) / kBlock;
@@ -93,22 +98,24 @@ extern "C" int rk4_cohort_sse(const float* nn, long long nn_lane_stride,
                               const float* beta, const float* glucose,
                               const float* data, const float* kinetics,
                               float* out, long long lanes,
-                              const float* segments, int n_seg, int substeps,
-                              int j0, float one_minus_w0, float w0,
-                              void* stream) {
+                              const float* segments,
+                              const float* segments_dev, int n_seg,
+                              int substeps, int j0, float one_minus_w0,
+                              float w0, void* stream) {
   return launch<2>(nn, nn_lane_stride, beta, glucose, data, kinetics, out,
-                   lanes, segments, n_seg, substeps, j0, one_minus_w0, w0,
-                   stream);
+                   lanes, segments, segments_dev, n_seg, substeps, j0,
+                   one_minus_w0, w0, stream);
 }
 
 extern "C" int rk4_cohort_sse_age(const float* nn, long long nn_lane_stride,
                                   const float* beta, const float* glucose,
                                   const float* data, const float* kinetics,
                                   float* out, long long lanes,
-                                  const float* segments, int n_seg,
+                                  const float* segments,
+                                  const float* segments_dev, int n_seg,
                                   int substeps, int j0, float one_minus_w0,
                                   float w0, void* stream) {
   return launch<3>(nn, nn_lane_stride, beta, glucose, data, kinetics, out,
-                   lanes, segments, n_seg, substeps, j0, one_minus_w0, w0,
-                   stream);
+                   lanes, segments, segments_dev, n_seg, substeps, j0,
+                   one_minus_w0, w0, stream);
 }

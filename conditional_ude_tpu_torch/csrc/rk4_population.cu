@@ -17,7 +17,13 @@
 // take in kRounds rounds (13 restarts of 57 individuals fill 741 of 768
 // thread slots, where 4 restarts in one round of 256 fill 228).  The cohort
 // (glucose, data and kinetics, N x (2K + 4|5) floats) is read once per
-// block into shared memory.  Each lane takes its e^beta
+// block into shared memory where it and the block's SSEs fit the 48 KB a
+// launch gets without opting in (819 individuals on the OGTT grid);
+// otherwise (more individuals, or a long grid) each lane reads its own rows
+// from device memory, through L1, and the block takes its lanes in chunks
+// of at most kChunk, a restart of more individuals summed chunk after chunk
+// into one running total: the same sums in the same order, so any cohort
+// and grid give the one-chunk result.  Each lane takes its e^beta
 // (as the TPU kernel takes it) and its SSE from cude_rk4.cuh's lane_sse,
 // with the network at the lane's 69 points, and writes the SSE to shared
 // memory; then one thread per restart adds the N SSEs from individual 0 to
@@ -46,10 +52,10 @@
 // conditional_ude_tpu_torch/ops/rk4_population.py::population_sse_reference.
 //
 // C interface (loaded with ctypes): rk4_population_sse (2 inputs) and
-// rk4_population_sse_age (3 inputs) return cudaGetLastError() after the
-// launch, or minus the bytes of shared memory a block would need where that
-// exceeds the 48 KB a launch gets without opting in.  They allocate nothing
-// and launch on the given stream.
+// rk4_population_sse_age (3 inputs) take the segment rows on the host and,
+// for a long-grid library (cude_mlp.cuh), in device memory, and return
+// cudaGetLastError() after the launch.  They allocate nothing and launch on
+// the given stream.
 
 #include "cude_rk4.cuh"
 
@@ -60,9 +66,13 @@ using cude::Mlp;
 
 constexpr int kBlock = 256;  // threads a block, at most
 constexpr int kRounds = 3;   // lanes a block: kRounds kBlock
+constexpr int kChunk = kRounds * kBlock;
 constexpr size_t kStaticShared = 48 * 1024;
 
-template <int In>
+// kSharedCohort: the cohort is in shared memory and the SSE table holds
+// every lane of the block (one chunk); else each lane reads its own rows from
+// device memory and the block's lanes are taken in chunks of at most kChunk
+template <int In, bool kSharedCohort>
 __global__ void __launch_bounds__(kBlock)
 rk4_population_sse_kernel(const float* __restrict__ nn,       // [G, P]
                           const float* __restrict__ beta,     // [G, N]
@@ -71,46 +81,74 @@ rk4_population_sse_kernel(const float* __restrict__ nn,       // [G, P]
                           const float* __restrict__ kinetics, // [N, 4|5]
                           float* __restrict__ out,            // [G]
                           long long restarts, int n_ind, int per_block,
-                          float inv_n, const Grid grid) {
+                          int chunk, float inv_n, const Grid grid) {
   using Net = Mlp<In>;
   constexpr int kKin = Net::kKin;
   constexpr int kParams = Net::kParams;
   extern __shared__ float smem[];
   const int k_pts = grid.n_seg + 1;
-  float* s_glucose = smem;
-  float* s_data = s_glucose + n_ind * k_pts;
-  float* s_kin = s_data + n_ind * k_pts;
-  float* s_sse = s_kin + n_ind * kKin;  // [per_block][N]
+  const float* c_glucose = glucose;
+  const float* c_data = data;
+  const float* c_kin = kinetics;
+  float* s_sse = smem;  // [chunk]
   const long long first = blockIdx.x * static_cast<long long>(per_block);
   const long long left = restarts - first;
   const int here = left < per_block ? static_cast<int>(left) : per_block;
 
-  for (int i = threadIdx.x; i < n_ind * k_pts; i += blockDim.x) {
-    s_glucose[i] = glucose[i];
-    s_data[i] = data[i];
+  if constexpr (kSharedCohort) {
+    float* s_glucose = smem;
+    float* s_data = s_glucose + n_ind * k_pts;
+    float* s_kin = s_data + n_ind * k_pts;
+    s_sse = s_kin + n_ind * kKin;  // [per_block][N]
+    for (int i = threadIdx.x; i < n_ind * k_pts; i += blockDim.x) {
+      s_glucose[i] = glucose[i];
+      s_data[i] = data[i];
+    }
+    for (int i = threadIdx.x; i < n_ind * kKin; i += blockDim.x) s_kin[i] = kinetics[i];
+    __syncthreads();
+    c_glucose = s_glucose;
+    c_data = s_data;
+    c_kin = s_kin;
   }
-  for (int i = threadIdx.x; i < n_ind * kKin; i += blockDim.x) s_kin[i] = kinetics[i];
-  __syncthreads();
 
-  for (int l = threadIdx.x; l < here * n_ind; l += blockDim.x) {
-    const int lr = l / n_ind;
-    const int n = l - lr * n_ind;
-    const long long r = first + lr;
-    Net mlp;
-    mlp.load(nn + r * kParams);
-    const float e_beta = expf(beta[r * n_ind + n]);
-    s_sse[l] = cude::lane_sse<In>(mlp, e_beta, s_glucose + n * k_pts,
-                                  s_data + n * k_pts, s_kin + n * kKin, grid);
+  // a restart of more than kChunk individuals (per_block 1) is summed over
+  // its chunks by thread 0 into one running total
+  const int lanes_here = here * n_ind;
+  float total = 0.0f;
+  for (int base = 0; base < lanes_here; base += chunk) {
+    const int end = base + chunk < lanes_here ? base + chunk : lanes_here;
+    for (int l = base + threadIdx.x; l < end; l += blockDim.x) {
+      const int lr = l / n_ind;
+      const int n = l - lr * n_ind;
+      const long long r = first + lr;
+      Net mlp;
+      mlp.load(nn + r * kParams);
+      const float e_beta = expf(beta[r * n_ind + n]);
+      s_sse[l - base] = cude::lane_sse<In>(mlp, e_beta, c_glucose + n * k_pts,
+                                           c_data + n * k_pts, c_kin + n * kKin,
+                                           grid);
+    }
+    __syncthreads();
+
+    if (chunk >= lanes_here) {
+      // the mean of each restart, its individuals added first to last
+      for (int lr = threadIdx.x; lr < here; lr += blockDim.x) {
+        const float* sse = s_sse + lr * n_ind;
+        float sum = sse[0];
+        for (int n = 1; n < n_ind; ++n) sum = sum + sse[n];
+        const float mean = sum * inv_n;
+        out[first + lr] = isfinite(mean) ? mean : INFINITY;
+      }
+    } else if (threadIdx.x == 0) {
+      // the chunk's individuals added to the total in order
+      for (int i = 0; i < end - base; ++i)
+        total = base + i == 0 ? s_sse[0] : total + s_sse[i];
+    }
+    __syncthreads();  // the table is free for the next chunk
   }
-  __syncthreads();
-
-  // the mean of each restart, its individuals added first to last
-  for (int lr = threadIdx.x; lr < here; lr += blockDim.x) {
-    const float* sse = s_sse + lr * n_ind;
-    float total = sse[0];
-    for (int n = 1; n < n_ind; ++n) total = total + sse[n];
+  if (chunk < lanes_here && threadIdx.x == 0) {
     const float mean = total * inv_n;
-    out[first + lr] = isfinite(mean) ? mean : INFINITY;
+    out[first] = isfinite(mean) ? mean : INFINITY;
   }
 }
 
@@ -118,26 +156,34 @@ template <int In>
 int launch(const float* nn, const float* beta, const float* glucose,
            const float* data, const float* kinetics, float* out,
            long long restarts, int n_ind,
-           const float* segments,  // host [n_seg, 5]
+           const float* segments,      // host [n_seg, 5]
+           const float* segments_dev,  // device [n_seg, 5], a long grid's
            int n_seg, int substeps, int j0, float one_minus_w0, float w0,
            float inv_n, void* stream) {
   Grid grid;
-  if (!cude::make_grid(segments, n_seg, substeps, j0, one_minus_w0, w0, &grid) ||
+  if (!cude::make_grid(segments, segments_dev, n_seg, substeps, j0,
+                       one_minus_w0, w0, &grid) ||
       n_ind < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int per_block = n_ind < kRounds * kBlock ? kRounds * kBlock / n_ind : 1;
-  const size_t shared =
-      sizeof(float) * (static_cast<size_t>(n_ind) * (2 * (n_seg + 1) + Mlp<In>::kKin) +
-                       static_cast<size_t>(per_block) * n_ind);
-  if (shared > kStaticShared) return -static_cast<int>(shared);
-  if (restarts <= 0) return 0;
+  const int per_block = n_ind < kChunk ? kChunk / n_ind : 1;
   const int lanes = per_block * n_ind;
+  // the cohort and every lane's SSE in shared memory where they fit the
+  // 48 KB a launch gets without opting in, else the SSEs of a chunk only
+  const size_t cohort_shared =
+      sizeof(float) * (static_cast<size_t>(n_ind) * (2 * (n_seg + 1) + Mlp<In>::kKin) +
+                       static_cast<size_t>(lanes));
+  const bool shared_cohort = cohort_shared <= kStaticShared;
+  const int chunk = shared_cohort || lanes < kChunk ? lanes : kChunk;
+  const size_t shared = shared_cohort ? cohort_shared : sizeof(float) * chunk;
+  if (restarts <= 0) return 0;
   const int threads = lanes < kBlock ? (lanes + 31) / 32 * 32 : kBlock;
   const long long blocks = (restarts + per_block - 1) / per_block;
-  rk4_population_sse_kernel<In><<<static_cast<unsigned int>(blocks), threads,
-                                  shared, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = shared_cohort ? rk4_population_sse_kernel<In, true>
+                                    : rk4_population_sse_kernel<In, false>;
+  kernel<<<static_cast<unsigned int>(blocks), threads, shared,
+           static_cast<cudaStream_t>(stream)>>>(
       nn, beta, glucose, data, kinetics, out, restarts, n_ind, per_block,
-      inv_n, grid);
+      chunk, inv_n, grid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -147,22 +193,24 @@ extern "C" int rk4_population_sse(const float* nn, const float* beta,
                                   const float* glucose, const float* data,
                                   const float* kinetics, float* out,
                                   long long restarts, int n_ind,
-                                  const float* segments, int n_seg,
+                                  const float* segments,
+                                  const float* segments_dev, int n_seg,
                                   int substeps, int j0, float one_minus_w0,
                                   float w0, float inv_n, void* stream) {
   return launch<2>(nn, beta, glucose, data, kinetics, out, restarts, n_ind,
-                   segments, n_seg, substeps, j0, one_minus_w0, w0, inv_n,
-                   stream);
+                   segments, segments_dev, n_seg, substeps, j0, one_minus_w0,
+                   w0, inv_n, stream);
 }
 
 extern "C" int rk4_population_sse_age(const float* nn, const float* beta,
                                       const float* glucose, const float* data,
                                       const float* kinetics, float* out,
                                       long long restarts, int n_ind,
-                                      const float* segments, int n_seg,
+                                      const float* segments,
+                                      const float* segments_dev, int n_seg,
                                       int substeps, int j0, float one_minus_w0,
                                       float w0, float inv_n, void* stream) {
   return launch<3>(nn, beta, glucose, data, kinetics, out, restarts, n_ind,
-                   segments, n_seg, substeps, j0, one_minus_w0, w0, inv_n,
-                   stream);
+                   segments, segments_dev, n_seg, substeps, j0, one_minus_w0,
+                   w0, inv_n, stream);
 }

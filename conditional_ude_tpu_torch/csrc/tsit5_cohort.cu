@@ -51,8 +51,13 @@
 // how.  Accept/reject decisions sit on err <= 1, so one ulp can change a
 // lane's step sequence: each body equals its plain version bit for bit.
 //
+// A grid of more than 16 points (the long-grid library, cude_mlp.cuh)
+// reads its knots and spans and each lane's glucose and data rows from
+// device memory where they are used; the arithmetic is the same.
+//
 // C interface (loaded with ctypes): tsit5_cohort_sse (2 inputs) and
-// tsit5_cohort_sse_age (3 inputs) take beta (not e^beta) and return
+// tsit5_cohort_sse_age (3 inputs) take beta (not e^beta) and the constants
+// on the host and, for a long-grid library, in device memory, and return
 // cudaGetLastError() after the launch.  They allocate nothing and launch on
 // the given stream.
 
@@ -69,19 +74,26 @@ constexpr int kBlock = 128;
 constexpr int kStages = 5;                 // productions an attempted step
 constexpr int kRow = kMaxTimepoints + 1;   // odd row stride: no bank conflicts
 
-// the host array of tsit5_cohort.py::constants, field by field
+// the host array of tsit5_cohort.py::constants, field by field: for a
+// short grid the knots and spans padded to kMaxTimepoints are copied here;
+// a long grid's are read from the caller's copy of the array in device
+// memory (cude_mlp.cuh, CUDE_LONG_GRID)
+constexpr int kHeadFloats = 7 + 7 * 6 + 7 + 22;
+constexpr int kScalarFloats = 20;
 struct Tsit5Consts {
   float c[7];
   float a[7][6];
   float btilde[7];
   float interp[22];
-  float knot[kMaxTimepoints];
-  float span[kMaxTimepoints];
+  cude::GridTable<float, kMaxTimepoints> knot;
+  cude::GridTable<float, kMaxTimepoints> span;
   float one_minus_w0, w0, t0, t1, t_span, rtol, atol, tenth_span,
       dt_fallback, dt_min, dt_floor, end_tol, save_slack, safety, neg_beta1,
       beta2, neg_inv_order, h1_exp, fmin, fmax;
 };
-static_assert(sizeof(Tsit5Consts) == 130 * sizeof(float), "layout of constants()");
+static_assert(cude::kLongGrid ||
+                  sizeof(Tsit5Consts) == 130 * sizeof(float),
+              "layout of constants()");
 
 // NaN-propagating maximum / minimum / clip, as jnp.maximum and torch.maximum
 __device__ __forceinline__ float jmax(float a, float b) {
@@ -151,25 +163,40 @@ tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, P]
                         bool* __restrict__ ok_out,          // [R * N]
                         long long lanes, int n_ind, int n_save, int j0,
                         int max_steps, const Tsit5Consts k) {
+  // a short grid's knots, spans and each lane's glucose and data rows in
+  // shared memory; a long grid's read from device memory where used
+  constexpr int kRows = cude::kLongGrid ? 1 : kBlock;
   __shared__ float s_knot[kMaxTimepoints], s_span[kMaxTimepoints];
-  __shared__ float s_g[kBlock][kRow], s_d[kBlock][kRow];
+  __shared__ float s_g[kRows][kRow], s_d[kRows][kRow];
   const long long lane = blockIdx.x * static_cast<long long>(kBlock) + threadIdx.x;
   const long long r = lane / n_ind;
   const int n = static_cast<int>(lane - r * n_ind);
-  if (threadIdx.x < kMaxTimepoints) {
-    s_knot[threadIdx.x] = k.knot[threadIdx.x];
-    s_span[threadIdx.x] = k.span[threadIdx.x];
-  }
-  float* g = s_g[threadIdx.x];
-  float* d = s_d[threadIdx.x];
-  if (lane < lanes) {
-    for (int j = 0; j < n_save; ++j) {
-      g[j] = glucose[static_cast<long long>(n) * n_save + j];
-      d[j] = data[static_cast<long long>(n) * n_save + j];
+  const float* knot = s_knot;
+  const float* span = s_span;
+  const float* g = glucose + static_cast<long long>(n) * n_save;
+  const float* d = data + static_cast<long long>(n) * n_save;
+  if constexpr (cude::kLongGrid) {
+    knot = k.knot;
+    span = k.span;
+    if (lane >= lanes) return;
+  } else {
+    if (threadIdx.x < kMaxTimepoints) {
+      s_knot[threadIdx.x] = k.knot[threadIdx.x];
+      s_span[threadIdx.x] = k.span[threadIdx.x];
     }
+    float* sg = s_g[threadIdx.x];
+    float* sd = s_d[threadIdx.x];
+    if (lane < lanes) {
+      for (int j = 0; j < n_save; ++j) {
+        sg[j] = glucose[static_cast<long long>(n) * n_save + j];
+        sd[j] = data[static_cast<long long>(n) * n_save + j];
+      }
+    }
+    __syncthreads();
+    if (lane >= lanes) return;
+    g = sg;
+    d = sd;
   }
-  __syncthreads();
-  if (lane >= lanes) return;
 
   using Net = Mlp<In>;
   constexpr int kKin = Net::kKin;
@@ -189,7 +216,7 @@ tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, P]
   auto production = [&](float t) -> float {
     const float ts[1] = {t};
     float out[1];
-    productions(mlp, ts, out, s_knot, s_span, g, n_seg, g_at0, e_beta, age,
+    productions(mlp, ts, out, knot, span, g, n_seg, g_at0, e_beta, age,
                 base);
     return out[0];
   };
@@ -237,7 +264,7 @@ tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, P]
     float ts[kStages], prod[kStages];
 #pragma unroll
     for (int s = 0; s < kStages; ++s) ts[s] = t + k.c[s + 1] * dtc;
-    productions(mlp, ts, prod, s_knot, s_span, g, n_seg, g_at0, e_beta, age,
+    productions(mlp, ts, prod, knot, span, g, n_seg, g_at0, e_beta, age,
                 base);
 
 #pragma unroll
@@ -289,7 +316,7 @@ tsit5_cohort_sse_kernel(const float* __restrict__ nn,       // [R, P]
       // the save times an accepted step crosses follow one another from
       // next_save: a later one is crossed only if an earlier one is
       for (; next_save < n_save; ++next_save) {
-        const float t_s = s_knot[next_save];
+        const float t_s = knot[next_save];
         const bool hit = t_s > t && (t_s <= t_new || (reached_end && t_s <= t_new + k.save_slack));
         if (!hit) break;
         const float theta = jclip((t_s - t) / dtc, 0.0f, 1.0f);
@@ -325,14 +352,25 @@ template <int In>
 int launch(const float* nn, const float* beta, const float* glucose,
            const float* data, const float* kinetics, float* sse, bool* ok,
            long long lanes, int n_ind,
-           const float* consts,  // host, 130 floats
+           const float* consts,      // host, see tsit5_cohort.py::constants
+           const float* consts_dev,  // the same in device memory, a long grid's
            int n_save, int j0, int max_steps, void* stream) {
-  if (n_save < 2 || n_save > kMaxTimepoints || j0 < 0 || j0 > n_save - 2 ||
-      n_ind < 1 || max_steps < 1)
+  if (n_save < 2 || (!cude::kLongGrid && n_save > kMaxTimepoints) ||
+      (cude::kLongGrid && consts_dev == nullptr) || j0 < 0 ||
+      j0 > n_save - 2 || n_ind < 1 || max_steps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (lanes <= 0) return 0;
+  // [head][knots][spans][scalars], the knots and spans padded to
+  // kMaxTimepoints for a short grid, n_save each for a long one
+  const int row = cude::kLongGrid ? n_save : kMaxTimepoints;
+  const float* dev = consts_dev == nullptr ? consts : consts_dev;
   Tsit5Consts k;
-  memcpy(&k, consts, sizeof(k));
+  memcpy(&k, consts, sizeof(float) * kHeadFloats);
+  cude::fill_table(k.knot, consts + kHeadFloats, dev + kHeadFloats, row);
+  cude::fill_table(k.span, consts + kHeadFloats + row,
+                   dev + kHeadFloats + row, row);
+  memcpy(&k.one_minus_w0, consts + kHeadFloats + 2 * row,
+         sizeof(float) * kScalarFloats);
   const long long blocks = (lanes + kBlock - 1) / kBlock;
   tsit5_cohort_sse_kernel<In><<<static_cast<unsigned int>(blocks), kBlock, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
@@ -347,18 +385,20 @@ extern "C" int tsit5_cohort_sse(const float* nn, const float* beta,
                                 const float* glucose, const float* data,
                                 const float* kinetics, float* sse, bool* ok,
                                 long long lanes, int n_ind,
-                                const float* consts, int n_save, int j0,
-                                int max_steps, void* stream) {
+                                const float* consts, const float* consts_dev,
+                                int n_save, int j0, int max_steps,
+                                void* stream) {
   return launch<2>(nn, beta, glucose, data, kinetics, sse, ok, lanes, n_ind,
-                   consts, n_save, j0, max_steps, stream);
+                   consts, consts_dev, n_save, j0, max_steps, stream);
 }
 
 extern "C" int tsit5_cohort_sse_age(const float* nn, const float* beta,
                                     const float* glucose, const float* data,
                                     const float* kinetics, float* sse,
                                     bool* ok, long long lanes, int n_ind,
-                                    const float* consts, int n_save, int j0,
-                                    int max_steps, void* stream) {
+                                    const float* consts,
+                                    const float* consts_dev, int n_save,
+                                    int j0, int max_steps, void* stream) {
   return launch<3>(nn, beta, glucose, data, kinetics, sse, ok, lanes, n_ind,
-                   consts, n_save, j0, max_steps, stream);
+                   consts, consts_dev, n_save, j0, max_steps, stream);
 }

@@ -169,10 +169,9 @@ def _log_normal_prior(x: torch.Tensor, prior: tuple[float, float]):
 
 def kernel_route(model: CPeptideModel, substeps: int) -> bool:
     """Whether K2 computes this model's SSE gradients: a conditional (or
-    covariate) network the kernels take (``fused_kernel_eligible``) at
-    1-16 substeps."""
-    return (fused_kernel_eligible(model)
-            and 1 <= substeps <= lane_grad.MAX_SUBSTEPS)
+    covariate) network the kernels take (``fused_kernel_eligible``), at
+    any ``substeps`` the RK4 takes."""
+    return fused_kernel_eligible(model, {"substeps": substeps})
 
 
 def _lane_rows(model: CPeptideModel, cohort: Cohort):

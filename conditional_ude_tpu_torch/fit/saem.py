@@ -178,8 +178,7 @@ class CohortLogLik(LogLik):
         self.n, self.device = cohort.n, cohort.device
         self.n_t = cohort.timepoints.shape[0]
         self.parts = None
-        self.kernels = (solver == "rk4" and fused_kernel_eligible(model)
-                        and 1 <= substeps <= lane_grad.MAX_SUBSTEPS)
+        self.kernels = solver == "rk4" and fused_kernel_eligible(model)
         if self.kernels:
             dev = "cuda" if self.device.type == "cuda" else "plain"
             self.route = f"{dev}_k4_k2"

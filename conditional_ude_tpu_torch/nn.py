@@ -54,7 +54,9 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+Activation = Callable[[torch.Tensor], torch.Tensor]
+
+ACTIVATIONS: dict[str, Activation] = {
     "tanh": torch.tanh,
     "relu": torch.relu,
     "softplus": softplus,
@@ -62,6 +64,19 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "gelu": gelu,
     "sigmoid": torch.sigmoid,
 }
+
+
+def resolve_activation(act: str | Activation) -> Activation:
+    """The function of an activation's name (``ACTIVATIONS``); a callable
+    is returned as it is."""
+    if callable(act):
+        return act
+    try:
+        return ACTIVATIONS[act]
+    except KeyError:
+        raise ValueError(
+            f"Unknown activation {act!r}; known: {sorted(ACTIVATIONS)}"
+        ) from None
 
 
 class MLP(nn.Module):
@@ -106,14 +121,21 @@ class MLP(nn.Module):
     def num_params(self) -> int:
         return sum(fi * fo + fo for fi, fo in self.layer_dims)
 
-    def init_batch(self, n: int, generator: torch.Generator) -> torch.Tensor:
+    def init(self, generator: torch.Generator,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """One flat parameter vector ``[P]``: Glorot-uniform weights, zero
+        biases, the row :meth:`init_batch` draws for ``n = 1``."""
+        return self.init_batch(1, generator, dtype)[0]
+
+    def init_batch(self, n: int, generator: torch.Generator,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """``n`` flat parameter vectors ``[n, P]`` on the generator's device:
         Glorot-uniform weights in ±sqrt(6 / (fan_in + fan_out)), zero biases.
 
         ``torch.Generator`` and ``jax.random`` draw different numbers, so
         the designs equal the JAX package's in distribution, not in value.
         """
-        opts = dict(dtype=torch.float32, device=generator.device)
+        opts = dict(dtype=dtype, device=generator.device)
         parts = []
         for fi, fo in self.layer_dims:
             bound = (6.0 / (fi + fo)) ** 0.5
@@ -138,8 +160,8 @@ class MLP(nn.Module):
     def forward(self, flat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """``flat[..., P]`` and ``x[..., input_dims]`` broadcast over their
         batch dims; returns ``[..., output_dims]``."""
-        acts = [ACTIVATIONS[a] for a in self.activations] + [
-            ACTIVATIONS[self.output_activation]]
+        acts = [resolve_activation(a) for a in self.activations] + [
+            resolve_activation(self.output_activation)]
         h = x
         for (w, b), act in zip(self.unflatten(flat), acts):
             h = act((w * h.unsqueeze(-2)).sum(-1) + b)
@@ -155,15 +177,19 @@ class MLP(nn.Module):
 
 
 def chain(width: int | Sequence[int], depth: int | None = None,
-          activation: str = "tanh", *, input_dims: int = 2,
+          activation: str | Activation = "tanh", *, input_dims: int = 2,
           output_dims: int = 1, output_activation: str = "softplus") -> MLP:
     """``chain(4, 2, "tanh")``: two hidden tanh layers of width 4 and a
-    softplus scalar head, as in the JAX package."""
+    softplus scalar head, as in the JAX package.  A callable ``activation``
+    is stored by its ``__name__``, as the JAX package stores it
+    (``chain(4, 2, torch.tanh)`` is ``chain(4, 2, "tanh")``), so its name
+    must be one of ``ACTIVATIONS``."""
     if isinstance(width, int):
         if depth is None:
             raise ValueError("depth required when width is an int")
         widths = (width,) * depth
     else:
         widths = tuple(width)
-    return MLP(input_dims, widths, (activation,) * len(widths),
+    name = activation if isinstance(activation, str) else activation.__name__
+    return MLP(input_dims, widths, (name,) * len(widths),
                output_dims=output_dims, output_activation=output_activation)

@@ -2,13 +2,17 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface.  ``nvcc``
 compiles it for ``sm_90a`` at first use into ``build/`` at the repository
-root, one library for each network shape it is called for: the hidden
-widths are compile-time constants of ``csrc/cude_mlp.cuh``
+root, one library for each network shape and grid kind it is called for:
+the hidden widths are compile-time constants of ``csrc/cude_mlp.cuh``
 (``CUDE_WIDTHS``, the canonical ``4, 4`` unless a generated header in
-``build/`` defines another list; nvcc splits a ``-D`` value at its commas).
-A library's name hashes the source, the shared ``csrc/*.cuh`` headers, the
-flags and the widths, so an edited kernel rebuilds itself.  The library is
-loaded with ``ctypes``.  Nothing here runs when a module is imported.
+``build/`` defines another list; nvcc splits a ``-D`` value at its commas),
+and a grid of more than ``SHORT_GRID`` points takes the library built with
+``CUDE_LONG_GRID`` (in the same header), which reads the grid's tables from
+device memory (:func:`device_table`) where a short grid's are kernel
+parameters.  A library's name hashes the source, the shared ``csrc/*.cuh``
+headers, the flags, the widths and the grid kind, so an edited kernel
+rebuilds itself.  The library is loaded with ``ctypes``.  Nothing here runs
+when a module is imported.
 """
 
 from __future__ import annotations
@@ -31,33 +35,50 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 CANONICAL_WIDTHS = (4, 4)
+# points of the longest grid whose tables a kernel takes as parameters
+# (``kMaxTimepoints`` in ``csrc/cude_mlp.cuh``); a longer grid takes the
+# library built with ``CUDE_LONG_GRID``
+SHORT_GRID = 16
 
 
-def widths_tag(widths) -> str:
-    """``"8_8"`` for hidden widths ``(8, 8)``: a file-name part."""
-    return "_".join(str(int(w)) for w in widths)
+def long_grid(timepoints) -> bool:
+    """Whether a grid of these ``timepoints`` takes the long-grid library."""
+    return len(timepoints) > SHORT_GRID
 
 
-def widths_header(widths) -> Path:
+def widths_tag(widths, long: bool = False) -> str:
+    """``"8_8"`` for hidden widths ``(8, 8)``, ``"8_8_long"`` for the
+    long-grid build: a file-name part."""
+    return "_".join(str(int(w)) for w in widths) + ("_long" if long else "")
+
+
+def widths_header(widths, long: bool = False) -> Path:
     """The generated header that defines ``CUDE_WIDTHS`` for a network of
-    these hidden widths (written by :func:`build_all`)."""
-    return BUILD_DIR / f"cude_widths_{widths_tag(widths)}.h"
+    these hidden widths, and ``CUDE_LONG_GRID`` for the long-grid build
+    (written by :func:`build_all`)."""
+    return BUILD_DIR / f"cude_widths_{widths_tag(widths, long)}.h"
 
 
-def nvcc_command(source: Path, output: Path,
-                 widths=CANONICAL_WIDTHS) -> list[str]:
+def _canonical(widths, long: bool) -> bool:
+    return tuple(widths) == CANONICAL_WIDTHS and not long
+
+
+def nvcc_command(source: Path, output: Path, widths=CANONICAL_WIDTHS,
+                 long: bool = False) -> list[str]:
     """The ``nvcc`` command line that builds ``source`` into ``output`` for
-    a network of hidden ``widths``; the canonical ``(4, 4)`` is the
-    headers' own default and adds nothing."""
+    a network of hidden ``widths`` and the short or long grid; the
+    canonical ``(4, 4)`` on a short grid is the headers' own default and
+    adds nothing."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = "nvcc" if CUDA_HOME is None else str(Path(CUDA_HOME) / "bin" / "nvcc")
-    shape = ([] if tuple(widths) == CANONICAL_WIDTHS
-             else ["-include", str(widths_header(widths))])
+    shape = ([] if _canonical(widths, long)
+             else ["-include", str(widths_header(widths, long))])
     return [nvcc, *NVCC_FLAGS, *shape, "-o", str(output), str(source)]
 
 
-def library_path(source: Path, widths=CANONICAL_WIDTHS) -> Path:
+def library_path(source: Path, widths=CANONICAL_WIDTHS,
+                 long: bool = False) -> Path:
     key = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         key.update(header.read_bytes())
@@ -66,33 +87,37 @@ def library_path(source: Path, widths=CANONICAL_WIDTHS) -> Path:
     if tuple(widths) != CANONICAL_WIDTHS:
         key.update(f"CUDE_WIDTHS {tuple(widths)}".encode())
         name += f"-w{widths_tag(widths)}"
+    if long:
+        key.update(b"CUDE_LONG_GRID 1")
+        name += "-long"
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
-def build_all(jobs: list[tuple[Path, tuple[int, ...]]]) -> dict:
-    """Build every ``(source, hidden widths)`` job that has no library yet,
-    one ``nvcc`` each, all started together.  Returns ``{job: (library,
-    seconds, log)}``; ``log`` is what ``nvcc`` printed (ptxas registers
-    and spills)."""
+def build_all(jobs: list[tuple]) -> dict:
+    """Build every ``(source, hidden widths)`` or ``(source, hidden
+    widths, long grid)`` job that has no library yet, one ``nvcc`` each,
+    all started together.  Returns ``{job: (library, seconds, log)}``;
+    ``log`` is what ``nvcc`` printed (ptxas registers and spills)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending, out = {}, {}
     for job in jobs:
-        src, widths = job
-        lib = library_path(src, widths)
+        src, widths, long = (*job, False)[:3]
+        lib = library_path(src, widths, long)
         if lib.exists():
             log = lib.with_suffix(".log")
             out[job] = (lib, 0.0, log.read_text() if log.exists() else "")
             continue
-        if tuple(widths) != CANONICAL_WIDTHS:
-            header = widths_header(widths)
+        if not _canonical(widths, long):
+            header = widths_header(widths, long)
             text = ("#define CUDE_WIDTHS "
-                    + ", ".join(str(int(w)) for w in widths) + "\n")
+                    + ", ".join(str(int(w)) for w in widths) + "\n"
+                    + ("#define CUDE_LONG_GRID 1\n" if long else ""))
             if not header.exists() or header.read_text() != text:
                 tmp_h = header.with_suffix(f".{os.getpid()}.tmp")
                 tmp_h.write_text(text)
                 os.replace(tmp_h, header)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(nvcc_command(src, tmp, widths),
+        proc = subprocess.Popen(nvcc_command(src, tmp, widths, long),
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         pending[job] = (src, lib, tmp, proc, time.perf_counter())
@@ -108,46 +133,53 @@ def build_all(jobs: list[tuple[Path, tuple[int, ...]]]) -> dict:
 
 
 class KernelLibrary:
-    """One kernel body's shared library for one network shape, built and
-    loaded at first use.
+    """One kernel body's shared library for one network shape and grid
+    kind, built and loaded at first use.
 
     ``name`` and ``argtypes`` declare its C entry point, which launches on
     the stream it is given and returns ``cudaGetLastError()``; a call
     raises ``RuntimeError`` when that is not 0.  A negative return is the
     entry point's refusal of inputs that need more shared memory a block
     than the card has (minus the bytes) and raises ``ValueError``.
-    ``widths`` are the hidden widths the library is built for;
-    :meth:`at` gives the body's library for other widths (one instance a
-    shape, each with its own loaded function).  Loading checks that the
-    library reports those widths.
+    ``widths`` are the hidden widths the library is built for and ``long``
+    whether it is the long-grid build; :meth:`at` gives the body's library
+    for other widths or grid kind (one instance each, each with its own
+    loaded function), :meth:`symbol` another entry point of the same
+    library.  Loading checks that the library reports those widths and that
+    grid kind.
     """
 
     def __init__(self, source: str, name: str, argtypes: list,
-                 widths=CANONICAL_WIDTHS):
+                 widths=CANONICAL_WIDTHS, long: bool = False):
         self.source = CSRC / source
         self.name = name
         self.argtypes = argtypes
         self.widths = tuple(int(w) for w in widths)
+        self.long = bool(long)
+        self._dll = None
         self._fn = None
-        self._shapes = {self.widths: self}
+        self._symbols = {}
+        self._shapes = {(self.widths, self.long): self}
 
-    def at(self, widths) -> "KernelLibrary":
-        """This body's library for a network of hidden ``widths``."""
-        widths = tuple(int(w) for w in widths)
-        lib = self._shapes.get(widths)
+    def at(self, widths, long: bool = False) -> "KernelLibrary":
+        """This body's library for a network of hidden ``widths`` and a
+        short grid, or with ``long`` a grid of more than ``SHORT_GRID``
+        points."""
+        key = (tuple(int(w) for w in widths), bool(long))
+        lib = self._shapes.get(key)
         if lib is None:
             lib = KernelLibrary(self.source.name, self.name, self.argtypes,
-                                widths)
+                                *key)
             lib._shapes = self._shapes
-            self._shapes[widths] = lib
+            self._shapes[key] = lib
         return lib
 
     def build(self) -> Path:
-        job = (self.source, self.widths)
+        job = (self.source, self.widths, self.long)
         return build_all([job])[job][0]
 
-    def __call__(self, *args) -> None:
-        if self._fn is None:
+    def _load(self):
+        if self._dll is None:
             dll = ctypes.CDLL(str(self.build()))
             got = (ctypes.c_int * 64)()
             n = dll.cude_hidden_widths(got, 64)
@@ -155,10 +187,41 @@ class KernelLibrary:
                 raise RuntimeError(f"{self.name}: the library was built for "
                                    f"widths {tuple(got[:n])}, not "
                                    f"{self.widths}")
-            fn = getattr(dll, self.name)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            if bool(dll.cude_long_grid()) != self.long:
+                raise RuntimeError(f"{self.name}: the library was not built "
+                                   f"for a {'long' if self.long else 'short'}"
+                                   " grid")
+            self._dll = dll
+        return self._dll
+
+    def symbol(self, name: str, argtypes: list, restype):
+        """Another C function of this library (loaded at first use)."""
+        fn = self._symbols.get(name)
+        if fn is None:
+            fn = getattr(self._load(), name)
+            fn.argtypes, fn.restype = argtypes, restype
+            self._symbols[name] = fn
+        return fn
+
+    def workspace(self, device, *args):
+        """The device workspace the entry point needs for these sizes, or
+        ``None``: ``<name>_workspace(*args)`` of the library (``I64``
+        restarts or lanes, then ``I32`` sizes) gives its floats, 0 where
+        the kernel's scratch fits shared memory."""
+        import torch
+
+        fn = self.symbol(self.name + "_workspace",
+                         [I64] + [I32] * (len(args) - 1), I64)
+        need = fn(*args)
+        if need < 0:
+            raise RuntimeError(f"{self.name}: no layout for sizes {args}")
+        if need == 0:
+            return None
+        return torch.empty(need, dtype=torch.float32, device=device)
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            self._fn = self.symbol(self.name, self.argtypes, ctypes.c_int)
         err = self._fn(*args)
         if err < 0:
             raise ValueError(f"{self.name}: these inputs need {-err} bytes "
@@ -188,3 +251,25 @@ def launch_total(shape_launches: dict, name: str, module: str) -> int:
 VP, I64, I32, F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_float)
 F32_PTR = ctypes.POINTER(ctypes.c_float)
+
+# a long grid's host tables copied to each device once:
+# {(the array's bytes, device): tensor}
+_device_tables: dict = {}
+
+
+def device_table(host, device):
+    """The device address of a copy of the float32 host array ``host`` on
+    ``device`` (a long grid's tables, which its kernels read from device
+    memory), made at the first call for these values and kept; ``None``
+    where ``host`` is ``None``, as for a short grid."""
+    if host is None:
+        return None
+    import numpy as np
+    import torch
+
+    slot = (np.asarray(host, np.float32).tobytes(), str(device))
+    table = _device_tables.get(slot)
+    if table is None:
+        table = torch.from_numpy(np.array(host, np.float32)).to(device)
+        _device_tables[slot] = table
+    return table.data_ptr()

@@ -49,7 +49,9 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     VP,
     KernelLibrary,
     count_launch,
+    device_table,
     launch_total,
+    long_grid,
 )
 from conditional_ude_tpu_torch.ops.rk4_cohort import (
     PointNetwork,
@@ -61,7 +63,6 @@ from conditional_ude_tpu_torch.ops.rk4_cohort import (
 )
 from conditional_ude_tpu_torch.ops.tsit5 import f32
 
-MAX_SUBSTEPS = 16
 WARP = 32          # threads that share a lane's evaluation points
 # above this many (restart × individual) lanes the restart kernel takes over
 # (``pallas_grad.py:550-553``)
@@ -76,8 +77,8 @@ shape_launches: dict = {}
 def __getattr__(name: str) -> int:
     return launch_total(shape_launches, name, __name__)
 
-_ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32,
-             VP]
+_ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, VP, I32, I32,
+             I32, VP, VP]
 kernel = KernelLibrary("lane_grad.cu", "lane_sse_and_grad", _ARGTYPES)
 kernel_age = KernelLibrary("lane_grad.cu", "lane_sse_and_grad_age",
                            _ARGTYPES)
@@ -253,8 +254,8 @@ def lane_sse_and_grad(net: MLP, nn_params: torch.Tensor, betas: torch.Tensor,
     network's input count."""
     check_restart_inputs(net, nn_params, betas, glucose, data, kinetics,
                          timepoints)
-    if not 1 <= substeps <= MAX_SUBSTEPS:
-        raise ValueError(f"substeps must be 1..{MAX_SUBSTEPS}")
+    if substeps < 1:
+        raise ValueError("substeps must be >= 1")
     if betas.device.type == "cpu":
         return lane_sse_and_grad_reference(net, nn_params, betas, glucose,
                                            data, kinetics, timepoints,
@@ -279,14 +280,19 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
         return sse, gnn, gb
     _, j0, _, _ = _segments(timepoints, substeps)
     consts = grid_constants(timepoints, substeps)
+    long = long_grid(timepoints)
+    n_seg = len(timepoints) - 1
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths,
+                                                                 long)
+        consts_dev = device_table(consts if long else None, betas.device)
+        ws = lib.workspace(betas.device, r * n, n_seg, substeps)
         lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
             data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
             gnn.data_ptr(), gb.data_ptr(), r * n, n,
-            consts.ctypes.data_as(F32_PTR), len(timepoints) - 1, substeps, j0,
-            stream)
+            consts.ctypes.data_as(F32_PTR), consts_dev, n_seg, substeps, j0,
+            None if ws is None else ws.data_ptr(), stream)
     count_launch(shape_launches, net)
     return sse, gnn, gb
 

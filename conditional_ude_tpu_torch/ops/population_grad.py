@@ -38,10 +38,11 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     VP,
     KernelLibrary,
     count_launch,
+    device_table,
     launch_total,
+    long_grid,
 )
 from conditional_ude_tpu_torch.ops.lane_grad import (
-    MAX_SUBSTEPS,
     grid_constants,
     lane_sse_and_grad_reference,
 )
@@ -61,8 +62,8 @@ shape_launches: dict = {}
 def __getattr__(name: str) -> int:
     return launch_total(shape_launches, name, __name__)
 
-_ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32,
-             F32, VP]
+_ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, VP, I32, I32,
+             I32, F32, VP, VP]
 kernel = KernelLibrary("population_grad.cu", "population_sse_and_grad",
                        _ARGTYPES)
 kernel_age = KernelLibrary("population_grad.cu",
@@ -100,14 +101,13 @@ def restart_sse_and_grad(net: MLP, nn_params: torch.Tensor,
     ``kinetics[N, 4]`` (``[N, 5]`` with the age for a 3-input network): the
     population mean SSE per restart (``inf`` where it is not finite) and
     its gradient, 1/N applied.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel's body for the network's input count, which
-    raises ``ValueError`` where the cohort needs more shared memory a block
-    than the card has (``csrc/population_grad.cu`` gives the sizes)."""
+    tensors launch the kernel's body for the network's input count at any
+    cohort size, grid and substep count (``csrc/population_grad.cu`` takes
+    the individuals in tiles where the cohort does not fit a block)."""
     check_restart_inputs(net, nn_params, betas, glucose, data, kinetics,
                          timepoints)
-    if betas.shape[1] < 1 or not 1 <= substeps <= MAX_SUBSTEPS:
-        raise ValueError("need at least one individual and substeps in "
-                         f"1..{MAX_SUBSTEPS}")
+    if betas.shape[1] < 1 or substeps < 1:
+        raise ValueError("need at least one individual and one substep")
     if betas.device.type == "cpu":
         return restart_sse_and_grad_reference(net, nn_params, betas, glucose,
                                               data, kinetics, timepoints,
@@ -132,13 +132,18 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
         return f, gnn, gb
     _, j0, _, _ = _segments(timepoints, substeps)
     consts = grid_constants(timepoints, substeps)
+    long = long_grid(timepoints)
+    n_seg = len(timepoints) - 1
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths,
+                                                                 long)
+        consts_dev = device_table(consts if long else None, betas.device)
+        ws = lib.workspace(betas.device, r, n, n_seg, substeps)
         lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
             data.data_ptr(), kinetics.data_ptr(), f.data_ptr(),
             gnn.data_ptr(), gb.data_ptr(), r, n,
-            consts.ctypes.data_as(F32_PTR), len(timepoints) - 1, substeps, j0,
-            f32(1.0 / n), stream)
+            consts.ctypes.data_as(F32_PTR), consts_dev, n_seg, substeps, j0,
+            f32(1.0 / n), None if ws is None else ws.data_ptr(), stream)
     count_launch(shape_launches, net)
     return f, gnn, gb

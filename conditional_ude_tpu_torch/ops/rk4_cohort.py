@@ -39,10 +39,10 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     VP,
     KernelLibrary,
     count_launch,
+    device_table,
     launch_total,
+    long_grid,
 )
-
-MAX_TIMEPOINTS = 16
 
 # kernel launches since import (or since a caller cleared it), by network
 # shape: ``{(input_dims, hidden widths): launches}``; ``launches`` and
@@ -53,8 +53,8 @@ shape_launches: dict = {}
 def __getattr__(name: str) -> int:
     return launch_total(shape_launches, name, __name__)
 
-_ARGTYPES = [VP, I64, VP, VP, VP, VP, VP, I64, F32_PTR, I32, I32, I32, F32,
-             F32, VP]
+_ARGTYPES = [VP, I64, VP, VP, VP, VP, VP, I64, F32_PTR, VP, I32, I32, I32,
+             F32, F32, VP]
 kernel = KernelLibrary("rk4_cohort.cu", "rk4_cohort_sse", _ARGTYPES)
 kernel_age = KernelLibrary("rk4_cohort.cu", "rk4_cohort_sse_age", _ARGTYPES)
 
@@ -283,9 +283,9 @@ def _check_shapes(tensors: dict, shapes: dict, timepoints) -> None:
             raise ValueError(f"{name} must have shape {shape}, "
                              f"got {tuple(tensors[name].shape)}")
     ts = np.asarray(timepoints, np.float64)
-    if not 2 <= len(ts) <= MAX_TIMEPOINTS or np.any(np.diff(ts) <= 0):
-        raise ValueError(f"timepoints must be 2..{MAX_TIMEPOINTS} increasing "
-                         f"times, got {ts}")
+    if len(ts) < 2 or np.any(np.diff(ts) <= 0):
+        raise ValueError(f"timepoints must be 2 or more increasing times, "
+                         f"got {ts}")
 
 
 def require_contiguous(**tensors) -> None:
@@ -307,8 +307,8 @@ def check_restart_inputs(net: MLP, nn_params, betas, glucose, data, kinetics,
     3-input network the kernels take, float32 ``nn_params[R, P]`` and
     ``betas[R, N]`` on one device with the cohort ``glucose[N, K]``,
     ``data[N, K]``,
-    ``kinetics[N, 4]`` (``[N, 5]`` with the age for 3 inputs) and 2..16
-    increasing ``timepoints[K]``."""
+    ``kinetics[N, 4]`` (``[N, 5]`` with the age for 3 inputs) and two or
+    more increasing ``timepoints[K]``."""
     check_net_canonical(net)
     tensors = dict(nn_params=nn_params, glucose=glucose, data=data,
                    kinetics=kinetics)
@@ -379,12 +379,15 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
         return out
     segs, j0, one_minus_w0, w0 = _segments(timepoints, substeps)
     lane_stride = nn_params.stride(0) if n_lanes > 1 else nn_params.shape[1]
+    long = long_grid(timepoints)
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths,
+                                                                 long)
+        segs_dev = device_table(segs if long else None, betas.device)
         lib(nn_params.data_ptr(), lane_stride, betas.data_ptr(),
             glucose.data_ptr(), data.data_ptr(), kinetics.data_ptr(),
-            out.data_ptr(), n_lanes, segs.ctypes.data_as(F32_PTR),
+            out.data_ptr(), n_lanes, segs.ctypes.data_as(F32_PTR), segs_dev,
             segs.shape[0], substeps, j0, one_minus_w0, w0, stream)
     count_launch(shape_launches, net)
     return out

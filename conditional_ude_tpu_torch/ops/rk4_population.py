@@ -29,7 +29,9 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     VP,
     KernelLibrary,
     count_launch,
+    device_table,
     launch_total,
+    long_grid,
 )
 from conditional_ude_tpu_torch.ops.rk4_cohort import (
     PointNetwork,
@@ -49,8 +51,8 @@ shape_launches: dict = {}
 def __getattr__(name: str) -> int:
     return launch_total(shape_launches, name, __name__)
 
-_ARGTYPES = [VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32, F32,
-             F32, F32, VP]
+_ARGTYPES = [VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, VP, I32, I32, I32,
+             F32, F32, F32, VP]
 kernel = KernelLibrary("rk4_population.cu", "rk4_population_sse", _ARGTYPES)
 kernel_age = KernelLibrary("rk4_population.cu", "rk4_population_sse_age",
                            _ARGTYPES)
@@ -105,12 +107,15 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
     if g == 0:
         return out
     segs, j0, one_minus_w0, w0 = _segments(timepoints, substeps)
+    long = long_grid(timepoints)
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths,
+                                                                 long)
+        segs_dev = device_table(segs if long else None, betas.device)
         lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
             data.data_ptr(), kinetics.data_ptr(), out.data_ptr(), g, n,
-            segs.ctypes.data_as(F32_PTR), segs.shape[0], substeps, j0,
-            one_minus_w0, w0, float(np.float32(1.0 / n)), stream)
+            segs.ctypes.data_as(F32_PTR), segs_dev, segs.shape[0], substeps,
+            j0, one_minus_w0, w0, float(np.float32(1.0 / n)), stream)
     count_launch(shape_launches, net)
     return out

@@ -41,12 +41,14 @@ from conditional_ude_tpu_torch.ops.cuda_build import (
     I32,
     I64,
     VP,
+    SHORT_GRID,
     KernelLibrary,
     count_launch,
+    device_table,
     launch_total,
+    long_grid,
 )
 from conditional_ude_tpu_torch.ops.rk4_cohort import (
-    MAX_TIMEPOINTS,
     _mlp_columns,
     _mlp_forward,
     _segments,
@@ -64,7 +66,8 @@ shape_launches: dict = {}
 def __getattr__(name: str) -> int:
     return launch_total(shape_launches, name, __name__)
 
-_ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, I32, I32, I32, VP]
+_ARGTYPES = [VP, VP, VP, VP, VP, VP, VP, I64, I32, F32_PTR, VP, I32, I32, I32,
+             VP]
 kernel = KernelLibrary("tsit5_cohort.cu", "tsit5_cohort_sse", _ARGTYPES)
 kernel_age = KernelLibrary("tsit5_cohort.cu", "tsit5_cohort_sse_age",
                            _ARGTYPES)
@@ -74,8 +77,9 @@ def constants(timepoints, rtol: float, atol: float) -> np.ndarray:
     """Host float32 constants of the kernel, each rounded once from float64
     as the JAX kernel's Python floats are: the tableau (c[7], a[7][6]
     lower-triangular, btilde[7]), the interpolant's 22 constants, the knots
-    and spans of the glucose grid (padded to ``MAX_TIMEPOINTS``), then the
-    scalars below, in the order of ``struct Tsit5Consts`` in the kernel.
+    and spans of the glucose grid (padded to ``SHORT_GRID`` for a short
+    grid, as many as the grid has points for a long one), then the scalars
+    below, in the order of ``struct Tsit5Consts`` in the kernel.
     Kept per (grid, rtol, atol), so a call of the wrapper does not build
     them again (the array is read-only)."""
     return _constants_of(tuple(float(t) for t in timepoints), float(rtol),
@@ -93,9 +97,9 @@ def _constants_of(timepoints: tuple[float, ...], rtol: float,
     a = np.zeros((7, 6))
     for s, row in enumerate(tableau._A):
         a[s, :len(row)] = row
-    knots = np.zeros(MAX_TIMEPOINTS)
+    knots = np.zeros(max(k, SHORT_GRID))
     knots[:k] = ts
-    spans = np.zeros(MAX_TIMEPOINTS)
+    spans = np.zeros(max(k, SHORT_GRID))
     spans[:k - 1] = np.diff(ts)
     scalars = dict(
         one_minus_w0=one_minus_w0, w0=w0, t0=t0, t1=t1, t_span=span,
@@ -331,13 +335,16 @@ def _launch(net, nn_params, betas, glucose, data, kinetics, timepoints,
         return sse, ok
     consts = constants(timepoints, rtol, atol)
     _, j0, _, _ = _segments(timepoints, 1)
+    long = long_grid(timepoints)
     with torch.cuda.device(betas.device):
         stream = torch.cuda.current_stream(betas.device).cuda_stream
-        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths)
+        lib = (kernel_age if net.input_dims == 3 else kernel).at(net.widths,
+                                                                 long)
+        consts_dev = device_table(consts if long else None, betas.device)
         lib(nn_params.data_ptr(), betas.data_ptr(), glucose.data_ptr(),
             data.data_ptr(), kinetics.data_ptr(), sse.data_ptr(),
             ok.data_ptr(), r * n, n, consts.ctypes.data_as(F32_PTR),
-            len(timepoints), j0, max_steps, stream)
+            consts_dev, len(timepoints), j0, max_steps, stream)
     count_launch(shape_launches, net)
     return sse, ok
 

@@ -13,16 +13,28 @@
   replication runner's for ``exp_replicate.py``), or ``FLAGS`` names its
   counterpart there.
 
+* The top-level module ``nn`` (which has no ``__all__``): every public
+  name it defines, and every public method and property of its ``MLP``, is
+  the port's, with the same options; ``MLP.init`` draws the JAX package's
+  Glorot layout and ``chain`` takes a callable activation.
+* The package's own ``__all__`` is the JAX package's eight subpackages, each
+  imported at its first use.
+
 Each exception carries its reason; a name, parameter or flag with no
 counterpart and no entry fails.
 """
 
+import ast
 import importlib
 import inspect
+import math
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
+import torch
 from torch_threads import one_thread  # noqa: F401
 
 from conditional_ude_tpu_torch import __main__ as entry
@@ -178,3 +190,102 @@ def test_every_exception_is_used():
     assert set(NOT_PORTED_PARAMETER) <= used
     flags = set().union(*map(_script_flags, SCRIPTS))
     assert set(FLAGS) <= flags
+
+
+def _nn_public() -> list[str]:
+    """The public names the JAX ``nn`` module defines at its top level."""
+    tree = ast.parse((REPO / "conditional_ude_tpu" / "nn.py").read_text())
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+    return [n for n in names if not n.startswith("_")]
+
+
+def test_nn_public_names_have_counterparts():
+    """``Activation``, ``resolve_activation``, ``MLP`` (its methods and
+    properties) and ``chain``, each with the JAX package's options."""
+    from conditional_ude_tpu import nn as jnn
+    from conditional_ude_tpu_torch import nn as pnn
+
+    names = _nn_public()
+    assert {"Activation", "resolve_activation", "MLP", "chain"} <= set(names)
+    pairs = [(getattr(jnn, n), getattr(pnn, n, None), n) for n in names]
+    net = pnn.chain(4, 2)      # fields are the port's instance attributes
+    pairs += [(getattr(jnn.MLP, m), getattr(net, m, None), f"MLP.{m}")
+              for m in vars(jnn.MLP) if not m.startswith("_")]
+    missing = [what for _, ours, what in pairs if ours is None]
+    missing += [f"{what}: no parameter {k}" for theirs, ours, what in pairs
+                if ours is not None and callable(theirs)
+                and not isinstance(theirs, type)
+                for k in _keywords(theirs) if k not in _parameters(ours)]
+    assert not missing, missing
+
+
+def test_mlp_init_is_the_glorot_row_of_init_batch():
+    """One flat vector in the JAX package's layout (per layer W row-major
+    [fan_out][fan_in] in ±sqrt(6 / (fan_in + fan_out)), then a zero
+    bias), the row ``init_batch`` draws for n = 1 from the same state."""
+    from conditional_ude_tpu.nn import chain as jax_chain
+    from conditional_ude_tpu_torch.nn import chain
+
+    for args in ((4, 2), ([6, 3],), (8, 3)):
+        net, jnet = chain(*args, input_dims=3), jax_chain(*args, input_dims=3)
+        assert net.layer_dims == jnet.layer_dims
+        flat = net.init(torch.Generator().manual_seed(5))
+        assert flat.shape == (jnet.num_params,) and flat.dtype == torch.float32
+        assert torch.equal(flat, net.init_batch(
+            1, torch.Generator().manual_seed(5))[0])
+        for (w, b), (fi, fo) in zip(net.unflatten(flat), net.layer_dims):
+            assert w.shape == (fo, fi) and not bool(b.any())
+            bound = math.sqrt(6.0 / (fi + fo))
+            assert float(w.abs().max()) <= bound and float(w.std()) > 0
+        assert net.init(torch.Generator().manual_seed(5),
+                        torch.float64).dtype == torch.float64
+
+
+def test_chain_takes_a_callable_activation():
+    """A callable is stored by its ``__name__``, as JAX stores it, and the
+    network computes with it; ``resolve_activation`` maps a name to its
+    function and returns a callable as it is."""
+    from conditional_ude_tpu.nn import chain as jax_chain
+    from conditional_ude_tpu_torch import nn as pnn
+
+    for fn, jfn in ((torch.tanh, "tanh"), (torch.sigmoid, "sigmoid"),
+                    (pnn.gelu, "gelu")):
+        net = pnn.chain(4, 2, fn)
+        assert net.activations == jax_chain(4, 2, jfn).activations
+        assert net.activations == pnn.chain(4, 2, fn.__name__).activations
+        assert pnn.resolve_activation(net.activations[0]) is \
+            pnn.ACTIVATIONS[fn.__name__]
+    assert pnn.resolve_activation(torch.relu) is torch.relu
+    with pytest.raises(ValueError):
+        pnn.resolve_activation("swish")
+    x = torch.linspace(-2, 2, 8).reshape(4, 2)
+    flat = pnn.chain(4, 2).init(torch.Generator().manual_seed(1))
+    assert torch.equal(pnn.chain(4, 2, torch.tanh)(flat, x),
+                       pnn.chain(4, 2)(flat, x))
+
+
+def test_top_level_all_is_the_jax_packages():
+    """``conditional_ude_tpu_torch.__all__`` lists the JAX package's eight
+    subpackages; importing the package imports none of them (a fresh
+    process), and each name gives its subpackage."""
+    import conditional_ude_tpu
+    import conditional_ude_tpu_torch as port
+
+    assert sorted(port.__all__) == sorted(conditional_ude_tpu.__all__)
+    code = ("import sys, conditional_ude_tpu_torch as p; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('conditional_ude_tpu_torch.')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, text=True,
+                         capture_output=True, check=True).stdout
+    assert out.strip() == "[]"
+    for name in port.__all__:
+        mod = getattr(port, name)
+        assert mod is importlib.import_module(f"conditional_ude_tpu_torch."
+                                              f"{name}")
+    with pytest.raises(AttributeError):
+        port.no_such_subpackage

@@ -426,17 +426,21 @@ def test_grad_kernels_equal_their_plain_versions_bit_for_bit(card, r, n,
 
 def test_restart_kernel_refuses_a_cohort_beyond_shared_memory(card):
     """K5 keeps the cohort and a table of N rows in one block's shared
-    memory: 54,116 bytes at 57 subjects (above the 48 KB default, so the
-    launch opts in); the launch refuses a cohort past the card's 227 KB,
-    which the wrapper raises as ``ValueError``, with no fallback."""
+    memory while they fit (54,268 bytes at 57 subjects, above the 48 KB
+    default, so the launch opts in); past the card's 227 KB it refuses
+    nothing: it takes the individuals in tiles, each summed into the same
+    running sums, so 1,000 subjects launch once and equal the plain
+    version bit for bit."""
     net, args = _restarts(3, 57, card)
     before = population_grad.launches
     population_grad.restart_sse_and_grad(net, *args, 8)
     assert population_grad.launches == before + 1
     net, args = _restarts(3, 1000, card)
-    with pytest.raises(ValueError):
-        population_grad.restart_sse_and_grad(net, *args, 8)
-    assert population_grad.launches == before + 1
+    got = population_grad.restart_sse_and_grad(net, *args, 8)
+    assert population_grad.launches == before + 2
+    for g, want in zip(got, population_grad.restart_sse_and_grad_reference(
+            net, *args, 8)):
+        _assert_same(g, want)
 
 
 def test_suppression_loss_on_the_card_matches_the_cpu(card):
@@ -654,3 +658,210 @@ def test_training_at_2304_restarts_takes_the_restart_kernel_past_one_pass(
     assert launched["population_grad"] >= 3 and launched["lane_grad"] == 0
     assert res.objectives.shape == (2304,)
     assert bool(torch.isfinite(res.objectives[0]))
+
+
+# -- any time grid, substep count and cohort size (F9) -------------------------
+#
+# The JAX kernels unroll any grid and substep count and take any cohort; the
+# port's bodies take them too: a grid of more than 16 points through the
+# long-grid library (its tables in device memory), more than 16 substeps and
+# a cohort past one block's shared memory through the layouts the launches
+# choose.  Each is held to its plain version bit for bit.
+
+def _fujita_times():
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    return tuple(float(t) for t in np.load(root / "artifacts" / "fujita.npz")
+                 ["timepoints"])
+
+
+GRIDS = {"25 points": tuple(np.linspace(0.0, 120.0, 25)),
+         "61 points": tuple(np.linspace(0.0, 120.0, 61)),
+         "fujita": _fujita_times(),          # 14 points from -10 min
+         "121 points": tuple(np.linspace(0.0, 120.0, 121))}
+
+
+def _grid_case(grid, r, n, device, input_dims=2, seed=21, widths=(4, 4)):
+    """r restarts (Glorot, the last of huge weights) and n subjects (real
+    ages, the last on a rising glucose curve) on the grid ``GRIDS[grid]``
+    (or a tuple of times)."""
+    tp = GRIDS[grid] if isinstance(grid, str) else tuple(grid)
+    k = len(tp)
+    net = chain(list(widths), input_dims=input_dims)
+    rng = np.random.default_rng(seed)
+    parts = []
+    for fi, fo in net.layer_dims:
+        b = np.sqrt(6.0 / (fi + fo))
+        parts += [rng.uniform(-b, b, (r, fo * fi)), np.zeros((r, fo))]
+    nn = np.concatenate(parts, 1)
+    if tuple(widths) == (4, 4):
+        nn[-1] = _huge(input_dims)
+    glucose = 5.0 + rng.uniform(0, 5, (n, k))
+    glucose[-1] = np.linspace(5.0, 9.0, k)
+    cohort = build_cohort(glucose, np.asarray(tp),
+                          0.5 + rng.uniform(0, 1.5, (n, k)),
+                          rng.uniform(30, 70, n), rng.uniform(size=n) > 0.5,
+                          device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return net, (torch.as_tensor(nn, **f32),
+                 torch.as_tensor(rng.uniform(-2.0, 0.0, (r, n)), **f32),
+                 cohort.glucose, cohort.cpeptide,
+                 cohort.kinetics(with_age=input_dims == 3), tp)
+
+
+def _lanes_of(args):
+    """K4's lanes of the (restart, individual) pairs of restart inputs."""
+    nn, betas, glucose, data, kin, tp = args
+    r, n = betas.shape
+    return (nn.repeat_interleave(n, 0), betas.reshape(-1),
+            glucose.repeat(r, 1), data.repeat(r, 1), kin.repeat(r, 1), tp)
+
+
+def _held(mod, kernel, plain, net, args):
+    """The body launched once at the network's shape, bit for bit its plain
+    version; returns the kernel's outputs."""
+    shape = (net.input_dims, net.widths)
+    before = mod.shape_launches.get(shape, 0)
+    out = kernel(net, *args)
+    assert mod.shape_launches[shape] == before + 1
+    ref = plain(net, *args)
+    torch.cuda.synchronize()
+    for o, p in zip(out if isinstance(out, tuple) else (out,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        _assert_same(o, p)
+    return out
+
+
+def _in_order(lanes, r, n):
+    """K5's outputs from K2's lanes: summed over the individuals 0..N-1 in
+    order and times 1/N."""
+    sse, gnn, gb = lanes
+    inv_n = np.float32(1.0 / n)
+    mean = population_grad.sum_in_order(sse) * inv_n
+    return (torch.where(torch.isfinite(mean), mean, torch.inf),
+            population_grad.sum_in_order(gnn) * inv_n, gb * inv_n)
+
+
+@pytest.mark.parametrize("input_dims", [2, 3])
+@pytest.mark.parametrize("grid", ["25 points", "61 points", "fujita"])
+def test_every_body_on_a_longer_grid_is_its_plain_version(card, grid,
+                                                          input_dims):
+    """K1, K4, K2, K5 and K3 (or their covariate bodies) on a grid of 25
+    and 61 points (the long-grid library) and on Fujita's 14 points from
+    -10 min: each launches once and equals its plain version bit for bit
+    (K3 with the same ``ok`` mask); K5 also equals K2's lanes summed in
+    order and K1 the in-order mean of K4's lanes."""
+    net, args = _grid_case(grid, 25, 57, card, input_dims)
+    r, n = args[1].shape
+    k1 = _held(rk4_population, rk4_population.population_sse,
+               rk4_population.population_sse_reference, net, args + (8,))
+    k4 = _held(rk4_cohort, rk4_cohort.cohort_sse,
+               rk4_cohort.cohort_sse_reference, net, _lanes_of(args) + (8,))
+    mean = population_grad.sum_in_order(k4.reshape(r, n)) * np.float32(1 / n)
+    _assert_same(k1, torch.where(torch.isfinite(mean), mean, torch.inf))
+    k2 = _held(lane_grad, lane_grad.lane_sse_and_grad,
+               lane_grad.lane_sse_and_grad_reference, net, args + (8,))
+    k5 = _held(population_grad, population_grad.restart_sse_and_grad,
+               population_grad.restart_sse_and_grad_reference, net,
+               args + (8,))
+    for got, want in zip(k5, _in_order(k2, r, n)):
+        _assert_same(got, want)
+    sse, ok = _held(tsit5_cohort, tsit5_cohort.cohort_sse_tsit5,
+                    tsit5_cohort.cohort_sse_tsit5_reference, net, args)
+    assert bool(torch.isinf(sse[~ok]).all()) and not bool(ok[-1].all())
+
+
+def test_screen_and_rerank_take_121_points(card):
+    """K1 and K3 at 121 points (a sample a minute): nothing refused, each
+    bit for bit its plain version."""
+    net, args = _grid_case("121 points", 37, 57, card)
+    _held(rk4_population, rk4_population.population_sse,
+          rk4_population.population_sse_reference, net, args + (8,))
+    _held(tsit5_cohort, tsit5_cohort.cohort_sse_tsit5,
+          tsit5_cohort.cohort_sse_tsit5_reference, net, args)
+
+
+@pytest.mark.parametrize("input_dims", [2, 3])
+@pytest.mark.parametrize("grid,substeps", [("ogtt", 20), ("ogtt", 32),
+                                           ("61 points", 32),
+                                           ("121 points", 32)])
+def test_grad_kernels_past_16_substeps(card, grid, substeps, input_dims):
+    """K2 and K5 at 20 and 32 substeps (up to 7,801 evaluation points a lane
+    at 121 points, where a block of K2 takes fewer warps): bit for bit their
+    plain versions, K5 K2's lanes summed in order; K1 and K4 alike."""
+    r, n = (25, 57) if grid == "ogtt" else (3, 13)
+    net, args = _grid_case(TP if grid == "ogtt" else grid, r, n, card,
+                           input_dims)
+    k2 = _held(lane_grad, lane_grad.lane_sse_and_grad,
+               lane_grad.lane_sse_and_grad_reference, net, args + (substeps,))
+    k5 = _held(population_grad, population_grad.restart_sse_and_grad,
+               population_grad.restart_sse_and_grad_reference, net,
+               args + (substeps,))
+    for got, want in zip(k5, _in_order(k2, r, n)):
+        _assert_same(got, want)
+    _held(rk4_population, rk4_population.population_sse,
+          rk4_population.population_sse_reference, net, args + (substeps,))
+
+
+@pytest.mark.parametrize("input_dims", [2, 3])
+@pytest.mark.parametrize("n", [1053, 2106])
+def test_cohort_past_one_block(card, n, input_dims):
+    """K1 and K5 at 1,053 and 2,106 individuals (past the 819 and 909 a
+    block held before): K1 reads the cohort from device memory and sums a
+    restart's chunks into one running total, K5 takes the individuals in
+    tiles; both bit for bit their plain versions, K1 the in-order mean of
+    K4's lanes and K5 K2's lanes summed in order."""
+    net, args = _grid_case(TP, 5, n, card, input_dims)
+    k1 = _held(rk4_population, rk4_population.population_sse,
+               rk4_population.population_sse_reference, net, args + (8,))
+    k4 = rk4_cohort.cohort_sse(net, *_lanes_of(args), 8)
+    mean = population_grad.sum_in_order(k4.reshape(5, n)) * np.float32(1 / n)
+    _assert_same(k1, torch.where(torch.isfinite(mean), mean, torch.inf))
+    k5 = _held(population_grad, population_grad.restart_sse_and_grad,
+               population_grad.restart_sse_and_grad_reference, net,
+               args + (8,))
+    for got, want in zip(k5, _in_order(
+            lane_grad.lane_sse_and_grad(net, *args, 8), 5, n)):
+        _assert_same(got, want)
+
+
+@pytest.mark.parametrize("widths,n", [((4, 4), 1053), ((90, 90), 57)],
+                         ids=["chain(4, 2) at 1053", "chain(90, 2) at 57"])
+def test_restart_kernel_at_2304_restarts(card, widths, n):
+    """K5 at 2,304 restarts (its route above ``PACK_MAX_LANES``) for
+    ``chain(4, 2)`` on 1,053 individuals and for ``chain(90, 2)``, 8,551
+    weights, past the 8,192 a block copies into shared memory (read from
+    device memory, 67 passes of 128 columns): one launch, and the first,
+    a middle and the last restarts bit for bit the plain version on those
+    restarts alone (the restarts are independent)."""
+    net, args = _grid_case(TP, 2304, n, card, widths=widths)
+    assert net.num_params == (37 if widths == (4, 4) else 8551)
+    shape = (2, tuple(widths))
+    before = population_grad.shape_launches.get(shape, 0)
+    got = population_grad.restart_sse_and_grad(net, *args, 8)
+    assert population_grad.shape_launches[shape] == before + 1
+    pick = torch.tensor([0, 1151, 2303], device=card)
+    nn, betas, *cohort = args
+    ref = population_grad.restart_sse_and_grad_reference(
+        net, nn[pick], betas[pick], *cohort, 8)
+    torch.cuda.synchronize()
+    for g, want in zip(got, ref):
+        _assert_same(g[pick], want)
+
+
+@pytest.mark.parametrize("input_dims", [2, 3])
+def test_grad_kernels_past_one_block_of_scratch(card, input_dims):
+    """K2 and K5 at 7,200 substeps (57,605 evaluation points a lane, past
+    what one warp's scratch can hold in a block's shared memory): the
+    scratch in device memory, the outputs finite, K5 K2's lanes summed in
+    order bit for bit, and the SSEs within 1e-3 of 32 substeps' (RK4 has
+    converged)."""
+    net, args = _grid_case(TP, 2, 3, card, input_dims, seed=4)
+    args = (args[0][:1].contiguous(), args[1][:1].contiguous(), *args[2:])
+    k2 = lane_grad.lane_sse_and_grad(net, *args, 7200)
+    k5 = population_grad.restart_sse_and_grad(net, *args, 7200)
+    for got, want in zip(k5, _in_order(k2, 1, 3)):
+        _assert_same(got, want)
+    assert all(bool(torch.isfinite(x).all()) for x in k2)
+    coarse = lane_grad.lane_sse_and_grad(net, *args, 32)[0]
+    torch.testing.assert_close(k2[0], coarse, rtol=1e-3, atol=0)

@@ -152,7 +152,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     _, _, _, nn, betas, cohort_args = case
     args = (torch.as_tensor(nn), torch.as_tensor(betas), *cohort_args)
     with pytest.raises(ValueError):
-        lane_grad.lane_sse_and_grad(chain(4, 2), *args, 17)   # > 16 substeps
+        lane_grad.lane_sse_and_grad(chain(4, 2), *args, 0)    # no substep
     with pytest.raises(ValueError):
         lane_grad.lane_sse_and_grad(chain(4, 2), args[0][:2], *args[1:], 8)
     # the kernels take chain(8, 2), but its 2-input form has 105 weights
